@@ -1,0 +1,26 @@
+"""gvr_tpu_torch: the PyTorch/CUDA port of gvr_tpu for NVIDIA Hopper.
+
+A second package beside the JAX reference ``gvr_tpu``: the same module
+paths, PyTorch tensors with an explicit device, and the reference's Pallas
+kernels rewritten by hand in CUDA C++ for sm_90a (``csrc/``), each with a
+plain PyTorch version beside it.  This slice covers the multiscatter main
+path: scene text -> GaussianMixture -> camera -> ``render_multiscatter``
+(pooled megakernel) -> PPM.  It never imports jax or gvr_tpu.
+"""
+
+from gvr_tpu_torch.cameras import OrthographicCamera, PinholeCamera
+from gvr_tpu_torch.config import RenderConfig, Solver
+from gvr_tpu_torch.scene.gaussians import GaussianMixture
+from gvr_tpu_torch.scene.scene import Scene, load_gmm, load_scene, parse_gmm
+
+__all__ = [
+    "GaussianMixture",
+    "OrthographicCamera",
+    "PinholeCamera",
+    "RenderConfig",
+    "Scene",
+    "Solver",
+    "load_gmm",
+    "load_scene",
+    "parse_gmm",
+]

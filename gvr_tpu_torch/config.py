@@ -1,0 +1,78 @@
+"""Runtime configuration for renders.
+
+The counterpart of ``gvr_tpu/config.py`` without its TPU layout knobs
+(``pallas``, ``wavefront``, ``block``, ``mxu_coeffs``, ``tau_bf16``,
+``pool_regen``): the CUDA megakernel is always the pooled one and its block
+geometry is fixed by the kernel.  The ray marchers' ``step_size`` and
+``env_samples`` come back with the marchers.  ``FitConfig`` waits for the
+inverse-rendering port.  A value that selects a path this package
+does not have yet raises ``NotImplementedError`` naming the ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+
+
+class Solver(enum.Enum):
+    """Free-flight distance solver (reference ``distance_solvers.h``).
+
+    NEWTON and ANALYTIC_NEWTON both run the fused bounce kernel (bracketed
+    Newton + Illinois, with the optional erfinv finisher), as in the JAX
+    package's kernel path (``gvr_tpu/integrators/multiscatter.py:452``).
+    The ablation solvers wait for their port (ROADMAP Queue 1, "the rest
+    of ops/solvers").
+    """
+
+    NEWTON = "newton"
+    BISECTION = "bisection"
+    ANALYTIC_NEWTON = "analytic_newton"
+    ANALYTIC_BISECTION = "analytic_bisection"
+    UNIFORM = "uniform"
+
+
+KERNEL_SOLVERS = (Solver.NEWTON, Solver.ANALYTIC_NEWTON)
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Static knobs of the multiscatter integrator; defaults mirror the
+    reference's ``tests/main.cpp`` and ``gvr_tpu.config.RenderConfig``."""
+
+    width: int = 512
+    height: int = 512
+    spp: int = 256                 # samples per pixel
+    min_scatter: int = 5           # bounces before Russian roulette
+    rr_cap: float = 0.9            # RR survival probability cap
+    rr_tail_after: int = 16        # from this bounce on, RR caps at ...
+    rr_cap_tail: float = 0.5       # ... this survival probability
+    max_bounces: int = 64          # hard bound on a path's length
+    solver: Solver = Solver.ANALYTIC_NEWTON
+    solver_iters: int = 12         # Newton + Illinois trip count
+    solver_finisher: bool = False  # analytic erfinv finisher
+    ray_chunk: int = 1 << 16       # pixels per kernel launch
+    seed: int = 0                  # base RNG seed
+    candidate_k: int = 0           # per-ray candidate compaction (0 = dense)
+    engine: str = "auto"           # 'auto' | 'dense' | 'grid'
+
+    def __post_init__(self):
+        if self.engine not in ("auto", "dense", "grid"):
+            raise ValueError(f"engine must be 'auto'/'dense'/'grid', "
+                             f"got {self.engine!r}")
+        if self.solver not in KERNEL_SOLVERS:
+            raise NotImplementedError(
+                f"solver={self.solver.name} is not ported yet (ROADMAP "
+                f"Queue 1, the rest of ops/solvers); use NEWTON or "
+                f"ANALYTIC_NEWTON")
+        if self.engine == "grid":
+            raise NotImplementedError(
+                "engine='grid' is not ported yet (ROADMAP Queue 1, "
+                "accel/grid + gridscatter, with kernels K6/K7)")
+        if self.candidate_k != 0:
+            raise NotImplementedError(
+                "candidate_k != 0 is not ported yet (ROADMAP Queue 1, "
+                "ops/transmittance: compact_candidates)")
+
+    def replace(self, **kw) -> "RenderConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,301 @@
+// The three CUDA kernels of the multiscatter main path and their C entry
+// points (loaded with ctypes by gvr_tpu_torch/kernels/_build.py).  Each
+// entry point launches on the caller's stream, does not synchronise, and
+// returns cudaGetLastError() so a refused launch is reported.
+//
+//   gvr_uniforms  K3  counter-hash RNG dump     (gvr_tpu/kernels/rng.py:86)
+//   gvr_bounce    K2  one fused bounce per ray  (gvr_tpu/kernels/pathtrace.py:465)
+//   gvr_mega      K1  pooled path-tracing loop  (gvr_tpu/kernels/megatrace.py:501)
+
+#include "bounce.cuh"
+#include "common.cuh"
+#include "rng.cuh"
+
+namespace gvr {
+
+__global__ void uniforms_kernel(const int* __restrict__ pid,
+                                const int* __restrict__ sample,
+                                const int* __restrict__ bounce,
+                                uint32_t static_bounce, int count, int n,
+                                uint32_t seed_mix, uint32_t seed_raw,
+                                float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  const uint32_t b = bounce ? static_cast<uint32_t>(bounce[i]) : static_bounce;
+  const BounceKey k = bounce_key(
+      path_key(static_cast<uint32_t>(pid[i]), static_cast<uint32_t>(sample[i]),
+               seed_mix, seed_raw),
+      b);
+  for (int j = 0; j < n; ++j) out[static_cast<size_t>(j) * count + i] = draw(k, j);
+}
+
+__device__ __forceinline__ Lights make_lights(const float* rows, int n,
+                                              const float* env) {
+  Lights l;
+  l.rows = rows;
+  l.n = n;
+  for (int c = 0; c < 3; ++c) l.env[c] = __ldg(env + c);
+  return l;
+}
+
+// out [8, b]: t_sc, scattered, albedo, Li rgb, tau_tot, fin.
+__global__ void bounce_kernel(const float4* __restrict__ tab, int np,
+                              const float* __restrict__ o,
+                              const float* __restrict__ d,
+                              const float* __restrict__ xi, int b,
+                              const float* __restrict__ light_rows,
+                              int n_lights, const float* __restrict__ env,
+                              int solver_iters, bool finisher,
+                              float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= b) return;
+  const Lights lights = make_lights(light_rows, n_lights, env);
+  const Ray r = {o[3 * i], o[3 * i + 1], o[3 * i + 2],
+                 d[3 * i], d[3 * i + 1], d[3 * i + 2]};
+  const float* x = xi + 5 * i;
+  const BounceOut res = bounce_core<true>(tab, np, r, x[0], x[1], x[2], x[3],
+                                          x[4], lights, solver_iters, finisher);
+  out[i] = res.t_sc;
+  out[b + i] = res.scattered ? 1.0f : 0.0f;
+  out[2 * b + i] = res.albedo;
+  out[3 * b + i] = res.li[0];
+  out[4 * b + i] = res.li[1];
+  out[5 * b + i] = res.li[2];
+  out[6 * b + i] = res.tau_tot;
+  out[7 * b + i] = res.fin ? 1.0f : 0.0f;
+}
+
+struct MegaParams {
+  int w, h, spp, n_strat;
+  uint32_t seed_mix, seed_raw;
+  int solver_iters;
+  bool finisher;
+  int min_scatter;
+  float rr_cap;
+  int rr_tail_after;
+  float rr_cap_tail;
+  int max_bounces;
+  bool pinhole;
+  float nee_w;  // (L + 1) / (4 pi): NEE weight of one light or the env
+};
+
+constexpr int MEGA_BLOCK = 128;  // threads = pixels of one block's pool
+
+// Stratified camera ray for (pixel x, y; sample s) from the 16-float camera
+// vector (position, right, up, view_dir, focal): the same math as
+// megatrace.make_ray, with integer strata and true division.
+__device__ __forceinline__ Ray camera_ray(const float* cam,
+                                          const MegaParams& P, int x, int y,
+                                          int s, float j0, float j1) {
+  const int sx = s % P.n_strat;
+  const int sy = (s / P.n_strat) % P.n_strat;
+  const float n = static_cast<float>(P.n_strat);
+  const float u01 =
+      (static_cast<float>(x) + (static_cast<float>(sx) + j0) / n) /
+      static_cast<float>(P.w);
+  const float v01 =
+      (static_cast<float>(y) + (static_cast<float>(sy) + j1) / n) /
+      static_cast<float>(P.h);
+  float u, v;
+  if (P.pinhole) {
+    u = 1.0f - u01 * 2.0f;  // x-flip (camera.h:47)
+    v = v01 * 2.0f - 1.0f;
+  } else {
+    u = u01 * 2.0f - 1.0f;
+    v = 1.0f - v01 * 2.0f;  // y-flip (camera.h:67)
+  }
+  Ray r;
+  r.ox = cam[0] + u * cam[3] + v * cam[6];
+  r.oy = cam[1] + u * cam[4] + v * cam[7];
+  r.oz = cam[2] + u * cam[5] + v * cam[8];
+  if (P.pinhole) {
+    const float ddx = cam[0] + cam[12] * cam[9] - r.ox;
+    const float ddy = cam[1] + cam[12] * cam[10] - r.oy;
+    const float ddz = cam[2] + cam[12] * cam[11] - r.oz;
+    const float nrm = sqrtf(ddx * ddx + ddy * ddy + ddz * ddz);
+    r.dx = ddx / nrm;
+    r.dy = ddy / nrm;
+    r.dz = ddz / nrm;
+  } else {
+    r.dx = cam[9];
+    r.dy = cam[10];
+    r.dz = cam[11];
+  }
+  return r;
+}
+
+// One block owns MEGA_BLOCK consecutive ids of the chunk.  Their
+// (pixel, sample) slots form a pool: a thread without a live path claims
+// the next slot with a shared-memory atomicAdd (slot g = pixel g / spp,
+// sample g % spp), traces that path bounce by bounce, adds its radiance to
+// the pixel's shared accumulator when it ends, and claims again.  This is
+// the GPU form of the TPU kernel's one-hot rank/gather/scatter pool.
+// out_rad [b, 3] radiance sums over the spp samples; out_count [b] bounce
+// evaluations.
+__global__ void __launch_bounds__(MEGA_BLOCK)
+    mega_kernel(const float* __restrict__ cam_g,
+                const float4* __restrict__ tab, int np,
+                const int* __restrict__ ids, int b,
+                const float* __restrict__ light_rows, int n_lights,
+                const float* __restrict__ env, MegaParams P,
+                float* __restrict__ out_rad, int* __restrict__ out_count) {
+  __shared__ int next_slot;
+  __shared__ float acc[3][MEGA_BLOCK];
+  __shared__ int cnt[MEGA_BLOCK];
+  const int tid = threadIdx.x;
+  const int base = blockIdx.x * MEGA_BLOCK;
+  const int npix = min(MEGA_BLOCK, b - base);
+  const int pool = npix * P.spp;
+  if (tid == 0) next_slot = 0;
+  acc[0][tid] = acc[1][tid] = acc[2][tid] = 0.0f;
+  cnt[tid] = 0;
+  __syncthreads();
+
+  float cam[13];
+  for (int k = 0; k < 13; ++k) cam[k] = __ldg(cam_g + k);
+  const Lights lights = make_lights(light_rows, n_lights, env);
+
+  bool alive = false;
+  int slot = 0, bounce = 0, evals = 0;
+  PathKey key = {0u, 0u};
+  Ray r = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 1.0f};
+  float thr[3] = {1.0f, 1.0f, 1.0f}, rad[3] = {0.0f, 0.0f, 0.0f};
+  while (true) {
+    if (!alive) {
+      const int g = atomicAdd(&next_slot, 1);
+      if (g >= pool) break;
+      slot = g / P.spp;
+      const int s = g - slot * P.spp;
+      const int pid = ids[base + slot];
+      key = path_key(static_cast<uint32_t>(pid), static_cast<uint32_t>(s),
+                     P.seed_mix, P.seed_raw);
+      float jit[2];
+      uniforms<2>(key, JITTER_TAG, jit);
+      r = camera_ray(cam, P, pid % P.w, pid / P.w, s, jit[0], jit[1]);
+      for (int c = 0; c < 3; ++c) {
+        thr[c] = 1.0f;
+        rad[c] = 0.0f;
+      }
+      bounce = 0;
+      evals = 0;
+      alive = true;
+    }
+    float xi[9];
+    uniforms<9>(key, static_cast<uint32_t>(bounce), xi);
+    const BounceOut res =
+        bounce_core<false>(tab, np, r, xi[0], xi[1], xi[2], xi[3], xi[4],
+                           lights, P.solver_iters, P.finisher);
+    ++evals;
+    if (!res.scattered) {
+      for (int c = 0; c < 3; ++c) rad[c] += thr[c] * lights.env[c];
+      alive = false;
+    } else {
+      const float wgt = res.albedo * P.nee_w;
+      float tn[3];
+      for (int c = 0; c < 3; ++c) {
+        rad[c] += thr[c] * wgt * res.li[c];
+        tn[c] = thr[c] * res.albedo;
+      }
+      // Russian roulette (integrator.h:688-695) with the tail cap
+      const bool do_rr = bounce >= P.min_scatter;
+      const float cap = bounce >= P.rr_tail_after ? P.rr_cap_tail : P.rr_cap;
+      const float rr = fminf(fmaxf(fmaxf(tn[0], tn[1]), tn[2]), cap);
+      const bool killed = do_rr && xi[5] > rr;
+      if (do_rr && !killed)
+        for (int c = 0; c < 3; ++c) tn[c] = tn[c] / fmaxf(rr, 1e-12f);
+      alive = !killed && bounce + 1 < P.max_bounces;
+      if (alive) {
+        // isotropic phase: new direction from xi[6:8]
+        const float theta = TWO_PI_F * xi[6];
+        const float cphi = 1.0f - 2.0f * xi[7];
+        const float sphi = sqrtf(fmaxf(1.0f - cphi * cphi, 0.0f));
+        r.ox = r.ox + res.t_sc * r.dx;
+        r.oy = r.oy + res.t_sc * r.dy;
+        r.oz = r.oz + res.t_sc * r.dz;
+        r.dx = sphi * cosf(theta);
+        r.dy = sphi * sinf(theta);
+        r.dz = cphi;
+        for (int c = 0; c < 3; ++c) thr[c] = tn[c];
+      }
+    }
+    ++bounce;
+    if (!alive) {
+      for (int c = 0; c < 3; ++c) atomicAdd(&acc[c][slot], rad[c]);
+      atomicAdd(&cnt[slot], evals);
+    }
+  }
+  __syncthreads();
+  if (tid < npix) {
+    for (int c = 0; c < 3; ++c) out_rad[3 * (base + tid) + c] = acc[c][tid];
+    out_count[base + tid] = cnt[tid];
+  }
+}
+
+}  // namespace gvr
+
+extern "C" {
+
+const char* gvr_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+int gvr_uniforms(const int* pid, const int* sample, const int* bounce,
+                 uint32_t static_bounce, int count, int n, uint32_t seed_mix,
+                 uint32_t seed_raw, float* out, void* stream) {
+  if (count > 0) {
+    const int threads = 256;
+    gvr::uniforms_kernel<<<(count + threads - 1) / threads, threads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        pid, sample, bounce, static_bounce, count, n, seed_mix, seed_raw, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int gvr_bounce(const float* tab, int np, const float* o, const float* d,
+               const float* xi, int b, const float* light_rows, int n_lights,
+               const float* env, int solver_iters, int finisher, float* out,
+               void* stream) {
+  if (b > 0) {
+    const int threads = 128;
+    gvr::bounce_kernel<<<(b + threads - 1) / threads, threads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+        reinterpret_cast<const float4*>(tab), np, o, d, xi, b, light_rows,
+        n_lights, env, solver_iters, finisher != 0, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int gvr_mega(const float* cam, const float* tab, int np, const int* ids,
+             int b, const float* light_rows, int n_lights, const float* env,
+             float nee_w, int w, int h, int spp, int n_strat,
+             uint32_t seed_mix, uint32_t seed_raw, int solver_iters,
+             int finisher, int min_scatter, float rr_cap, int rr_tail_after,
+             float rr_cap_tail, int max_bounces, int pinhole, float* out_rad,
+             int* out_count, void* stream) {
+  gvr::MegaParams P;
+  P.w = w;
+  P.h = h;
+  P.spp = spp;
+  P.n_strat = n_strat;
+  P.seed_mix = seed_mix;
+  P.seed_raw = seed_raw;
+  P.solver_iters = solver_iters;
+  P.finisher = finisher != 0;
+  P.min_scatter = min_scatter;
+  P.rr_cap = rr_cap;
+  P.rr_tail_after = rr_tail_after;
+  P.rr_cap_tail = rr_cap_tail;
+  P.max_bounces = max_bounces;
+  P.pinhole = pinhole != 0;
+  P.nee_w = nee_w;
+  if (b > 0) {
+    const int blocks = (b + gvr::MEGA_BLOCK - 1) / gvr::MEGA_BLOCK;
+    gvr::mega_kernel<<<blocks, gvr::MEGA_BLOCK, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+        cam, reinterpret_cast<const float4*>(tab), np, ids, b, light_rows,
+        n_lights, env, P, out_rad, out_count);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,0 +1,92 @@
+"""Gaussian mixture medium as structure-of-arrays tensors.
+
+Counterpart of ``gvr_tpu/scene/gaussians.py`` (reference ``gaussian.h``,
+``gmm.h``).  Anisotropic 3D Gaussian density
+g(x) = norm * exp(-0.5 (x-mu)^T S^-1 (x-mu)), norm = (2 pi)^-1.5 det(S)^-1/2;
+extinction mu_t(x) = density * g(x); support truncated at R_CUT sigma.
+
+The 11-parameter codec and ``morton_sorted`` wait for later slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+# Support truncation radius in units of standard deviation (gaussian.h:36).
+R_CUT = 3.0
+
+
+@dataclasses.dataclass
+class GaussianMixture:
+    """SoA Gaussian mixture; every tensor is float32 with leading dim N.
+
+    mean [N,3], cov [N,3,3], density [N], albedo [N], emission [N,3]
+    (parsed, never shaded, as in the reference), inv_cov [N,3,3],
+    norm [N], eigvals [N,3] ascending, eigvecs [N,3,3] (columns, det +1).
+    """
+
+    mean: torch.Tensor
+    cov: torch.Tensor
+    density: torch.Tensor
+    albedo: torch.Tensor
+    emission: torch.Tensor
+    inv_cov: torch.Tensor
+    norm: torch.Tensor
+    eigvals: torch.Tensor
+    eigvecs: torch.Tensor
+
+    @staticmethod
+    def from_covariances(mean, cov, density, albedo, emission=None,
+                         device="cpu") -> "GaussianMixture":
+        """Build from means [N,3] and full covariances [N,3,3]: one batched
+        eigh, eigenvectors flipped to a proper rotation, inv_cov rebuilt as
+        R diag(1/ev) R^T (gaussian.h:52-72, gvr_tpu's from_covariances)."""
+        f32 = dict(dtype=torch.float32, device=device)
+        mean = torch.as_tensor(mean, **f32).reshape(-1, 3)
+        cov = torch.as_tensor(cov, **f32).reshape(-1, 3, 3)
+        n = mean.shape[0]
+        density = torch.as_tensor(density, **f32).reshape(n)
+        albedo = torch.as_tensor(albedo, **f32).reshape(n)
+        if emission is None:
+            emission = torch.zeros((n, 3), **f32)
+        emission = torch.as_tensor(emission, **f32).reshape(n, 3)
+
+        eigvals, eigvecs = torch.linalg.eigh(cov)
+        flip = torch.where(torch.linalg.det(eigvecs) < 0.0, -1.0, 1.0)
+        eigvecs = eigvecs.clone()
+        eigvecs[:, :, 0] *= flip[:, None]
+        ev = torch.clamp(eigvals, min=1e-12)
+        inv_cov = torch.einsum("nij,nj,nkj->nik", eigvecs, 1.0 / ev, eigvecs)
+        det_cov = torch.prod(ev, dim=-1)
+        norm = (2.0 * math.pi) ** (-1.5) * det_cov ** (-0.5)
+        return GaussianMixture(mean, cov, density, albedo, emission,
+                               inv_cov, norm, eigvals, eigvecs)
+
+    @property
+    def n(self) -> int:
+        return self.mean.shape[0]
+
+    def to(self, device) -> "GaussianMixture":
+        return GaussianMixture(*(getattr(self, f.name).to(device)
+                                 for f in dataclasses.fields(self)))
+
+    def icpack(self) -> torch.Tensor:
+        """[N,6] packed inverse covariance (ic00, ic11, ic22, ic01, ic02,
+        ic12)."""
+        ic = self.inv_cov
+        return torch.stack([ic[:, 0, 0], ic[:, 1, 1], ic[:, 2, 2],
+                            ic[:, 0, 1], ic[:, 0, 2], ic[:, 1, 2]], dim=-1)
+
+    def qvec(self) -> torch.Tensor:
+        """[N,3] inv_cov @ mean, summed in index order."""
+        ic, m = self.inv_cov, self.mean
+        return (ic[:, :, 0] * m[:, 0:1] + ic[:, :, 1] * m[:, 1:2]
+                + ic[:, :, 2] * m[:, 2:3])
+
+    def c0(self) -> torch.Tensor:
+        """[N] mean^T inv_cov mean."""
+        q, m = self.qvec(), self.mean
+        return q[:, 0] * m[:, 0] + q[:, 1] * m[:, 1] + q[:, 2] * m[:, 2]

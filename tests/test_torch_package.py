@@ -1,0 +1,93 @@
+"""Package-level guards of the port: it never imports JAX or gvr_tpu, it
+refuses the paths it does not have yet, and its wrappers take the plain
+version only for CPU tensors."""
+
+import ast
+import pathlib
+
+import pytest
+import torch
+
+import _torch_common  # noqa: F401  (sets torch threads)
+from gvr_tpu_torch.config import RenderConfig, Solver
+from gvr_tpu_torch.integrators.common import pick_chunk
+from gvr_tpu_torch.integrators.multiscatter import GRID_MIN_N, engine_for
+from gvr_tpu_torch.kernels import _build
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "gvr_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _forbidden(module: str) -> bool:
+    return (module == "jax" or module.startswith("jax.")
+            or module == "gvr_tpu" or module.startswith("gvr_tpu."))
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_never_imports_jax(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path.name}:{node.lineno} imports {bad}"
+
+
+@pytest.mark.parametrize("kw", [
+    dict(solver=Solver.BISECTION), dict(solver=Solver.ANALYTIC_BISECTION),
+    dict(solver=Solver.UNIFORM), dict(engine="grid"), dict(candidate_k=8)],
+    ids=["bisection", "analytic_bisection", "uniform", "grid",
+         "candidate_k"])
+def test_unported_knobs_raise(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        RenderConfig(**kw)
+
+
+def test_kernel_solvers_and_engines_are_accepted():
+    for solver in (Solver.NEWTON, Solver.ANALYTIC_NEWTON):
+        RenderConfig(solver=solver)
+    with pytest.raises(ValueError):
+        RenderConfig(engine="sparse")
+
+
+def test_engine_for_keeps_the_jax_thresholds():
+    class Mix:
+        def __init__(self, n):
+            self.n = n
+    assert engine_for(RenderConfig(), Mix(GRID_MIN_N)) == "dense"
+    assert engine_for(RenderConfig(engine="dense"), Mix(2048)) == "dense"
+    with pytest.raises(NotImplementedError, match="grid"):
+        engine_for(RenderConfig(), Mix(GRID_MIN_N + 1))
+    with pytest.raises(NotImplementedError, match="K4/K5"):
+        engine_for(RenderConfig(engine="dense"), Mix(2049))
+
+
+@pytest.mark.parametrize("n", [1, 250, 2000])
+def test_pick_chunk_budget_only_on_cpu(n):
+    """The [chunk, N] element budget binds the plain versions on the CPU;
+    a kernel launch on the card takes cfg.ray_chunk whole."""
+    cfg = RenderConfig()
+    assert pick_chunk(cfg, n, "cuda") == cfg.ray_chunk
+    cpu = pick_chunk(cfg, n, "cpu")
+    assert cpu % 256 == 0 and cpu * n <= max(1 << 25, 256 * n)
+    assert cpu == min(cfg.ray_chunk, (((1 << 25) // n) // 256) * 256)
+
+
+def test_build_sources_and_checks():
+    names = {p.name for p in _build.CSRC.iterdir()}
+    assert {"kernels.cu", "bounce.cuh", "rng.cuh", "common.cuh"} <= names
+    assert "--use_fast_math" not in _build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert _build.library_path().parent == ROOT / "gvr_tpu_torch" / "_build"
+    t = torch.zeros((4, 16))
+    _build.check(t, "t", torch.float32, (None, 16), t.device)
+    with pytest.raises(ValueError, match="dtype"):
+        _build.check(t, "t", torch.int32, (4, 16), t.device)
+    with pytest.raises(ValueError, match="contiguous"):
+        _build.check(t.T, "t", torch.float32, (16, 4), t.device)
