@@ -25,6 +25,24 @@ CLI.  One line per phase; any failure raises, so the exit code is non-zero.
   6 main     `gvr_tpu_torch.cli render` of random_gaussian_scene(250, 0) at
              1024^2 spp 64; image finite and not constant, megakernel
              launched, no plain version called
+  7 K6 span tau  kernel vs plain on the grid of random_gaussian_scene(10000,
+             0), the DDA crossings of 65,536 random rays without and with
+             tmax: on every slot |dtau| <= 1e-4 + 1e-3 |tau| plus the
+             float32 resolution of the erf difference (testing.K6_BARS)
+  8 K7 solve kernel vs plain on those rays' critical cells (u from a seed):
+             medians of |dt| and |dalbedo| below testing.BOUNCE_BARS
+  9 grid vs dense  render_multiscatter of random_gaussian_scene(120, 3,
+             diameter 0.05-0.9) at 64^2 spp 16, engine='grid' against the
+             megakernel: image means within 1 %
+ 10 grid timing  K6 and K7 kernel and plain ms (CUDA events) at one
+             iteration of the grid main path: K6 over the crossings of
+             32,768 camera rays of the 512^2 image (tile-order chunk 4)
+             and their 32,768 NEE rays, K7 over the scattered ones; K7
+             also unsorted, to show what the cell sort buys
+ 11 grid main  `gvr_tpu_torch.cli render` of random_gaussian_scene(10000, 0)
+             at 512^2 spp 16, engine auto: grid build seconds, render
+             seconds, Mpaths/s, iterations, extension rays/s; image finite
+             and not constant, K6/K7 launched, no plain version called
 
 The last three lines: the nvidia-smi line, the kernels JSON, and the
 result JSON.  Without a CUDA card, or without the package beside it, the
@@ -34,6 +52,7 @@ script exits non-zero before printing any result.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -56,6 +75,8 @@ MEDIUM_CHUNK = 9
 # 8.7e-6 and 1.1e-6.
 CHUNK_BARS = dict(max_path_diff=8.0, off_frac=1e-2, mean_diff=1e-4,
                   evals_rel=1e-4)
+GRID_SIZE, GRID_SPP, GRID_N = 512, 16, 10_000   # the grid main path
+GRID_CHUNK_INDEX = 4       # rows 256-319 of the 512^2 image, the centre
 
 
 def log(phase, msg):
@@ -94,11 +115,15 @@ def run(dev):
     import torch
 
     from gvr_tpu_torch import cli, testing
+    from gvr_tpu_torch.accel.grid import build_grid, dda_crossings
     from gvr_tpu_torch.cameras import OrthographicCamera, PinholeCamera
     from gvr_tpu_torch.config import RenderConfig
-    from gvr_tpu_torch.integrators.multiscatter import tile_order
+    from gvr_tpu_torch.integrators import gridscatter
+    from gvr_tpu_torch.integrators.multiscatter import (
+        GRID_CHUNK, render_multiscatter, tile_order)
     from gvr_tpu_torch.io.ppm import read_ppm
-    from gvr_tpu_torch.kernels import _build, megatrace, pathtrace, rng
+    from gvr_tpu_torch.kernels import (_build, gridtrace, megatrace,
+                                       pathtrace, rng)
     from gvr_tpu_torch.scene.generators import random_gaussian_scene
     from gvr_tpu_torch.scene.scene import parse_gmm
 
@@ -118,9 +143,14 @@ def run(dev):
     _build.library()
     log("1 build", f"{'built' if info['built'] else 'found built'} "
         f"{os.path.relpath(info['path'])} in {info['seconds']:.1f} s")
+    kernel = "?"
     for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log("1 build", "ptxas: " + line.strip())
+        m = re.search(r"Compiling entry function '_ZN3gvr(\d+)", line)
+        if m:
+            start = m.end()
+            kernel = line[start:start + int(m.group(1))]
+        elif "registers" in line or "spill" in line:
+            log("1 build", f"ptxas {kernel}: " + line.strip())
 
     # ---- 2: K3, the RNG kernel ----
     r = np.random.default_rng(0)
@@ -256,32 +286,45 @@ def run(dev):
     # ---- 6: the main path through the CLI ----
     counters = (rng.planes_uniforms, rng.planes_uniforms_reference,
                 pathtrace.bounce_step, pathtrace.bounce_core_reference,
-                megatrace.mega_call, megatrace.mega_reference)
-    with tempfile.TemporaryDirectory() as tmp:
-        scene_path = os.path.join(tmp, "random250.txt")
-        out_path = os.path.join(tmp, "out.ppm")
-        with open(scene_path, "w") as f:
-            f.write(text250)
-        for fn in counters:
-            fn.launches = 0
-        t0 = time.perf_counter()
-        stats = cli.main(["render", scene_path, "-o", out_path, "--width",
-                          str(MAIN_SIZE), "--height", str(MAIN_SIZE),
-                          "--spp", str(MAIN_SPP), "--stats", "--device",
-                          str(dev)])
-        wall = time.perf_counter() - t0
-        launches = {fn.__name__: fn.launches for fn in counters}
-        img = read_ppm(out_path)
-    if img.shape != (MAIN_SIZE, MAIN_SIZE, 3) or not np.isfinite(img).all() \
-            or img.std() == 0:
-        raise AssertionError(f"main path image: shape {img.shape}, "
-                             f"std {img.std()}")
-    if launches["mega_call"] == 0:
-        raise AssertionError("main path never launched the megakernel")
-    plain = {k: v for k, v in launches.items()
-             if k.endswith("_reference") and v}
-    if plain:
-        raise AssertionError(f"main path called plain versions: {plain}")
+                megatrace.mega_call, megatrace.mega_reference,
+                gridtrace.span_tau_pass, gridtrace.span_tau_reference,
+                gridtrace.solve_pass, gridtrace.solve_reference)
+
+    def cli_render(text, size, spp, kernels):
+        """Render ``text`` through the CLI with every count set to 0 just
+        before; returns (stats, wall seconds, launches, image) after
+        checking the image, that each of ``kernels`` was launched and that
+        no plain version was called."""
+        with tempfile.TemporaryDirectory() as tmp:
+            scene_path = os.path.join(tmp, "scene.txt")
+            out_path = os.path.join(tmp, "out.ppm")
+            with open(scene_path, "w") as f:
+                f.write(text)
+            for fn in counters:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            stats = cli.main(["render", scene_path, "-o", out_path,
+                              "--width", str(size), "--height", str(size),
+                              "--spp", str(spp), "--stats", "--device",
+                              str(dev)])
+            wall = time.perf_counter() - t0
+            launches = {fn.__name__: fn.launches for fn in counters}
+            img = read_ppm(out_path)
+        if img.shape != (size, size, 3) or not np.isfinite(img).all() \
+                or img.std() == 0:
+            raise AssertionError(f"main path image: shape {img.shape}, "
+                                 f"std {img.std()}")
+        missing = [k for k in kernels if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"main path never launched {missing}")
+        plain = {k: v for k, v in launches.items()
+                 if k.endswith("_reference") and v}
+        if plain:
+            raise AssertionError(f"main path called plain versions: {plain}")
+        return stats, wall, launches, img
+
+    stats, wall, launches, img = cli_render(text250, MAIN_SIZE, MAIN_SPP,
+                                            ["mega_call"])
     log("6 main", f"cli render 250 Gaussians {MAIN_SIZE}^2 spp {MAIN_SPP}: "
         f"render "
         f"{stats['seconds']:.3f} s ({wall:.3f} s with load and PPM), "
@@ -290,25 +333,170 @@ def run(dev):
         f"evaluations/s ({stats['bounce_evals']} evaluations), image mean "
         f"{img.mean():.6f}, launches {json.dumps(launches)} ({smi})")
 
-    def entry(name, replaces, key, launches_key, err):
+    # ---- 7: K6, the grid span-tau kernel ----
+    text10k = random_gaussian_scene(GRID_N, seed=0)
+    sc10k = parse_gmm(text10k, device=dev)
+    t0 = time.perf_counter()
+    grid = build_grid(sc10k.medium)
+    log("7 K6 span tau", f"grid of {GRID_N} Gaussians: side {grid.side}, "
+        f"s_cap {grid.s_cap}, {grid.n_entries} entries, at most "
+        f"{int(grid.cell_count.max())} in a cell, host build "
+        f"{time.perf_counter() - t0:.3f} s")
+    rays_tmax = torch.tensor(rr.uniform(0.1, 4.0, RAYS), dtype=torch.float32,
+                             device=dev)
+    no_tmax = torch.full((RAYS,), 1e8, dtype=torch.float32, device=dev)
+    k6_err = 0.0
+    for label, tmax in (("no tmax", None), ("tmax 0.1-4", rays_tmax)):
+        cells, _, t_out = dda_crossings(grid, o, d, tmax)
+        tm = no_tmax if tmax is None else tmax
+        got = gridtrace.span_tau_pass(grid, o, d, tm, cells)
+        want = gridtrace.span_tau_reference(grid, o, d, tm, cells)
+        torch.cuda.synchronize()
+        res = testing.span_tau_agreement(got, want, grid, cells, t_out)
+        k6_err = max(k6_err, res["max_err"])
+        log("7 K6 span tau", f"{label}, {RAYS} rays: {json.dumps(res)} "
+            f"(bars {json.dumps(testing.K6_BARS)})")
+        if not res["ok"]:
+            raise AssertionError(f"K6 {label} misses K6_BARS: {res}")
+
+    # ---- 8: K7, the grid cell-solve kernel ----
+    u = torch.tensor(rr.uniform(size=RAYS), dtype=torch.float32, device=dev)
+    tau, cells, t_in, t_out = gridscatter.grid_tau_crossings(grid, o, d)
+    _, _, cell_c, tin_c, tout_c, resid = gridscatter.critical_crossing(
+        grid, tau, cells, t_in, t_out, u)
+    args = k7_random = (grid, o, d, tin_c, tout_c, resid, cell_c, 6)
+    got, want = gridtrace.solve_pass(*args), gridtrace.solve_reference(*args)
+    torch.cuda.synchronize()
+    live = cell_c >= 0
+    dt = (got[0] - want[0]).abs()[live]
+    da = (got[1] - want[1]).abs()[live]
+    k7 = dict(n=int(live.sum()), t_median=float(dt.median()),
+              t_max=float(dt.max()), albedo_median=float(da.median()),
+              albedo_max=float(da.max()),
+              t_within=float((dt <= 1e-4 + 1e-3 * want[0][live].abs())
+                             .float().mean()))
+    log("8 K7 solve", f"{json.dumps(k7)} (bars: medians below "
+        f"{testing.BOUNCE_BARS['t']} and {testing.BOUNCE_BARS['albedo']})")
+    if not (k7["n"] > 10 and k7["t_median"] < testing.BOUNCE_BARS["t"]
+            and k7["albedo_median"] < testing.BOUNCE_BARS["albedo"]):
+        raise AssertionError(f"K7 misses BOUNCE_BARS: {k7}")
+
+    # ---- 9: the grid engine against the megakernel ----
+    sc120 = parse_gmm(random_gaussian_scene(120, seed=3,
+                                            diameter=(0.05, 0.9)),
+                      device=dev)
+    cfg = RenderConfig(width=64, height=64, spp=16)
+    img_g, img_d = (render_multiscatter(sc120, pin, cfg.replace(engine=e),
+                                        device=dev) for e in ("grid", "dense"))
+    m_g, m_d = float(img_g.mean()), float(img_d.mean())
+    log("9 grid vs dense", f"120 Gaussians 64^2 spp 16: image means "
+        f"{m_g:.6f} (grid) vs {m_d:.6f} (megakernel), rel "
+        f"{abs(m_g - m_d) / m_d:.2e} (bar 1e-2), per-pixel mean |diff| "
+        f"{float(np.abs(img_g - img_d).mean()):.3e}")
+    if not (np.isfinite(img_g).all() and abs(m_g - m_d) <= 0.01 * m_d):
+        raise AssertionError("grid engine misses the megakernel's mean")
+
+    # ---- 10: K6 and K7 timing at one grid iteration's shapes ----
+    n_ext = GRID_CHUNK                   # one chunk of the grid main path
+    cam512 = PinholeCamera.create([0, 1, 6], [0, 1, 0], math.radians(45.0),
+                                  device=dev)
+    px = torch.from_numpy(tile_order(GRID_SIZE, GRID_SIZE)[
+        GRID_CHUNK_INDEX * n_ext:(GRID_CHUNK_INDEX + 1) * n_ext]).to(dev)
+    uv = torch.stack([(px % GRID_SIZE + 0.5) / GRID_SIZE,
+                      (px // GRID_SIZE + 0.5) / GRID_SIZE], dim=-1).float()
+    o_e, d_e = cam512.sample_ray(uv)
+    xi_e = torch.tensor(rr.uniform(size=(n_ext, 5)), dtype=torch.float32,
+                        device=dev)
+    tau, cells, t_in, t_out = gridscatter.grid_tau_crossings(grid, o_e, d_e)
+    scattered, _, cell_c, tin_c, tout_c, resid = \
+        gridscatter.critical_crossing(grid, tau, cells, t_in, t_out,
+                                      xi_e[:, 0])
+    t_sc, _ = gridtrace.solve_pass(grid, o_e, d_e, tin_c, tout_c, resid,
+                                   cell_c)
+    pos = o_e + torch.clamp(t_sc, min=0.0)[:, None] * d_e
+    wi, tmax_n, _, _ = gridscatter._nee_select(sc10k, pos, xi_e[:, 1],
+                                               xi_e[:, 2], xi_e[:, 3:5])
+    o2, d2 = torch.cat([o_e, pos]), torch.cat([d_e, wi])
+    tmax2 = torch.cat([torch.full((n_ext,), 1e8, device=dev),
+                       torch.where(scattered, tmax_n, 0.0)])
+    cells2, _, _ = dda_crossings(grid, o2, d2, tmax2)
+    times["span_tau"] = (
+        cuda_ms(lambda: gridtrace.span_tau_pass(grid, o2, d2, tmax2,
+                                                cells2), 20)[0],
+        cuda_ms(lambda: gridtrace.span_tau_reference(grid, o2, d2, tmax2,
+                                                     cells2), 2)[0])
+    dda_ms = cuda_ms(lambda: dda_crossings(grid, o2, d2, tmax2), 10)[0]
+    def by_cell(args):
+        """K7's arguments with the rays sorted by cell (the main path takes
+        them in lane order: this measures what a sort would buy)."""
+        g, o_, d_, t_i, t_o, r_, c_, it = args
+        order = torch.argsort(torch.where(c_ >= 0, c_, g.n_cells))
+        return (g, o_[order].contiguous(), d_[order].contiguous(),
+                t_i[order], t_o[order], r_[order], c_[order], it)
+
+    k7_camera = (grid, o_e, d_e, tin_c, tout_c, resid, cell_c, 6)
+    sorted_args = by_cell(k7_camera)
+    times["grid_solve"] = (
+        cuda_ms(lambda: gridtrace.solve_pass(*k7_camera), 20)[0],
+        cuda_ms(lambda: gridtrace.solve_reference(*k7_camera), 2)[0])
+    k7_sorted = cuda_ms(lambda: gridtrace.solve_pass(*sorted_args), 20)[0]
+    sort_ms = cuda_ms(lambda: by_cell(k7_camera), 20)[0]
+    random_sorted = by_cell(k7_random)
+    k7_rand = (cuda_ms(lambda: gridtrace.solve_pass(*k7_random), 20)[0],
+               cuda_ms(lambda: gridtrace.solve_pass(*random_sorted), 20)[0])
+    log("10 grid timing", f"K6 over {int((cells2 >= 0).sum())} crossings of "
+        f"{2 * n_ext} rays (chunk {GRID_CHUNK_INDEX} of {GRID_SIZE}^2 and "
+        f"its NEE rays): kernel {times['span_tau'][0]:.3f} ms, plain "
+        f"{times['span_tau'][1]:.3f} ms; DDA (plain torch) {dda_ms:.3f} ms; "
+        f"K7 over {int(scattered.sum())} scattered of {n_ext} rays: kernel "
+        f"{times['grid_solve'][0]:.3f} ms, plain "
+        f"{times['grid_solve'][1]:.3f} ms; kernel on the rays sorted by cell "
+        f"{k7_sorted:.3f} ms, the sort and its gathers {sort_ms:.3f} ms; "
+        f"K7 over phase 8's {RAYS} random rays unsorted "
+        f"{k7_rand[0]:.3f} ms, sorted {k7_rand[1]:.3f} ms ({smi})")
+
+    # ---- 11: the grid main path through the CLI ----
+    stats, wall, launches_g, img = cli_render(
+        text10k, GRID_SIZE, GRID_SPP,
+        ["span_tau_pass", "solve_pass", "planes_uniforms"])
+    if stats["engine"] != "grid":
+        raise AssertionError(f"engine auto took {stats['engine']}")
+    log("11 grid main", f"cli render {GRID_N} Gaussians {GRID_SIZE}^2 spp "
+        f"{GRID_SPP}: grid build {stats['grid_seconds']:.3f} s, render "
+        f"{stats['seconds']:.3f} s ({wall:.3f} s with load and PPM), "
+        f"{stats['paths'] / stats['seconds'] / 1e6:.3f} Mpaths/s, "
+        f"{stats['iterations']} iterations in {stats['chunks']} chunks, "
+        f"{stats['bounce_evals']} extension rays "
+        f"({stats['bounce_evals'] / stats['seconds'] / 1e6:.3f} M/s), image "
+        f"mean {img.mean():.6f}, launches {json.dumps(launches_g)} ({smi})")
+
+    def entry(name, replaces, key, path_launches, launches_key, err):
         return {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
-                "replaces": replaces, "launches": launches[launches_key],
+                "replaces": replaces,
+                "launches": path_launches[launches_key],
                 "max_abs_err": err, "ms": times[key][0],
                 "plain_ms": times[key][1]}
 
     kernels = [
         entry("mega", "gvr_tpu/kernels/megatrace.py:501",
-              f"mega_spp{MAIN_SPP}", "mega_call",
+              f"mega_spp{MAIN_SPP}", launches, "mega_call",
               chunk_res[MAIN_SPP]["max_diff"]),
         entry("bounce", "gvr_tpu/kernels/pathtrace.py:465", "bounce",
-              "bounce_step", k2_err),
-        entry("rng", "gvr_tpu/kernels/rng.py:86", "rng", "planes_uniforms",
-              0.0),
+              launches, "bounce_step", k2_err),
+        entry("rng", "gvr_tpu/kernels/rng.py:86", "rng", launches_g,
+              "planes_uniforms", 0.0),
+        entry("span_tau", "gvr_tpu/kernels/gridtrace.py:217", "span_tau",
+              launches_g, "span_tau_pass", k6_err),
+        entry("grid_solve", "gvr_tpu/kernels/gridtrace.py:425",
+              "grid_solve", launches_g, "solve_pass", k7["t_max"]),
     ]
-    # K2 and K3 run on the main path as device functions inside the
-    # megakernel; their own launchers are not on it, so their launch counts
-    # from the main path are 0 by design.
+    # K2 runs on the dense main path as a device function inside the
+    # megakernel, so its own launcher's count there is 0 by design; K3 too,
+    # and the grid main path launches it directly (its count is that run's).
     kernels[1]["inside"] = kernels[2]["inside"] = "mega"
+    for k in kernels[2:]:
+        k["path"] = "grid"
+    kernels[4]["sorted_ms"] = k7_sorted
     kernels[0]["ms_spp4"], kernels[0]["plain_ms_spp4"] = times["mega_spp4"]
     print(smi)
     print(json.dumps({"kernels": kernels}))

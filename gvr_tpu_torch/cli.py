@@ -54,10 +54,13 @@ def cmd_render(args):
                               progress=args.verbose, stats=stats)
     print(f"Render time: {time.time() - t0:.3f} seconds")
     if stats is not None:
-        print(f"[render] {stats['paths']} paths, {stats['bounce_evals']} "
-              f"bounce evaluations in {stats['seconds']:.3f} s on "
-              f"{stats['device']}: "
-              f"{stats['paths'] / stats['seconds'] / 1e6:.3f} Mpaths/s")
+        grid = (f", {stats['iterations']} iterations, grid build "
+                f"{stats['grid_seconds']:.3f} s"
+                if stats["engine"] == "grid" else "")
+        print(f"[render] engine {stats['engine']}: {stats['paths']} paths, "
+              f"{stats['bounce_evals']} bounce evaluations in "
+              f"{stats['seconds']:.3f} s on {stats['device']}: "
+              f"{stats['paths'] / stats['seconds'] / 1e6:.3f} Mpaths/s{grid}")
     write_ppm(args.output, img)
     print(f"wrote {args.output}")
     return stats
@@ -94,9 +97,12 @@ def main(argv=None):
                     choices=["newton", "bisection", "analytic_newton",
                              "analytic_bisection", "uniform"])
     pr.add_argument("--engine", default="auto",
-                    choices=["auto", "dense", "grid"])
+                    choices=["auto", "dense", "grid"],
+                    help="auto: the dense megakernel up to 2000 Gaussians, "
+                    "the grid engine above")
     pr.add_argument("--stats", action="store_true",
-                    help="print paths, bounce evaluations and Mpaths/s")
+                    help="print the engine, paths, bounce evaluations and "
+                    "Mpaths/s")
     pr.add_argument("--trace", default=None, metavar="DIR",
                     help="profiler trace (not ported yet)")
     pr.add_argument("-v", "--verbose", action="store_true")

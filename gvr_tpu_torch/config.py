@@ -2,9 +2,9 @@
 
 The counterpart of ``gvr_tpu/config.py`` without its TPU layout knobs
 (``pallas``, ``wavefront``, ``block``, ``mxu_coeffs``, ``tau_bf16``,
-``pool_regen``): the CUDA megakernel is always the pooled one and its block
-geometry is fixed by the kernel.  The ray marchers' ``step_size`` and
-``env_samples`` come back with the marchers.  ``FitConfig`` waits for the
+``pool_regen``): the CUDA megakernel and the grid wavefront are always the
+pooled ones, and the kernels fix their own block geometry.  The ray
+marchers' ``step_size`` and ``env_samples`` come back with the marchers.  ``FitConfig`` waits for the
 inverse-rendering port.  A value that selects a path this package
 does not have yet raises ``NotImplementedError`` naming the ROADMAP item.
 """
@@ -51,6 +51,9 @@ class RenderConfig:
     solver: Solver = Solver.ANALYTIC_NEWTON
     solver_iters: int = 12         # Newton + Illinois trip count
     solver_finisher: bool = False  # analytic erfinv finisher
+    # grid engine: Newton + Illinois steps of the in-cell solve (the
+    # bracket is one cell crossing and its erfinv finisher is always on)
+    grid_solver_iters: int = 6
     ray_chunk: int = 1 << 16       # pixels per kernel launch
     seed: int = 0                  # base RNG seed
     candidate_k: int = 0           # per-ray candidate compaction (0 = dense)
@@ -65,10 +68,6 @@ class RenderConfig:
                 f"solver={self.solver.name} is not ported yet (ROADMAP "
                 f"Queue 1, the rest of ops/solvers); use NEWTON or "
                 f"ANALYTIC_NEWTON")
-        if self.engine == "grid":
-            raise NotImplementedError(
-                "engine='grid' is not ported yet (ROADMAP Queue 1, "
-                "accel/grid + gridscatter, with kernels K6/K7)")
         if self.candidate_k != 0:
             raise NotImplementedError(
                 "candidate_k != 0 is not ported yet (ROADMAP Queue 1, "

@@ -1,5 +1,7 @@
 // One fused path-tracing bounce for one ray: the device function shared by
-// the bounce kernel (K2) and the megakernel (K1).
+// the bounce kernel (K2) and the megakernel (K1).  Its pair math, Newton
+// step, finisher and albedo are device functions that the grid kernels
+// (grid.cuh, K6/K7) share.
 //
 // Replaces gvr_tpu/kernels/pathtrace.py:272 _bounce_core (with _coeffs :149,
 // _interval :195, _tau_nee :229, _finisher_root :254) and mirrors its steps
@@ -69,21 +71,92 @@ __device__ __forceinline__ bool interval(const float4* __restrict__ tab,
   return gap > 0.0f && t1 >= 0.0f && c3.x > 0.0f;
 }
 
+// The pair's quantities over [lo, hi] (an ok pair, lo < hi): erf_lo is
+// taken at lo, so a caller that clips the interval (the grid kernels)
+// gets the clipped pair.
+__device__ __forceinline__ void pair_over(float a_s, float b, float m2,
+                                          float dens_norm, float lo,
+                                          float hi, Pair& p) {
+  p.sa = sqrtf(a_s);
+  p.zoff = b * (0.5f / p.sa);
+  p.peak = dens_norm * expf(-0.5f * m2);
+  p.pref = p.peak * sqrtf(PI_F / (2.0f * a_s));
+  p.erf_lo = erff((p.sa * lo + p.zoff) * SQRT_HALF);
+  const float erf_hi = erff((p.sa * hi + p.zoff) * SQRT_HALF);
+  p.tau_i = p.pref * (erf_hi - p.erf_lo);
+  p.t0 = lo;
+  p.t1 = hi;
+}
+
 __device__ __forceinline__ bool make_pair(const float4* __restrict__ tab,
                                           int g, const Ray& r, Pair& p) {
   float a_s, b, t0, t1, m2, dens_norm;
   if (!interval(tab, g, r, a_s, b, t0, t1, m2, dens_norm, p.albedo))
     return false;
-  p.sa = sqrtf(a_s);
-  p.zoff = b * (0.5f / p.sa);
-  p.peak = dens_norm * expf(-0.5f * m2);
-  p.pref = p.peak * sqrtf(PI_F / (2.0f * a_s));
-  p.erf_lo = erff((p.sa * t0 + p.zoff) * SQRT_HALF);
-  const float erf_hi = erff((p.sa * t1 + p.zoff) * SQRT_HALF);
-  p.tau_i = p.pref * (erf_hi - p.erf_lo);
-  p.t0 = t0;
-  p.t1 = t1;
+  pair_over(a_s, b, m2, dens_norm, t0, t1, p);
   return true;
+}
+
+// Adds the pair's optical depth up to t and its extinction at t: one
+// pair's share of a Newton step.
+__device__ __forceinline__ void tau_sig_at(const Pair& p, float t,
+                                           float& tau, float& sig) {
+  const float z = p.sa * t + p.zoff;
+  if (t > p.t0)
+    tau += t >= p.t1 ? p.tau_i : p.pref * (erff(z * SQRT_HALF) - p.erf_lo);
+  if (t >= p.t0 && t <= p.t1) sig += p.peak * expf(-0.5f * z * z);
+}
+
+// The analytic erfinv finisher (pathtrace.py:254 _finisher_root): add()
+// every ok pair at the iterated root t_sc, then root() gives the
+// closed-form root where it is exact (exactly one interval active, the
+// erf argument in range, no interval opening or closing in between).
+struct Finisher {
+  float n_act = 0.0f, tau_done = 0.0f, nxt = BIG, prv = 0.0f;
+  float sa1 = 0.0f, zoff1 = 0.0f, pref1 = 0.0f, erflo1 = 0.0f;
+  float t0_1 = 0.0f, t1_1 = 0.0f;
+
+  __device__ __forceinline__ void add(const Pair& p, float t_sc) {
+    if (t_sc > p.t0 && t_sc < p.t1) {
+      n_act += 1.0f;
+      sa1 += p.sa;
+      zoff1 += p.zoff;
+      pref1 += p.pref;
+      erflo1 += p.erf_lo;
+      t0_1 += p.t0;
+      t1_1 += p.t1;
+    }
+    if (p.t1 <= t_sc) {
+      tau_done += p.tau_i;
+      prv = fmaxf(prv, p.t1);
+    }
+    if (p.t0 > t_sc) nxt = fminf(nxt, p.t0);
+  }
+
+  __device__ __forceinline__ bool root(float tgt, float& t_a) const {
+    const float arg = (tgt - tau_done) / fmaxf(pref1, 1e-30f) + erflo1;
+    const float one_eps = 0.999999f;
+    t_a = (erfinvf(fminf(fmaxf(arg, -one_eps), one_eps)) / SQRT_HALF -
+           zoff1) / fmaxf(sa1, 1e-30f);
+    return n_act == 1.0f && arg > -one_eps && arg < one_eps &&
+           t_a >= fmaxf(t0_1, prv) && t_a <= fminf(t1_1, nxt);
+  }
+};
+
+// Adds the pair's extinction and albedo-weighted extinction at t
+// (gmm.h:128-143).
+__device__ __forceinline__ void albedo_at(const Pair& p, float t,
+                                          float& s_sum, float& sa_sum) {
+  if (t >= p.t0 && t <= p.t1) {
+    const float z = p.sa * t + p.zoff;
+    const float rho = p.peak * expf(-0.5f * z * z);
+    s_sum += rho;
+    sa_sum += rho * p.albedo;
+  }
+}
+
+__device__ __forceinline__ float mixture_albedo(float s_sum, float sa_sum) {
+  return fminf(fmaxf(s_sum > 1e-25f ? sa_sum / s_sum : 0.0f, 0.0f), 1.0f);
 }
 
 // Calls f(pair) for every ok pair of the ray: the listed hits, or all rows
@@ -187,13 +260,8 @@ __device__ BounceOut bounce_core(const float4* __restrict__ tab, int np,
     float t = 0.5f * (t_lo + t_hi);
     for (int it = 0; it < solver_iters; ++it) {
       float tau = 0.0f, sig = 0.0f;
-      for_each_hit(tab, np, r, hits, n_ok, [&](const Pair& p) {
-        const float z = p.sa * t + p.zoff;
-        if (t > p.t0)
-          tau += t >= p.t1 ? p.tau_i
-                           : p.pref * (erff(z * SQRT_HALF) - p.erf_lo);
-        if (t >= p.t0 && t <= p.t1) sig += p.peak * expf(-0.5f * z * z);
-      });
+      for_each_hit(tab, np, r, hits, n_ok,
+                   [&](const Pair& p) { tau_sig_at(p, t, tau, sig); });
       illinois_update(lo, hi, flo, fhi, t, tau - tgt, sig);
     }
     t_sc = fminf(fmaxf(t, t_lo), t_hi);
@@ -201,32 +269,11 @@ __device__ BounceOut bounce_core(const float4* __restrict__ tab, int np,
 
   // --- analytic erfinv finisher (_finisher_root) ---
   if (finisher && n_ok > 0) {
-    float n_act = 0.0f, tau_done = 0.0f, nxt = BIG, prv = 0.0f;
-    float sa1 = 0.0f, zoff1 = 0.0f, pref1 = 0.0f, erflo1 = 0.0f;
-    float t0_1 = 0.0f, t1_1 = 0.0f;
-    for_each_hit(tab, np, r, hits, n_ok, [&](const Pair& p) {
-      if (t_sc > p.t0 && t_sc < p.t1) {
-        n_act += 1.0f;
-        sa1 += p.sa;
-        zoff1 += p.zoff;
-        pref1 += p.pref;
-        erflo1 += p.erf_lo;
-        t0_1 += p.t0;
-        t1_1 += p.t1;
-      }
-      if (p.t1 <= t_sc) {
-        tau_done += p.tau_i;
-        prv = fmaxf(prv, p.t1);
-      }
-      if (p.t0 > t_sc) nxt = fminf(nxt, p.t0);
-    });
-    const float arg = (tgt - tau_done) / fmaxf(pref1, 1e-30f) + erflo1;
-    const float one_eps = 0.999999f;
-    const float t_a =
-        (erfinvf(fminf(fmaxf(arg, -one_eps), one_eps)) / SQRT_HALF - zoff1) /
-        fmaxf(sa1, 1e-30f);
-    out.fin = n_act == 1.0f && arg > -one_eps && arg < one_eps &&
-              t_a >= fmaxf(t0_1, prv) && t_a <= fminf(t1_1, nxt);
+    Finisher f;
+    for_each_hit(tab, np, r, hits, n_ok,
+                 [&](const Pair& p) { f.add(p, t_sc); });
+    float t_a;
+    out.fin = f.root(tgt, t_a);
     if (out.fin) t_sc = t_a;
   }
   out.t_sc = t_sc;
@@ -234,16 +281,9 @@ __device__ BounceOut bounce_core(const float4* __restrict__ tab, int np,
 
   // --- mixture albedo at the scatter point (gmm.h:128-143) ---
   float s_sum = 0.0f, sa_sum = 0.0f;
-  for_each_hit(tab, np, r, hits, n_ok, [&](const Pair& p) {
-    if (t_sc >= p.t0 && t_sc <= p.t1) {
-      const float z = p.sa * t_sc + p.zoff;
-      const float rho = p.peak * expf(-0.5f * z * z);
-      s_sum += rho;
-      sa_sum += rho * p.albedo;
-    }
-  });
-  out.albedo =
-      fminf(fmaxf(s_sum > 1e-25f ? sa_sum / s_sum : 0.0f, 0.0f), 1.0f);
+  for_each_hit(tab, np, r, hits, n_ok,
+               [&](const Pair& p) { albedo_at(p, t_sc, s_sum, sa_sum); });
+  out.albedo = mixture_albedo(s_sum, sa_sum);
 
   // --- NEE: the env or one light (integrator.h:657-683) ---
   Ray s;

@@ -1,14 +1,17 @@
-// The three CUDA kernels of the multiscatter main path and their C entry
-// points (loaded with ctypes by gvr_tpu_torch/kernels/_build.py).  Each
-// entry point launches on the caller's stream, does not synchronise, and
-// returns cudaGetLastError() so a refused launch is reported.
+// The CUDA kernels of the multiscatter engines and their C entry points
+// (loaded with ctypes by gvr_tpu_torch/kernels/_build.py).  Each entry
+// point launches on the caller's stream, does not synchronise, and returns
+// cudaGetLastError() so a refused launch is reported.
 //
-//   gvr_uniforms  K3  counter-hash RNG dump     (gvr_tpu/kernels/rng.py:86)
-//   gvr_bounce    K2  one fused bounce per ray  (gvr_tpu/kernels/pathtrace.py:465)
-//   gvr_mega      K1  pooled path-tracing loop  (gvr_tpu/kernels/megatrace.py:501)
+//   gvr_uniforms    K3  counter-hash RNG     (gvr_tpu/kernels/rng.py:86)
+//   gvr_bounce      K2  one fused bounce     (gvr_tpu/kernels/pathtrace.py:465)
+//   gvr_mega        K1  pooled path loop     (gvr_tpu/kernels/megatrace.py:501)
+//   gvr_span_tau    K6  tau per crossing     (gvr_tpu/kernels/gridtrace.py:217)
+//   gvr_grid_solve  K7  in-cell solve        (gvr_tpu/kernels/gridtrace.py:425)
 
 #include "bounce.cuh"
 #include "common.cuh"
+#include "grid.cuh"
 #include "rng.cuh"
 
 namespace gvr {
@@ -231,6 +234,66 @@ __global__ void __launch_bounds__(MEGA_BLOCK)
   }
 }
 
+// K6: one thread per (ray, crossing) slot of cells [n_rays, c_max].
+// Consecutive threads take consecutive rays at one crossing index, so a
+// warp of coherent rays tends to share cells and rows.  out [n_rays, c_max].
+__global__ void span_tau_kernel(const float4* __restrict__ tab,
+                                const int* __restrict__ cell_first,
+                                const int* __restrict__ cell_count,
+                                GridGeom geom, const float* __restrict__ o,
+                                const float* __restrict__ d,
+                                const float* __restrict__ tmax,
+                                const int* __restrict__ cells, int n_rays,
+                                int c_max, float* __restrict__ out) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (i >= static_cast<int64_t>(n_rays) * c_max) return;
+  const int k = static_cast<int>(i / n_rays);
+  const int ray = static_cast<int>(i - static_cast<int64_t>(k) * n_rays);
+  const int64_t slot = static_cast<int64_t>(ray) * c_max + k;
+  const int cell = cells[slot];
+  float tau = 0.0f;
+  if (cell >= 0) {
+    const int count = cell_count[cell];
+    if (count > 0) {
+      const Ray r = {o[3 * ray], o[3 * ray + 1], o[3 * ray + 2],
+                     d[3 * ray], d[3 * ray + 1], d[3 * ray + 2]};
+      tau = cell_span_tau(tab, cell_first[cell], count, geom, cell, r,
+                          tmax[ray]);
+    }
+  }
+  out[slot] = tau;
+}
+
+// K7: one thread per ray; rays without a live cell (cell -1 or an empty
+// cell) give (0, 0).  out [2, n]: t_sc, albedo.
+__global__ void grid_solve_kernel(const float4* __restrict__ tab,
+                                  const int* __restrict__ cell_first,
+                                  const int* __restrict__ cell_count,
+                                  const float* __restrict__ o,
+                                  const float* __restrict__ d,
+                                  const float* __restrict__ t_in,
+                                  const float* __restrict__ t_out,
+                                  const float* __restrict__ resid,
+                                  const int* __restrict__ cells, int n,
+                                  int solver_iters, float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int cell = cells[i];
+  float t_sc = 0.0f, albedo = 0.0f;
+  if (cell >= 0) {
+    const int count = cell_count[cell];
+    if (count > 0) {
+      const Ray r = {o[3 * i], o[3 * i + 1], o[3 * i + 2],
+                     d[3 * i], d[3 * i + 1], d[3 * i + 2]};
+      cell_solve(tab, cell_first[cell], count, r, t_in[i], t_out[i],
+                 resid[i], solver_iters, t_sc, albedo);
+    }
+  }
+  out[i] = t_sc;
+  out[n + i] = albedo;
+}
+
 }  // namespace gvr
 
 extern "C" {
@@ -294,6 +357,40 @@ int gvr_mega(const float* cam, const float* tab, int np, const int* ids,
                        static_cast<cudaStream_t>(stream)>>>(
         cam, reinterpret_cast<const float4*>(tab), np, ids, b, light_rows,
         n_lights, env, P, out_rad, out_count);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int gvr_span_tau(const float* tab, const int* cell_first,
+                 const int* cell_count, int sx, int sy, int sz, float lox,
+                 float loy, float loz, float clx, float cly, float clz,
+                 const float* o, const float* d, const float* tmax,
+                 const int* cells, int n_rays, int c_max, float* out,
+                 void* stream) {
+  const gvr::GridGeom geom = {sx, sy, sz, {lox, loy, loz}, {clx, cly, clz}};
+  const int64_t total = static_cast<int64_t>(n_rays) * c_max;
+  if (total > 0) {
+    const int threads = 128;
+    gvr::span_tau_kernel<<<static_cast<unsigned>((total + threads - 1) /
+                                                  threads),
+                           threads, 0, static_cast<cudaStream_t>(stream)>>>(
+        reinterpret_cast<const float4*>(tab), cell_first, cell_count, geom,
+        o, d, tmax, cells, n_rays, c_max, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int gvr_grid_solve(const float* tab, const int* cell_first,
+                   const int* cell_count, const float* o, const float* d,
+                   const float* t_in, const float* t_out, const float* resid,
+                   const int* cells, int n, int solver_iters, float* out,
+                   void* stream) {
+  if (n > 0) {
+    const int threads = 128;
+    gvr::grid_solve_kernel<<<(n + threads - 1) / threads, threads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+        reinterpret_cast<const float4*>(tab), cell_first, cell_count, o, d,
+        t_in, t_out, resid, cells, n, solver_iters, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,11 +6,14 @@ sampling by regular tracking, NEE to one of (lights + env) per bounce, an
 isotropic phase, throughput *= albedo, and Russian roulette after
 ``min_scatter`` bounces.
 
-``render_multiscatter`` walks the pixels in 16x8 screen tiles, one chunk of
-``pick_chunk`` pixels per megakernel launch (``kernels/megatrace.mega_call``),
-keeps every launch on the device and copies the image to the host once at
-the end.  Only the dense engine exists: a scene that the JAX package would
-send to the grid or big-N engine raises.
+``render_multiscatter`` walks the pixels in 16x8 screen tiles, in chunks,
+keeps every result on the device and copies the image to the host once at
+the end.  ``engine_for`` picks the engine as the JAX package does: the
+dense megakernel (one ``kernels/megatrace.mega_call`` launch per chunk of
+``pick_chunk`` pixels) up to GRID_MIN_N Gaussians, the pooled grid
+wavefront (``integrators/gridscatter``, chunks of at most 2^15 pixels)
+above.  A scene that the JAX package would send to the big-N dense engine
+raises.
 """
 
 from __future__ import annotations
@@ -20,29 +23,45 @@ import time
 import numpy as np
 import torch
 
+from gvr_tpu_torch.accel import grid as accel_grid
 from gvr_tpu_torch.cameras import PinholeCamera
 from gvr_tpu_torch.config import RenderConfig
 from gvr_tpu_torch.integrators.common import pick_chunk
+from gvr_tpu_torch.integrators.gridscatter import (
+    grid_for, wavefront_pixels_grid_pooled)
 from gvr_tpu_torch.kernels.megatrace import (camera_vector, mega_call,
                                              strat_n, strat_uv)
 from gvr_tpu_torch.kernels.pathtrace import MEGA_MAX_GAUSSIANS, pack_table
 from gvr_tpu_torch.scene.scene import Scene
 
-__all__ = ["GRID_MIN_N", "engine_for", "render_multiscatter", "strat_n",
-           "strat_uv", "tile_order", "wavefront_pixels"]
+__all__ = ["GRID_CHUNK", "GRID_MIN_N", "engine_for", "render_multiscatter",
+           "strat_n", "strat_uv", "tile_order", "wavefront_pixels"]
 
 # The JAX package's threshold: above it engine='auto' takes the grid engine.
 GRID_MIN_N = 2000
+# Pixels per grid-wavefront chunk at most (gvr_tpu's multiscatter.py:735).
+GRID_CHUNK = 1 << 15
 
 
 def engine_for(cfg: RenderConfig, gmm) -> str:
-    """'dense' where the JAX package takes a dense engine that this package
-    has (the megakernel); raise where it would take one that waits."""
-    if cfg.engine == "auto" and gmm.n > GRID_MIN_N:
-        raise NotImplementedError(
-            f"{gmm.n} Gaussians > GRID_MIN_N={GRID_MIN_N}: the grid engine "
-            f"is not ported yet (ROADMAP Queue 1, accel/grid + "
-            f"gridscatter, with kernels K6/K7)")
+    """'grid' or 'dense' as the JAX package resolves it
+    (``gvr_tpu/integrators/multiscatter.py:644-689``): the grid for
+    engine='grid' and for 'auto' above GRID_MIN_N Gaussians, unless the
+    grid's densest cell spans more than S_CAP_MAX slices, which sends
+    'auto' to the dense engine and refuses 'grid'.  Building the grid is
+    part of the decision (``grid_for`` keeps it for the render).  The
+    dense engine raises above MEGA_MAX_GAUSSIANS: its big-N kernels wait
+    for their port."""
+    if cfg.engine == "grid" or (cfg.engine == "auto"
+                                and gmm.n > GRID_MIN_N):
+        s_cap = grid_for(gmm).s_cap
+        if s_cap <= accel_grid.S_CAP_MAX:
+            return "grid"
+        if cfg.engine == "grid":
+            raise ValueError(
+                f"engine='grid': the scene's densest cell spans {s_cap} "
+                f"slices (> S_CAP_MAX={accel_grid.S_CAP_MAX}), which the "
+                f"JAX package refuses too; use engine='auto' or 'dense'")
     if gmm.n > MEGA_MAX_GAUSSIANS:
         raise NotImplementedError(
             f"{gmm.n} Gaussians > MEGA_MAX_GAUSSIANS={MEGA_MAX_GAUSSIANS}: "
@@ -80,35 +99,55 @@ def render_multiscatter(scene: Scene, camera, cfg: RenderConfig,
                         stats: dict | None = None) -> np.ndarray:
     """Full MC render on ``device``: [H, W, 3] float32 on the host.
 
-    Each chunk launch is asynchronous; results are scattered into a device
-    image that is copied to the host once.  ``progress`` prints the pixels
-    enqueued after each chunk.  ``stats``, if given, receives the render's
-    seconds (host clock, ending with the copy to the host), paths, bounce
-    evaluations, chunks and Gaussian count."""
-    engine_for(cfg, scene.medium)
+    Results are scattered into a device image that is copied to the host
+    once (the megakernel's launches are asynchronous; the grid wavefront
+    reads one flag per iteration).  ``progress`` prints the pixels done
+    after each chunk.  ``stats``, if given, receives the engine, the
+    render's seconds (host clock, after the engine choice and grid build,
+    ending with the copy to the host), the seconds of the engine choice
+    with the grid build (``grid_seconds``; a cached grid costs only its
+    content hash), paths, bounce evaluations (extension rays traced, on
+    the grid), chunks, grid iterations and Gaussian count."""
+    t_build = time.perf_counter()
+    engine = engine_for(cfg, scene.medium)
+    grid = grid_for(scene.medium) if engine == "grid" else None
     t0 = time.perf_counter()
     scene = scene.to(device)
     camera = camera.to(device)
-    cam, table, lights, env, pinhole = _mega_inputs(scene, camera)
     w, h = cfg.width, cfg.height
     order = torch.from_numpy(tile_order(w, h)).to(device)
-    chunk = min(pick_chunk(cfg, scene.medium.n, device),
-                ((w * h + 255) // 256) * 256)
     img = torch.zeros((w * h, 3), dtype=torch.float32, device=device)
     evals = torch.zeros((), dtype=torch.int64, device=device)
-    n_chunks = 0
+    n_chunks = iterations = 0
+    if grid is None:
+        cam, table, lights, env, pinhole = _mega_inputs(scene, camera)
+        chunk = pick_chunk(cfg, scene.medium.n, device)
+    else:
+        grid = grid.to(device)
+        chunk = min(cfg.ray_chunk, GRID_CHUNK)
+    chunk = min(chunk, ((w * h + 255) // 256) * 256)
     for start in range(0, w * h, chunk):
         ids = order[start:start + chunk]
-        sums, counts = mega_call(cam, table, ids, cfg, lights, env, pinhole)
-        img[ids] = sums / cfg.spp
+        if grid is None:
+            sums, counts = mega_call(cam, table, ids, cfg, lights, env,
+                                     pinhole)
+            img[ids] = sums / cfg.spp
+            if stats is not None:
+                evals += counts.sum()
+        else:
+            st = {}
+            img[ids] = wavefront_pixels_grid_pooled(scene, grid, camera, cfg,
+                                                    ids, st)
+            evals += st["ext_rays"]
+            iterations += st["iterations"]
         n_chunks += 1
-        if stats is not None:
-            evals += counts.sum()
         if progress:
             print(f"  pixels {min(start + chunk, w * h)}/{w * h}")
     out = img.cpu().numpy().reshape(h, w, 3)
     if stats is not None:
-        stats.update(seconds=time.perf_counter() - t0, paths=w * h * cfg.spp,
-                     bounce_evals=int(evals), chunks=n_chunks,
+        stats.update(engine=engine, seconds=time.perf_counter() - t0,
+                     grid_seconds=t0 - t_build,
+                     paths=w * h * cfg.spp, bounce_evals=int(evals),
+                     chunks=n_chunks, iterations=iterations,
                      n=scene.medium.n, device=str(device))
     return out

@@ -40,6 +40,9 @@ SIGNATURES = {
     "gvr_bounce": [_P, _I, _P, _P, _P, _I, _P, _I, _P, _I, _I, _P, _P],
     "gvr_mega": [_P, _P, _I, _P, _I, _P, _I, _P, _F, _I, _I, _I, _I, _U,
                  _U, _I, _I, _I, _F, _I, _F, _I, _I, _P, _P, _P],
+    "gvr_span_tau": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P, _P,
+                     _P, _P, _I, _I, _P, _P],
+    "gvr_grid_solve": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
 }
 
 

@@ -2,9 +2,9 @@
 
 ``scene_from_numpy`` takes the leaves of a ``gvr_tpu`` Scene and its
 GaussianMixture under their JAX field names; ``camera_from_numpy`` those of
-a ``gvr_tpu`` camera.  The arrays are taken as they are (no eigh is
-recomputed), so both packages pack bit-identical kernel tables from one
-scene.  Nothing here imports JAX: the caller converts with ``np.asarray``.
+a ``gvr_tpu`` camera; ``grid_from_numpy`` those of a ``gvr_tpu``
+GridIndex.  The arrays are taken as they are (no eigh is recomputed), so
+both packages pack bit-identical kernel tables from one scene.  Nothing here imports JAX: the caller converts with ``np.asarray``.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from gvr_tpu_torch.accel.grid import H, GridIndex, make_grid
 from gvr_tpu_torch.cameras import OrthographicCamera, PinholeCamera
 from gvr_tpu_torch.scene.gaussians import GaussianMixture
 from gvr_tpu_torch.scene.scene import Scene
@@ -20,6 +21,8 @@ MIXTURE_FIELDS = ("mean", "cov", "density", "albedo", "emission",
                   "inv_cov", "norm", "eigvals", "eigvecs")
 SCENE_FIELDS = ("lights_p", "lights_i", "env_color")
 CAMERA_FIELDS = ("position", "view_dir", "right", "up")
+GRID_FIELDS = ("table", "cell_gfirst", "cell_gcnt", "lo", "cell",
+               "inv_cell", "side", "s_cap", "n_entries")
 
 
 def _t(x, device):
@@ -39,3 +42,14 @@ def camera_from_numpy(arrays: dict, device="cpu"):
     if "fov" in arrays:
         return PinholeCamera(p, v, r, u, float(np.float32(arrays["fov"])))
     return OrthographicCamera(p, v, r, u)
+
+
+def grid_from_numpy(arrays: dict, device="cpu") -> GridIndex:
+    """GridIndex from a dict keyed by GRID_FIELDS (the JAX names).  The
+    table keeps the cell-sorted entry rows of the JAX solve view, padded
+    to a multiple of H as ``build_grid`` pads them; the span view is not
+    carried."""
+    n = int(arrays["n_entries"])
+    rows = max(H, ((n + H - 1) // H) * H)
+    table = np.asarray(arrays["table"], np.float32).reshape(-1, 16)[:rows]
+    return make_grid(table, *(arrays[k] for k in GRID_FIELDS[1:]), device)

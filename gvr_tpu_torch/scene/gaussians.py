@@ -5,7 +5,8 @@ Counterpart of ``gvr_tpu/scene/gaussians.py`` (reference ``gaussian.h``,
 g(x) = norm * exp(-0.5 (x-mu)^T S^-1 (x-mu)), norm = (2 pi)^-1.5 det(S)^-1/2;
 extinction mu_t(x) = density * g(x); support truncated at R_CUT sigma.
 
-The 11-parameter codec and ``morton_sorted`` wait for later slices.
+``aabbs`` feeds the grid build (``accel/grid``).  The 11-parameter codec
+and ``morton_sorted`` wait for later slices.
 """
 
 from __future__ import annotations
@@ -90,3 +91,18 @@ class GaussianMixture:
         """[N] mean^T inv_cov mean."""
         q, m = self.qvec(), self.mean
         return q[:, 0] * m[:, 0] + q[:, 1] * m[:, 1] + q[:, 2] * m[:, 2]
+
+    def aabbs(self):
+        """World AABBs at R_CUT sigma: (bmin [N,3], bmax [N,3]).
+
+        The half-extent h_i = sum_j |R_ij| * R_CUT sqrt(ev_j) is summed as
+        XLA sums it on the CPU, a fused multiply-add chain over j; each
+        step is emulated in float64 (a product of two float32 is exact
+        there) and rounded to float32, so the same mixture gives the same
+        boxes, and so the same grid, in both packages."""
+        ext = (R_CUT * torch.sqrt(torch.clamp(self.eigvals, min=0.0)))
+        prod = self.eigvecs.abs().double() * ext.double()[:, None, :]
+        h = prod[..., 0].float()
+        for j in (1, 2):
+            h = (prod[..., j] + h.double()).float()
+        return self.mean - h, self.mean + h

@@ -61,3 +61,36 @@ def mega_agreement(outs, refs, spp: int) -> dict:
                 mean_diff=float(diff.mean()), off_frac=float(off.float().mean()),
                 evals=n_out, evals_rel=abs(n_out - n_ref) / max(n_ref, 1),
                 finite=bool(torch.isfinite(outs[0]).all()))
+
+
+# K6, kernel vs plain, per (ray, crossing) slot: the bounce bars' tau
+# tolerance, plus the float32 resolution of the form both versions share
+# with the TPU kernel, tau_i = pref * (erf(z1) - erf(z0)) with z = sa * t +
+# zoff.  sa * t and zoff nearly cancel, so each z carries an error up to
+# ~2^-23 sa t, and the pair's tau one up to ~2 * 2^-23 * peak * t over both
+# ends (pref * erf' <= peak / sa).  Two versions rounding apart, with FMA
+# contraction in the kernel only, may differ by twice that:
+#   |dtau| <= atol + rtol |tau| + resolution * peak * t_out,
+# peak the densest entry of the slot's cell, t_out the crossing's far end.
+K6_BARS = dict(atol=1e-4, rtol=1e-3, resolution=8 * 2.0 ** -23)
+
+
+def span_tau_agreement(got, want, grid, cells, t_out) -> dict:
+    """Measured agreement of two [R, C] K6 results on the crossings
+    (cells, t_out) of ``dda_crossings`` and whether it meets K6_BARS."""
+    n = grid.n_entries
+    cell_of = grid.table[:n, 9].long()
+    peak = torch.zeros(grid.n_cells, dtype=torch.float32,
+                       device=want.device).scatter_reduce(
+        0, cell_of, grid.table[:n, 10], "amax")
+    slot_peak = torch.where(cells >= 0, peak[cells.clamp(min=0).long()], 0.0)
+    err = (got - want).abs()
+    base = K6_BARS["atol"] + K6_BARS["rtol"] * want.abs()
+    bound = base + K6_BARS["resolution"] * slot_peak * t_out.abs()
+    res = dict(slots=int((cells >= 0).sum()), max_err=float(err.max()),
+               max_tau=float(want.max()),
+               beyond_base=int((err > base).sum()),
+               worst_excess=float((err - bound).max()),
+               worst_ratio=float((err / bound).max()))
+    res["ok"] = res["worst_excess"] <= 0.0
+    return res

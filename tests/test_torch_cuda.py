@@ -14,15 +14,20 @@ import pytest
 import torch
 
 from _torch_common import check_bounce, cuda_device, random_rays  # noqa: F401
+from gvr_tpu_torch.accel.grid import build_grid, dda_crossings
 from gvr_tpu_torch.cameras import OrthographicCamera, PinholeCamera
 from gvr_tpu_torch.config import RenderConfig
+from gvr_tpu_torch.integrators.gridscatter import (critical_crossing,
+                                                   grid_tau_crossings)
 from gvr_tpu_torch.integrators.multiscatter import render_multiscatter
+from gvr_tpu_torch.kernels import gridtrace as tgt
 from gvr_tpu_torch.kernels import megatrace as tmt
 from gvr_tpu_torch.kernels import pathtrace as tpt
 from gvr_tpu_torch.kernels import rng as trng
 from gvr_tpu_torch.scene.generators import random_gaussian_scene
 from gvr_tpu_torch.scene.scene import parse_gmm
-from gvr_tpu_torch.testing import mega_agreement
+from gvr_tpu_torch.testing import (BOUNCE_BARS, mega_agreement,
+                                   span_tau_agreement)
 
 pytestmark = pytest.mark.gpu
 
@@ -30,6 +35,8 @@ pytestmark = pytest.mark.gpu
 SCENE24 = random_gaussian_scene(24, seed=7, diameter=(0.2, 0.6),
                                 density=(0.5, 2.0))
 MEGA_KW = dict(width=16, height=16, spp=9, max_bounces=6)
+# The grid fixture of tests/test_grid.py: fat Gaussians over many cells.
+SCENE120 = random_gaussian_scene(120, seed=3, diameter=(0.05, 0.9))
 
 
 def _cameras(device):
@@ -151,3 +158,81 @@ def test_wrappers_refuse_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="ids"):
         tmt.mega_call(*_mega_args(sc, _cameras(cuda_device)[0],
                                   RenderConfig(**MEGA_KW), ids))
+
+
+def _grid_rays(cuda_device, n=8192, seed=3):
+    o, d, _ = random_rays(n, seed=seed)
+    return (torch.from_numpy(o).to(cuda_device),
+            torch.from_numpy(d).to(cuda_device))
+
+
+@pytest.mark.parametrize("with_tmax", [False, True])
+def test_span_tau_kernel_matches_plain(cuda_device, with_tmax):
+    """K6 per crossing at testing.K6_BARS (the bounce bars' tau tolerance
+    plus float32 resolution) on a 2,000-Gaussian grid."""
+    sc = parse_gmm(random_gaussian_scene(2000, seed=1), device=cuda_device)
+    grid = build_grid(sc.medium)
+    o, d = _grid_rays(cuda_device)
+    tmax = torch.linspace(0.1, 4.0, o.shape[0], device=cuda_device) \
+        if with_tmax else torch.full((o.shape[0],), 1e8, device=cuda_device)
+    cells, _, t_out = dda_crossings(grid, o, d,
+                                    tmax if with_tmax else None)
+    got = tgt.span_tau_pass(grid, o, d, tmax, cells)
+    want = tgt.span_tau_reference(grid, o, d, tmax, cells)
+    torch.cuda.synchronize()
+    res = span_tau_agreement(got, want, grid, cells, t_out)
+    assert res["slots"] > 1000 and res["ok"], res
+
+
+def test_grid_solve_kernel_matches_plain(cuda_device):
+    """K7 on the critical cells of random rays: medians of |dt| and
+    |dalbedo| within the bounce bars (a root near an interval end may
+    land on the other side on a few rays)."""
+    sc = parse_gmm(SCENE120, device=cuda_device)
+    grid = build_grid(sc.medium)
+    o, d = _grid_rays(cuda_device)
+    u = torch.from_numpy(np.random.default_rng(11).uniform(
+        0.01, 0.99, o.shape[0]).astype(np.float32)).to(cuda_device)
+    _, _, cells, t_in, t_out, resid = critical_crossing(
+        grid, *grid_tau_crossings(grid, o, d), u)
+    args = (grid, o, d, t_in, t_out, resid, cells, 6)
+    got, want = tgt.solve_pass(*args), tgt.solve_reference(*args)
+    torch.cuda.synchronize()
+    live = cells >= 0
+    assert int(live.sum()) > 100
+    assert float((got[0] - want[0]).abs()[live].median()) < BOUNCE_BARS["t"]
+    assert float((got[1] - want[1]).abs()[live].median()) \
+        < BOUNCE_BARS["albedo"]
+
+
+def test_grid_engine_matches_megakernel(cuda_device):
+    """engine='grid' forced against the dense megakernel on one scene:
+    the same estimator, so image means agree within 1 % at 64^2 spp 16;
+    only the grid's kernels run and no plain version is called."""
+    sc = parse_gmm(SCENE120, device=cuda_device)
+    cam = _cameras(cuda_device)[0]
+    cfg = RenderConfig(width=64, height=64, spp=16)
+    counters = (tgt.span_tau_pass, tgt.solve_pass, tgt.span_tau_reference,
+                tgt.solve_reference, tmt.mega_call)
+    for fn in counters:
+        fn.launches = 0
+    img_g = render_multiscatter(sc, cam, cfg.replace(engine="grid"),
+                                device=cuda_device)
+    launches = [fn.launches for fn in counters]
+    img_d = render_multiscatter(sc, cam, cfg.replace(engine="dense"),
+                                device=cuda_device)
+    assert launches[0] > 0 and launches[1] > 0 and launches[2:] == [0, 0, 0]
+    assert np.isfinite(img_g).all() and img_g.std() > 0
+    np.testing.assert_allclose(img_g.mean(), img_d.mean(), rtol=1e-2)
+
+
+def test_grid_wrappers_refuse_bad_inputs(cuda_device):
+    sc = parse_gmm(SCENE120, device=cuda_device)
+    grid = build_grid(sc.medium)
+    o, d = _grid_rays(cuda_device, n=64)
+    tmax = torch.full((64,), 1e8, device=cuda_device)
+    cells, _, _ = dda_crossings(grid, o, d)
+    with pytest.raises(ValueError, match="cells"):
+        tgt.span_tau_pass(grid, o, d, tmax, cells.long())
+    with pytest.raises(ValueError, match="tmax"):
+        tgt.span_tau_pass(grid, o, d, tmax.cpu(), cells)

@@ -1,6 +1,6 @@
 """Package-level guards of the port: it never imports JAX or gvr_tpu, it
-refuses the paths it does not have yet, and its wrappers take the plain
-version only for CPU tensors."""
+refuses the paths it does not have yet, it picks the JAX package's engine,
+and its wrappers take the plain version only for CPU tensors."""
 
 import ast
 import pathlib
@@ -13,6 +13,8 @@ from gvr_tpu_torch.config import RenderConfig, Solver
 from gvr_tpu_torch.integrators.common import pick_chunk
 from gvr_tpu_torch.integrators.multiscatter import GRID_MIN_N, engine_for
 from gvr_tpu_torch.kernels import _build
+from gvr_tpu_torch.scene.generators import random_gaussian_scene
+from gvr_tpu_torch.scene.scene import parse_gmm
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "gvr_tpu_torch").rglob("*.py")) + [
@@ -41,9 +43,8 @@ def test_port_never_imports_jax(path):
 
 @pytest.mark.parametrize("kw", [
     dict(solver=Solver.BISECTION), dict(solver=Solver.ANALYTIC_BISECTION),
-    dict(solver=Solver.UNIFORM), dict(engine="grid"), dict(candidate_k=8)],
-    ids=["bisection", "analytic_bisection", "uniform", "grid",
-         "candidate_k"])
+    dict(solver=Solver.UNIFORM), dict(candidate_k=8)],
+    ids=["bisection", "analytic_bisection", "uniform", "candidate_k"])
 def test_unported_knobs_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RenderConfig(**kw)
@@ -52,6 +53,8 @@ def test_unported_knobs_raise(kw):
 def test_kernel_solvers_and_engines_are_accepted():
     for solver in (Solver.NEWTON, Solver.ANALYTIC_NEWTON):
         RenderConfig(solver=solver)
+    for engine in ("auto", "dense", "grid"):
+        assert RenderConfig(engine=engine).engine == engine
     with pytest.raises(ValueError):
         RenderConfig(engine="sparse")
 
@@ -62,8 +65,9 @@ def test_engine_for_keeps_the_jax_thresholds():
             self.n = n
     assert engine_for(RenderConfig(), Mix(GRID_MIN_N)) == "dense"
     assert engine_for(RenderConfig(engine="dense"), Mix(2048)) == "dense"
-    with pytest.raises(NotImplementedError, match="grid"):
-        engine_for(RenderConfig(), Mix(GRID_MIN_N + 1))
+    # above GRID_MIN_N, 'auto' takes the grid (its build decides S_CAP_MAX)
+    mix = parse_gmm(random_gaussian_scene(GRID_MIN_N + 1, seed=0)).medium
+    assert engine_for(RenderConfig(), mix) == "grid"
     with pytest.raises(NotImplementedError, match="K4/K5"):
         engine_for(RenderConfig(engine="dense"), Mix(2049))
 
@@ -81,7 +85,8 @@ def test_pick_chunk_budget_only_on_cpu(n):
 
 def test_build_sources_and_checks():
     names = {p.name for p in _build.CSRC.iterdir()}
-    assert {"kernels.cu", "bounce.cuh", "rng.cuh", "common.cuh"} <= names
+    assert {"kernels.cu", "bounce.cuh", "grid.cuh", "rng.cuh",
+            "common.cuh"} <= names
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.library_path().parent == ROOT / "gvr_tpu_torch" / "_build"
