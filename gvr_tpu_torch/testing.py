@@ -72,7 +72,13 @@ def mega_agreement(outs, refs, spp: int) -> dict:
 # contraction in the kernel only, may differ by twice that:
 #   |dtau| <= atol + rtol |tau| + resolution * peak * t_out,
 # peak the densest entry of the slot's cell, t_out the crossing's far end.
-K6_BARS = dict(atol=1e-4, rtol=1e-3, resolution=8 * 2.0 ** -23)
+# The resolution term only admits the few slots of the thinnest Gaussians,
+# so at most beyond_share of the live slots may exceed atol + rtol |tau|.
+# On the H100 the kernel measured at most 43 % of this bound and 1.4e-4 of
+# the slots beyond the base (chip_smoke phase 10); float32 vs float64 of
+# the plain version 3.8 % and none.
+K6_BARS = dict(atol=1e-4, rtol=1e-3, resolution=4 * 2.0 ** -23,
+               beyond_share=1e-3)
 
 
 def span_tau_agreement(got, want, grid, cells, t_out) -> dict:
@@ -92,5 +98,40 @@ def span_tau_agreement(got, want, grid, cells, t_out) -> dict:
                beyond_base=int((err > base).sum()),
                worst_excess=float((err - bound).max()),
                worst_ratio=float((err / bound).max()))
-    res["ok"] = res["worst_excess"] <= 0.0
+    res["ok"] = bool(res["worst_excess"] <= 0.0 and res["beyond_base"]
+                     <= K6_BARS["beyond_share"] * max(res["slots"], 1))
+    return res
+
+
+# K7, kernel vs plain, per ray with a live critical cell.  With the erfinv
+# finisher both versions land on the root to float32 rounding: float32 vs
+# float64 of the plain version keeps every t within t_atol + t_rtol |t| on
+# the 10k grid, while without the finisher 2.2 % of the roots fall outside.
+# A root next to a threshold (a support end, the finisher's active test) may
+# take the other branch in one version, so a share of the rays must meet
+# the t bar, and of those the same share the albedo bar (a root at a
+# support end may count that Gaussian in one version only).  On the H100
+# the kernel left 1 of 16,395 and 1 of 28,776 rays outside the t bar and 0
+# and 2 outside the albedo bar (chip_smoke phases 8 and 10).
+K7_BARS = dict(t_atol=1e-5, t_rtol=1e-4, albedo=1e-3, share=0.999)
+
+
+def solve_agreement(got, want, cells) -> dict:
+    """Measured agreement of two K7 results (t_sc, albedo) [B] over the
+    rays whose critical cell ``cells`` is live, and whether it meets
+    K7_BARS."""
+    live = cells >= 0
+    t_w = want[0][live]
+    dt = (got[0][live] - t_w).abs()
+    da = (got[1][live] - want[1][live]).abs()
+    t_ok = dt <= K7_BARS["t_atol"] + K7_BARS["t_rtol"] * t_w.abs()
+    n = int(live.sum())
+    res = dict(n=n, t_median=float(dt.median()) if n else 0.0,
+               t_max=float(dt.max()) if n else 0.0,
+               t_within=float(t_ok.float().mean()) if n else 1.0,
+               albedo_max=float(da[t_ok].max()) if t_ok.any() else 0.0,
+               albedo_within=float((da[t_ok] <= K7_BARS["albedo"])
+                                   .float().mean()) if t_ok.any() else 1.0)
+    res["ok"] = bool(n > 0 and res["t_within"] >= K7_BARS["share"]
+                     and res["albedo_within"] >= K7_BARS["share"])
     return res

@@ -26,7 +26,7 @@ from gvr_tpu_torch.kernels import pathtrace as tpt
 from gvr_tpu_torch.kernels import rng as trng
 from gvr_tpu_torch.scene.generators import random_gaussian_scene
 from gvr_tpu_torch.scene.scene import parse_gmm
-from gvr_tpu_torch.testing import (BOUNCE_BARS, mega_agreement,
+from gvr_tpu_torch.testing import (mega_agreement, solve_agreement,
                                    span_tau_agreement)
 
 pytestmark = pytest.mark.gpu
@@ -184,11 +184,15 @@ def test_span_tau_kernel_matches_plain(cuda_device, with_tmax):
     assert res["slots"] > 1000 and res["ok"], res
 
 
-def test_grid_solve_kernel_matches_plain(cuda_device):
-    """K7 on the critical cells of random rays: medians of |dt| and
-    |dalbedo| within the bounce bars (a root near an interval end may
-    land on the other side on a few rays)."""
-    sc = parse_gmm(SCENE120, device=cuda_device)
+@pytest.mark.parametrize("n", [120, 2000])
+def test_grid_solve_kernel_matches_plain(cuda_device, n):
+    """K7 on the critical cells of random rays at testing.K7_BARS: t to
+    float32 rounding on 99.9 % of the rays (a root next to a threshold may
+    take the other branch on a few), the albedo on those rays.  The fat
+    Gaussians of the 120 overlap at most roots (the mixture albedo); the
+    2,000 leave one active at most roots (the finisher's case)."""
+    text = SCENE120 if n == 120 else random_gaussian_scene(2000, seed=1)
+    sc = parse_gmm(text, device=cuda_device)
     grid = build_grid(sc.medium)
     o, d = _grid_rays(cuda_device)
     u = torch.from_numpy(np.random.default_rng(11).uniform(
@@ -198,11 +202,8 @@ def test_grid_solve_kernel_matches_plain(cuda_device):
     args = (grid, o, d, t_in, t_out, resid, cells, 6)
     got, want = tgt.solve_pass(*args), tgt.solve_reference(*args)
     torch.cuda.synchronize()
-    live = cells >= 0
-    assert int(live.sum()) > 100
-    assert float((got[0] - want[0]).abs()[live].median()) < BOUNCE_BARS["t"]
-    assert float((got[1] - want[1]).abs()[live].median()) \
-        < BOUNCE_BARS["albedo"]
+    res = solve_agreement(got, want, cells)
+    assert res["n"] > 1000 and res["ok"], res
 
 
 def test_grid_engine_matches_megakernel(cuda_device):

@@ -10,6 +10,7 @@ so both packages trace the same table.  JAX's kernels use an A&S erf that
 differs from torch.erf by ~1.5e-7, and the two packages sum in other
 orders; each tolerance below says what it allows for."""
 
+import dataclasses
 import math
 
 import jax.numpy as jnp
@@ -36,6 +37,7 @@ from gvr_tpu_torch.kernels import gridtrace as tgt
 from gvr_tpu_torch.scene.convert import GRID_FIELDS, grid_from_numpy
 from gvr_tpu_torch.scene.gaussians import GaussianMixture
 from gvr_tpu_torch.scene.scene import parse_gmm
+from gvr_tpu_torch.testing import solve_agreement, span_tau_agreement
 
 TEXT = random_gaussian_scene(120, seed=3, diameter=(0.05, 0.9))
 N_RAYS = 256
@@ -192,6 +194,37 @@ def test_grid_free_flight_matches_jax(jgrid, grid, rays):
     np.testing.assert_allclose(got[2][both & close], want[2][both & close],
                                atol=1e-4)
     np.testing.assert_allclose(got[3], want[3], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("kernel", ["span_tau", "solve"])
+def test_kernel_bars_admit_float64_rounding(grid, rays, kernel):
+    """testing.K6_BARS and K7_BARS, which hold each kernel against its plain
+    version on the card, admit the plain version in float32 against itself
+    in float64 on the same float32 crossings (u from seed 11): the bars
+    are no tighter than float32 rounding of the same math."""
+    g64 = dataclasses.replace(grid, table=grid.table.double(),
+                              lo=grid.lo.double(), cell=grid.cell.double(),
+                              inv_cell=grid.inv_cell.double())
+    o, d = (torch.from_numpy(a) for a in rays)
+    if kernel == "span_tau":
+        tmax = torch.from_numpy(TMAX)
+        cells, _, t_out = tgrid.dda_crossings(grid, o, d, tmax)
+        got = tgt.span_tau_reference(grid, o, d, tmax, cells)
+        want = tgt.span_tau_reference(g64, o.double(), d.double(),
+                                      tmax.double(), cells).float()
+        res = span_tau_agreement(got, want, grid, cells, t_out)
+        assert res["slots"] > N_RAYS and res["ok"], res
+    else:
+        u = torch.from_numpy(np.random.default_rng(11).uniform(
+            0.01, 0.99, N_RAYS).astype(np.float32))
+        _, _, cells, t_in, t_out, resid = tgs.critical_crossing(
+            grid, *tgs.grid_tau_crossings(grid, o, d), u)
+        got = tgt.solve_reference(grid, o, d, t_in, t_out, resid, cells)
+        want = [x.float() for x in tgt.solve_reference(
+            g64, o.double(), d.double(), t_in.double(), t_out.double(),
+            resid.double(), cells)]
+        res = solve_agreement(got, want, cells)
+        assert res["n"] > 30 and res["ok"], res
 
 
 def test_grid_free_flight_u_tau_zero_scatters_with_albedo(jgrid, grid,
