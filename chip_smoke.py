@@ -40,15 +40,39 @@ CLI.  One line per phase; any failure raises, so the exit code is non-zero.
              iteration of the grid main path: K6 over the crossings of
              32,768 camera rays of the 512^2 image (tile-order chunk 4)
              and their 32,768 NEE rays, K7 over the scattered ones; both
-             held there against their plain results at K6_BARS and K7_BARS
+             held there against their plain results at K6_BARS and
+             K7_BARS; the entries K7 solves and those its rays cross
  11 grid main  `gvr_tpu_torch.cli render` of random_gaussian_scene(10000, 0)
              at 512^2 spp 16, engine auto: grid build seconds, render
              seconds, Mpaths/s, iterations, extension rays/s; image finite
              and not constant, K6/K7 launched, no plain version called
+ 12 K4/K5 vs plain  random_gaussian_scene(10000, 0) (Morton-sorted, 40
+             chunks): 8,192 tile-order camera rays of the 512^2 image
+             through the medium and 8,192 rays from inside it, with the
+             scene's 3 lights, with none, and with one light inside the
+             medium (where K5's tmax clip matters): testing.BIG_BARS
+ 13 big timing  K4 and K5 kernel (CUDA events, 10 launches) and plain (2)
+             at one iteration of the big main path: the 65,536 lanes of
+             chunk 2 of the 512^2 image, primary rays and after one
+             bounce; the chunks each 64-ray block hits and the pairs
+             each ray crosses (mean, max)
+ 14 big main `gvr_tpu_torch.cli render` of the 10k scene at 256^2 spp 16
+             (512^2 takes ~35 s), engine dense (K3, K4, K5): render
+             seconds, Mpaths/s, iterations, chunks; image finite, not
+             constant, its mean within 1 % of the grid engine's image of
+             the same scene, camera, size, spp and seed; no plain version
+             called
+ 15 auto fallback  random_gaussian_scene(8000, 0, diameter 2-4), whose
+             grid exceeds S_CAP_MAX, through the CLI at 128^2 spp 4 with
+             engine auto: dense with the big kernel, K4/K5 launched, host
+             grid-build seconds
 
-The last three lines: the nvidia-smi line, the kernels JSON, and the
-result JSON.  Without a CUDA card, or without the package beside it, the
-script exits non-zero before printing any result.
+The last three lines: the nvidia-smi line, the kernels JSON (each kernel
+with its launches on its main path, its kernel and plain times, and its
+bound: the larger of its operations over 67 TFLOP/s and its bytes, each
+input read and each output written once, over 3.35 TB/s), and the result
+JSON.  Without a CUDA card, or without the package beside it, the script
+exits non-zero before printing any result.
 """
 
 import json
@@ -79,6 +103,30 @@ CHUNK_BARS = dict(max_path_diff=8.0, off_frac=1e-2, mean_diff=1e-4,
                   evals_rel=1e-4)
 GRID_SIZE, GRID_SPP, GRID_N = 512, 16, 10_000   # the grid main path
 GRID_CHUNK_INDEX = 4       # rows 256-319 of the 512^2 image, the centre
+BIG_RAYS = 8192            # phase 12: camera rays, and as many inside
+BIG_CHUNK_INDEX = 2        # rows 256-383 of the 512^2 image, 65,536 lanes
+BIG_SIZE = 256             # the big main path's render (512^2: ~35 s)
+# The card's peaks (NVIDIA H100 SXM data sheet): float32 outside the
+# tensor cores and HBM bandwidth.  A kernel's bound is the larger of its
+# operations over the first and its bytes over the second.
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# Flops of one (Gaussian, ray) pair test, csrc/bounce.cuh interval(), an
+# FMA counted as 2: two 23-flop bilinear forms, q.d, b, t*, the closest
+# point, m2, the gap and the interval.  The function needs it once for
+# each pair: every Gaussian for each ray in K1, K2, K4 and K5, every entry
+# of a crossed or solved cell in K6 and K7.
+PAIR_TEST_FLOPS = 94
+# Flops of one evaluation of a crossed pair at a point, bounce.cuh
+# tau_sig_at(): z, the erf difference, the exp term and the two sums, an
+# erff or expf counted as 1.  K4 and K7 need it for each pair a ray
+# crosses in each pass (the tau pass, the solver's steps, the albedo);
+# the other kernels' erf/exp work is not counted, so those bounds are
+# floors.
+CROSSED_EVAL_FLOPS = 13
+SOLVER_ITERS, GRID_SOLVER_ITERS = 12, 6     # the RenderConfig defaults
+# K3: integer operations a uniform (the splitmix32 chain of
+# csrc/rng.cuh: ~40 a (pixel, sample, bounce) key, ~14 a draw, of 9).
+RNG_OPS_PER_KEY = 40 + 9 * 14
 
 
 def log(phase, msg):
@@ -100,6 +148,13 @@ def cuda_ms(fn, reps, warmup=True):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+def bound(ops, nbytes):
+    """(bound_ms, bound_by) of work of ``ops`` operations that must move
+    ``nbytes`` bytes."""
+    t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def main():
@@ -125,7 +180,8 @@ def run(dev):
         GRID_CHUNK, render_multiscatter, tile_order)
     from gvr_tpu_torch.io.ppm import read_ppm
     from gvr_tpu_torch.kernels import (_build, gridtrace, megatrace,
-                                       pathtrace, rng)
+                                       pathtrace, pathtrace_big, rng)
+    from gvr_tpu_torch.ops.sampling import dir_from_xi
     from gvr_tpu_torch.scene.generators import random_gaussian_scene
     from gvr_tpu_torch.scene.scene import parse_gmm
 
@@ -275,6 +331,17 @@ def run(dev):
             f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
             f"({time.perf_counter() - t0:.1f} s); kernel vs plain "
             f"{json.dumps(res)} (bars {json.dumps(CHUNK_BARS)})")
+    bounds = {
+        "rng": bound(RNG_OPS_PER_KEY * RAYS, 12 * 4 * RAYS),
+        "bounce": bound(2 * RAYS * table250.shape[0] * PAIR_TEST_FLOPS,
+                        table250.numel() * 4 + RAYS * (3 + 3 + 5 + 8) * 4),
+        # every bounce evaluation tests all pairs once, and every one that
+        # scatters (at least evaluations - paths) once more for its NEE ray
+        f"mega_spp{MAIN_SPP}": bound(
+            (2 * chunk_res[MAIN_SPP]["evals"] - RAYS * MAIN_SPP)
+            * table250.shape[0] * PAIR_TEST_FLOPS,
+            table250.numel() * 4 + RAYS * (4 + 12 + 4)),
+    }
     for spp, res in chunk_res.items():
         if not (res["finite"]
                 and all(res[k] <= CHUNK_BARS[k] for k in CHUNK_BARS)):
@@ -290,9 +357,11 @@ def run(dev):
                 pathtrace.bounce_step, pathtrace.bounce_core_reference,
                 megatrace.mega_call, megatrace.mega_reference,
                 gridtrace.span_tau_pass, gridtrace.span_tau_reference,
-                gridtrace.solve_pass, gridtrace.solve_reference)
+                gridtrace.solve_pass, gridtrace.solve_reference,
+                pathtrace_big.big_stage1, pathtrace_big.big_stage1_reference,
+                pathtrace_big.big_nee, pathtrace_big.big_nee_reference)
 
-    def cli_render(text, size, spp, kernels):
+    def cli_render(text, size, spp, kernels, engine="auto"):
         """Render ``text`` through the CLI with every count set to 0 just
         before; returns (stats, wall seconds, launches, image) after
         checking the image, that each of ``kernels`` was launched and that
@@ -308,7 +377,7 @@ def run(dev):
             stats = cli.main(["render", scene_path, "-o", out_path,
                               "--width", str(size), "--height", str(size),
                               "--spp", str(spp), "--stats", "--device",
-                              str(dev)])
+                              str(dev), "--engine", engine])
             wall = time.perf_counter() - t0
             launches = {fn.__name__: fn.launches for fn in counters}
             img = read_ppm(out_path)
@@ -436,6 +505,23 @@ def run(dev):
         f"{times['grid_solve'][0]:.3f} ms, plain "
         f"{times['grid_solve'][1]:.3f} ms, kernel vs plain "
         f"{json.dumps(k7_main)} ({smi})")
+    crossings = grid.cell_count[cells2[cells2 >= 0].long()].sum().item()
+    solved = grid.cell_count[cell_c[cell_c >= 0].long()].sum().item()
+    crossed7 = gridtrace.crossed_entries(grid, o_e, d_e, tin_c, tout_c,
+                                         cell_c).sum().item()
+    cell_bytes = grid.table.numel() * 4 + grid.n_cells * 8
+    bounds["span_tau"] = bound(crossings * PAIR_TEST_FLOPS,
+                               cell_bytes + o2.shape[0] * 7 * 4
+                               + cells2.numel() * 8)
+    # K7: a pair test for each entry of the solved cells, then the crossed
+    # entries in the tau pass, the Newton steps and the albedo pass
+    bounds["grid_solve"] = bound(
+        solved * PAIR_TEST_FLOPS
+        + crossed7 * (GRID_SOLVER_ITERS + 2) * CROSSED_EVAL_FLOPS,
+        cell_bytes + n_ext * 12 * 4)
+    log("10 grid timing", f"K6 {crossings} cell-entry visits, bound "
+        f"{bounds['span_tau'][0]:.4f} ms; K7 {solved} entries of solved "
+        f"cells, {crossed7} crossed, bound {bounds['grid_solve'][0]:.4f} ms")
     if not (k6_main["ok"] and k7_main["ok"]):
         raise AssertionError(f"K6/K7 at the main path's shapes miss their "
                              f"bars: {k6_main} {k7_main}")
@@ -454,14 +540,130 @@ def run(dev):
         f"{stats['iterations']} iterations in {stats['chunks']} chunks, "
         f"{stats['bounce_evals']} extension rays "
         f"({stats['bounce_evals'] / stats['seconds'] / 1e6:.3f} M/s), image "
-        f"mean {img.mean():.6f}, launches {json.dumps(launches_g)} ({smi})")
+        f"mean {img.mean():.6f}, launches {json.dumps(launches_g)} "
+        f"({smi})")
+
+    # ---- 12: K4 and K5, the big-N kernels, against their plain versions
+    table10k = pathtrace_big.pack_rows(sc10k.medium)
+    o12, d12, xi12 = testing.big_rays(sc10k.medium, BIG_RAYS, 12, dev)
+    inside = torch.tensor([[0.0, 1.0, 0.0, 5.0, 5.0, 5.0]], device=dev)
+    k4_err = k5_err = 0.0
+    for label, lts in (("3 lights", sc10k.lights()),
+                       ("no lights", sc10k.lights()[:0]),
+                       ("a light inside the medium", inside)):
+        res = testing.big_kernel_vs_plain(table10k, o12, d12, xi12, lts,
+                                          sc10k.env_color)
+        k4_err, k5_err = max(k4_err, res["max_dtau"]), max(k5_err,
+                                                           res["max_dli"])
+        log("12 K4/K5 vs plain", f"{GRID_N} Gaussians "
+            f"({table10k.shape[0] // pathtrace_big.G} chunks), {2 * BIG_RAYS} "
+            f"rays, {label}: {json.dumps(res)} (bars "
+            f"{json.dumps(testing.BIG_BARS)})")
+        if not res["ok"]:
+            raise AssertionError(f"K4/K5 {label} miss BIG_BARS: {res}")
+
+    # ---- 13: K4 and K5 timing at one big main-path iteration's shapes ----
+    lanes = torch.from_numpy(tile_order(GRID_SIZE, GRID_SIZE)[
+        BIG_CHUNK_INDEX * RAYS:(BIG_CHUNK_INDEX + 1) * RAYS]).to(dev)
+    uv = torch.stack([(lanes % GRID_SIZE + 0.5) / GRID_SIZE,
+                      (lanes // GRID_SIZE + 0.5) / GRID_SIZE], dim=-1).float()
+    o13, d13 = cam512.sample_ray(uv)
+    xi13 = torch.tensor(rr.uniform(size=(2, RAYS, 5)), dtype=torch.float32,
+                        device=dev)
+    lights10k, env10k = sc10k.lights(), sc10k.env_color
+    s1 = pathtrace_big.big_stage1(table10k, o13, d13, xi13[0], lights10k)
+    moved = (s1[1] > 0.5)[:, None]
+    o13b = torch.where(moved, o13 + s1[0][:, None] * d13, o13)
+    d13b = torch.where(moved, dir_from_xi(xi13[1, :, 3:5]), d13)
+    k4k5_main = {}
+    for label, o_, d_, x_ in (("primary", o13, d13, xi13[0]),
+                              ("after one bounce", o13b, d13b, xi13[1])):
+        args = (table10k, o_, d_, x_, lights10k)
+        k4_ms, s1 = cuda_ms(lambda: pathtrace_big.big_stage1(*args), 10)
+        p4_ms, s1_plain = cuda_ms(
+            lambda: pathtrace_big.big_stage1_reference(*args), 2)
+        k5_ms, li = cuda_ms(
+            lambda: pathtrace_big.big_nee(table10k, s1, env10k), 10)
+        p5_ms, li_plain = cuda_ms(
+            lambda: pathtrace_big.big_nee_reference(table10k, s1, env10k), 2)
+        res = testing.big_agreement(
+            (s1[0], s1[1] > 0.5, s1[2], li, s1[3]),
+            (s1_plain[0], s1_plain[1] > 0.5, s1_plain[2], li_plain,
+             s1_plain[3]))
+        hits, crossed = pathtrace_big.culling_stats(table10k, o_, d_)
+        k4k5_main[label] = res
+        n_pairs = RAYS * table10k.shape[0]
+        ray_bytes = table10k.numel() * 4 + lights10k.numel() * 4
+        key = "" if label == "primary" else "_bounce1"
+        times["big_stage1" + key] = (k4_ms, p4_ms)
+        times["big_nee" + key] = (k5_ms, p5_ms)
+        # K4: a pair test for each pair, then the crossed pairs in the tau
+        # pass, the Newton steps and the albedo pass; K5: a pair test for
+        # each pair of the NEE rays
+        bounds["big_stage1" + key] = bound(
+            n_pairs * PAIR_TEST_FLOPS + int(crossed.sum())
+            * (SOLVER_ITERS + 2) * CROSSED_EVAL_FLOPS,
+            ray_bytes + RAYS * (3 + 3 + 5 + 16) * 4)
+        bounds["big_nee" + key] = bound(n_pairs * PAIR_TEST_FLOPS,
+                                        ray_bytes + RAYS * (12 + 3) * 4)
+        log("13 big timing", f"{label}, {RAYS} lanes of chunk "
+            f"{BIG_CHUNK_INDEX} of {GRID_SIZE}^2: K4 kernel {k4_ms:.3f} ms, "
+            f"plain {p4_ms:.3f} ms; K5 kernel {k5_ms:.3f} ms, plain "
+            f"{p5_ms:.3f} ms; chunks a 64-ray block hits: mean "
+            f"{hits.float().mean().item():.2f}, max {int(hits.max())} of "
+            f"{table10k.shape[0] // pathtrace_big.G}; pairs a ray crosses: "
+            f"mean {crossed.float().mean().item():.2f}, max "
+            f"{int(crossed.max())}; bounds K4 "
+            f"{bounds['big_stage1' + key][0]:.3f} ms, K5 "
+            f"{bounds['big_nee' + key][0]:.3f} ms; kernel vs plain "
+            f"{json.dumps(res)} ({smi})")
+        if not res["ok"]:
+            raise AssertionError(f"K4/K5 {label} at the main path's shapes "
+                                 f"miss BIG_BARS: {res}")
+        k4_err = max(k4_err, res["max_dtau"])
+        k5_err = max(k5_err, res["max_dli"])
+
+    # ---- 14: the big-N main path through the CLI ----
+    img_grid = render_multiscatter(
+        sc10k, cam512, RenderConfig(width=BIG_SIZE, height=BIG_SIZE,
+                                    spp=GRID_SPP), device=dev)
+    stats, wall, launches_b, img_big = cli_render(
+        text10k, BIG_SIZE, GRID_SPP,
+        ["big_stage1", "big_nee", "planes_uniforms"], engine="dense")
+    m_big, m_grid = float(img_big.mean()), float(img_grid.mean())
+    log("14 big main", f"cli render {GRID_N} Gaussians {BIG_SIZE}^2 spp "
+        f"{GRID_SPP} --engine dense ({stats['kernel']} kernel): render "
+        f"{stats['seconds']:.3f} s ({wall:.3f} s with load and PPM), "
+        f"{stats['paths'] / stats['seconds'] / 1e6:.3f} Mpaths/s, "
+        f"{stats['iterations']} iterations in {stats['chunks']} chunks, "
+        f"{stats['bounce_evals']} bounce evaluations, image mean "
+        f"{m_big:.6f} vs the grid engine's {m_grid:.6f} (rel "
+        f"{abs(m_big - m_grid) / m_grid:.2e}, bar 1e-2), launches "
+        f"{json.dumps(launches_b)} ({smi})")
+    if stats["kernel"] != "big" or abs(m_big - m_grid) > 0.01 * m_grid:
+        raise AssertionError("the big-N render misses the grid's mean")
+
+    # ---- 15: engine auto falls back to K4/K5 where the grid refuses ----
+    stats, wall, launches_f, img = cli_render(
+        random_gaussian_scene(8000, seed=0, diameter=(2.0, 4.0)), 128, 4,
+        ["big_stage1", "big_nee"])
+    log("15 auto fallback", f"8000 Gaussians of diameter 2-4, 128^2 spp 4, "
+        f"engine auto: engine {stats['engine']} ({stats['kernel']} kernel), "
+        f"host grid build (refused by S_CAP_MAX) {stats['grid_seconds']:.3f}"
+        f" s, render {stats['seconds']:.3f} s, {stats['iterations']} "
+        f"iterations, image mean {img.mean():.6f}, launches "
+        f"{json.dumps(launches_f)} ({smi})")
+    if (stats["engine"], stats["kernel"]) != ("dense", "big"):
+        raise AssertionError(f"engine auto took {stats['engine']} "
+                             f"({stats['kernel']}), not the big-N fallback")
 
     def entry(name, replaces, key, path_launches, launches_key, err):
         return {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
                 "replaces": replaces,
                 "launches": path_launches[launches_key],
                 "max_abs_err": err, "ms": times[key][0],
-                "plain_ms": times[key][1]}
+                "plain_ms": times[key][1], "bound_ms": bounds[key][0],
+                "bound_by": bounds[key][1], "library_ms": None}
 
     kernels = [
         entry("mega", "gvr_tpu/kernels/megatrace.py:501",
@@ -475,13 +677,21 @@ def run(dev):
               launches_g, "span_tau_pass", k6_err),
         entry("grid_solve", "gvr_tpu/kernels/gridtrace.py:425",
               "grid_solve", launches_g, "solve_pass", k7_err),
+        entry("big_stage1", "gvr_tpu/kernels/pathtrace_big.py:384",
+              "big_stage1", launches_b, "big_stage1", k4_err),
+        entry("big_nee", "gvr_tpu/kernels/pathtrace_big.py:409", "big_nee",
+              launches_b, "big_nee", k5_err),
     ]
     # K2 runs on the dense main path as a device function inside the
     # megakernel, so its own launcher's count there is 0 by design; K3 too,
     # and the grid main path launches it directly (its count is that run's).
     kernels[1]["inside"] = kernels[2]["inside"] = "mega"
-    for k in kernels[2:]:
+    for k in kernels[2:5]:
         k["path"] = "grid"
+    for k in kernels[5:]:
+        k["path"] = "big"
+        k["ms_bounce1"], k["plain_ms_bounce1"] = times[k["name"] + "_bounce1"]
+        k["bound_ms_bounce1"] = bounds[k["name"] + "_bounce1"][0]
     kernels[0]["ms_spp4"], kernels[0]["plain_ms_spp4"] = times["mega_spp4"]
     print(smi)
     print(json.dumps({"kernels": kernels}))

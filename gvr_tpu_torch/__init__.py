@@ -5,9 +5,10 @@ paths, PyTorch tensors with an explicit device, and the reference's Pallas
 kernels rewritten by hand in CUDA C++ for sm_90a (``csrc/``), each with a
 plain PyTorch version beside it.  It covers the multiscatter main path:
 scene text -> GaussianMixture -> camera -> ``render_multiscatter`` -> PPM,
-through the pooled megakernel up to 2,000 Gaussians and the grid engine
-(``accel/grid``, ``integrators/gridscatter``) above.  It never imports
-jax or gvr_tpu.
+through the pooled megakernel up to 2,000 Gaussians, the grid engine
+(``accel/grid``, ``integrators/gridscatter``) above, and the big-N dense
+engine (``kernels/pathtrace_big``) where the JAX package takes it.  It
+never imports jax or gvr_tpu.
 """
 
 from gvr_tpu_torch.cameras import OrthographicCamera, PinholeCamera

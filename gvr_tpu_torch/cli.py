@@ -54,13 +54,15 @@ def cmd_render(args):
                               progress=args.verbose, stats=stats)
     print(f"Render time: {time.time() - t0:.3f} seconds")
     if stats is not None:
-        grid = (f", {stats['iterations']} iterations, grid build "
-                f"{stats['grid_seconds']:.3f} s"
-                if stats["engine"] == "grid" else "")
-        print(f"[render] engine {stats['engine']}: {stats['paths']} paths, "
+        extra = (f", {stats['iterations']} iterations"
+                 if stats["kernel"] != "mega" else "")
+        if stats["engine"] == "grid":
+            extra += f", grid build {stats['grid_seconds']:.3f} s"
+        print(f"[render] engine {stats['engine']} ({stats['kernel']} "
+              f"kernel): {stats['paths']} paths, "
               f"{stats['bounce_evals']} bounce evaluations in "
               f"{stats['seconds']:.3f} s on {stats['device']}: "
-              f"{stats['paths'] / stats['seconds'] / 1e6:.3f} Mpaths/s{grid}")
+              f"{stats['paths'] / stats['seconds'] / 1e6:.3f} Mpaths/s{extra}")
     write_ppm(args.output, img)
     print(f"wrote {args.output}")
     return stats
@@ -98,11 +100,14 @@ def main(argv=None):
                              "analytic_bisection", "uniform"])
     pr.add_argument("--engine", default="auto",
                     choices=["auto", "dense", "grid"],
-                    help="auto: the dense megakernel up to 2000 Gaussians, "
-                    "the grid engine above")
+                    help="auto: the dense engine up to 2000 Gaussians, the "
+                    "grid engine above (dense where the grid refuses a scene "
+                    "by S_CAP_MAX); dense: the megakernel up to 2048 "
+                    "Gaussians, the big-N engine (kernels K4/K5) above, up "
+                    "to 24576")
     pr.add_argument("--stats", action="store_true",
-                    help="print the engine, paths, bounce evaluations and "
-                    "Mpaths/s")
+                    help="print the engine and kernel, paths, bounce "
+                    "evaluations, Mpaths/s and the wavefront iterations")
     pr.add_argument("--trace", default=None, metavar="DIR",
                     help="profiler trace (not ported yet)")
     pr.add_argument("-v", "--verbose", action="store_true")

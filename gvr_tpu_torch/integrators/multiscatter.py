@@ -9,11 +9,14 @@ isotropic phase, throughput *= albedo, and Russian roulette after
 ``render_multiscatter`` walks the pixels in 16x8 screen tiles, in chunks,
 keeps every result on the device and copies the image to the host once at
 the end.  ``engine_for`` picks the engine as the JAX package does: the
-dense megakernel (one ``kernels/megatrace.mega_call`` launch per chunk of
-``pick_chunk`` pixels) up to GRID_MIN_N Gaussians, the pooled grid
-wavefront (``integrators/gridscatter``, chunks of at most 2^15 pixels)
-above.  A scene that the JAX package would send to the big-N dense engine
-raises.
+dense engine up to GRID_MIN_N Gaussians, the pooled grid wavefront
+(``integrators/gridscatter``, chunks of at most 2^15 pixels) above, and
+the dense engine again where the grid's densest cell spans more than
+S_CAP_MAX slices.  The dense engine runs the megakernel (one
+``kernels/megatrace.mega_call`` launch per chunk of ``pick_chunk``
+pixels) up to MEGA_MAX_GAUSSIANS Gaussians and the big-N wavefront
+(``wavefront_pixels_big``: K4 and K5 of ``kernels/pathtrace_big`` each
+iteration) above, up to 96 chunks of 256 Gaussians.
 """
 
 from __future__ import annotations
@@ -29,13 +32,19 @@ from gvr_tpu_torch.config import RenderConfig
 from gvr_tpu_torch.integrators.common import pick_chunk
 from gvr_tpu_torch.integrators.gridscatter import (
     grid_for, wavefront_pixels_grid_pooled)
-from gvr_tpu_torch.kernels.megatrace import (camera_vector, mega_call,
-                                             strat_n, strat_uv)
+from gvr_tpu_torch.kernels.megatrace import (INV_4PI, camera_vector,
+                                             mega_call, strat_n, strat_uv)
 from gvr_tpu_torch.kernels.pathtrace import MEGA_MAX_GAUSSIANS, pack_table
+from gvr_tpu_torch.kernels.pathtrace_big import (bounce_step_big,
+                                                 n_chunks_for, pack_rows,
+                                                 plan)
+from gvr_tpu_torch.kernels.rng import JITTER_TAG, planes_uniforms
+from gvr_tpu_torch.ops.sampling import dir_from_xi
 from gvr_tpu_torch.scene.scene import Scene
 
 __all__ = ["GRID_CHUNK", "GRID_MIN_N", "engine_for", "render_multiscatter",
-           "strat_n", "strat_uv", "tile_order", "wavefront_pixels"]
+           "strat_n", "strat_uv", "tile_order", "wavefront_pixels",
+           "wavefront_pixels_big"]
 
 # The JAX package's threshold: above it engine='auto' takes the grid engine.
 GRID_MIN_N = 2000
@@ -50,8 +59,8 @@ def engine_for(cfg: RenderConfig, gmm) -> str:
     grid's densest cell spans more than S_CAP_MAX slices, which sends
     'auto' to the dense engine and refuses 'grid'.  Building the grid is
     part of the decision (``grid_for`` keeps it for the render).  The
-    dense engine raises above MEGA_MAX_GAUSSIANS: its big-N kernels wait
-    for their port."""
+    dense engine refuses scenes above the big-N kernels' 96 chunks of 256
+    Gaussians with ``plan``'s ValueError, as the JAX package does."""
     if cfg.engine == "grid" or (cfg.engine == "auto"
                                 and gmm.n > GRID_MIN_N):
         s_cap = grid_for(gmm).s_cap
@@ -62,11 +71,7 @@ def engine_for(cfg: RenderConfig, gmm) -> str:
                 f"engine='grid': the scene's densest cell spans {s_cap} "
                 f"slices (> S_CAP_MAX={accel_grid.S_CAP_MAX}), which the "
                 f"JAX package refuses too; use engine='auto' or 'dense'")
-    if gmm.n > MEGA_MAX_GAUSSIANS:
-        raise NotImplementedError(
-            f"{gmm.n} Gaussians > MEGA_MAX_GAUSSIANS={MEGA_MAX_GAUSSIANS}: "
-            f"the big-N dense engine is not ported yet (ROADMAP Queue 2, "
-            f"kernels K4/K5)")
+    plan(n_chunks_for(gmm.n))
     return "dense"
 
 
@@ -94,23 +99,125 @@ def wavefront_pixels(scene: Scene, camera, cfg: RenderConfig,
     return mega_call(cam, table, ids, cfg, lights, env, pinhole)[0] / cfg.spp
 
 
+def wavefront_pixels_big(scene: Scene, camera, cfg: RenderConfig,
+                         ids: torch.Tensor, stats: dict | None = None,
+                         table: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean radiance [B,3] over the spp samples of each pixel id [B]
+    (int32), by the big-N dense wavefront
+    (``gvr_tpu/integrators/multiscatter.py:528-611``): one lane per pixel;
+    a lane whose path ended starts its pixel's next sample, until every
+    lane has traced spp samples or the loop has run spp * max_bounces +
+    max_bounces iterations.  Each iteration draws the jitter and the 9
+    bounce uniforms at (pixel, sample, bounce) through K3 and traces one
+    bounce of every live lane through K4 and K5; escape adds throughput x
+    env, a scatter adds the NEE term, Russian roulette and max_bounces end
+    a path.  One host read an iteration, the live lanes, which is also
+    the loop condition.  JAX traces every lane and masks the finished
+    ones; tracing only the live lanes gives the same results, as a lane's
+    bounce does not depend on the others in its block; on an H100 the 10k
+    scene's render took 8-14 % less time than with every lane traced
+    (PERF.md).  ``table`` is
+    ``pack_rows`` of the scene (built here if not given).  ``stats``, if
+    given, receives 'iterations' and 'bounce_evals' (live lanes
+    traced)."""
+    dev = ids.device
+    b = ids.shape[0]
+    w, h, spp = cfg.width, cfg.height, cfg.spp
+    n_strat = strat_n(spp)
+    if table is None:
+        table = pack_rows(scene.medium)
+    lights, env = scene.lights(), scene.env_color
+    w_ne = float(lights.shape[0] + 1) if lights.shape[0] else 1.0
+    f32 = dict(dtype=torch.float32, device=dev)
+    o = torch.zeros((b, 3), **f32)
+    d = torch.ones((b, 3), **f32)
+    thr = torch.ones((b, 3), **f32)
+    acc = torch.zeros((b, 3), **f32)
+    alive = torch.zeros(b, dtype=torch.bool, device=dev)
+    sample = torch.zeros(b, dtype=torch.int32, device=dev)
+    bounce = torch.zeros(b, dtype=torch.int32, device=dev)
+    evals = 0
+    it, cap = 0, spp * cfg.max_bounces + cfg.max_bounces
+    while it < cap:
+        # the one host read of the iteration: the lanes with a path to
+        # trace, which are the live lanes after regeneration
+        live = torch.nonzero(alive | (sample < spp)).squeeze(1)
+        if live.numel() == 0:
+            break
+        regen = ~alive & (sample < spp)
+        s_new = torch.where(regen, sample, 0)
+        jit = planes_uniforms(ids, s_new, JITTER_TAG, 2, cfg.seed)
+        u, v = strat_uv(ids % w, ids // w, s_new, n_strat, w, h, jit[0],
+                        jit[1])
+        o_n, d_n = camera.sample_ray(torch.stack([u, v], dim=-1))
+        o = torch.where(regen[:, None], o_n, o)
+        d = torch.where(regen[:, None], d_n, d)
+        thr = torch.where(regen[:, None], 1.0, thr)
+        bounce = torch.where(regen, 0, bounce)
+        sample = torch.where(regen, sample + 1, sample)
+        alive = alive | regen
+        evals += live.numel()
+
+        xi = planes_uniforms(ids, torch.clamp(sample, min=1) - 1, bounce, 9,
+                             cfg.seed)                          # [9, B]
+        # K4/K5 trace the live lanes only, in lane order; the others' results
+        # are masked below, as in JAX, where every lane is traced
+        res = bounce_step_big(table, o[live], d[live], xi[:5, live].T,
+                              lights, env, cfg.solver_iters)
+        t_sc, scattered, albedo, li = (
+            torch.zeros((b,) + r.shape[1:], dtype=r.dtype, device=dev)
+            .index_copy_(0, live, r) for r in res[:4])
+        acc = acc + torch.where((alive & ~scattered)[:, None], thr * env,
+                                0.0)
+        alive_n = alive & scattered
+        pos = o + t_sc[:, None] * d
+        acc = acc + torch.where(
+            alive_n[:, None], thr * (albedo * INV_4PI * w_ne)[:, None] * li,
+            0.0)
+
+        thr_n = thr * albedo[:, None]
+        do_rr = bounce >= cfg.min_scatter
+        rr_cap = torch.where(bounce >= cfg.rr_tail_after, cfg.rr_cap_tail,
+                             cfg.rr_cap).to(torch.float32)
+        rr = torch.minimum(thr_n.amax(dim=-1), rr_cap)
+        killed = do_rr & (xi[5] > rr)
+        thr_n = torch.where((do_rr & ~killed)[:, None],
+                            thr_n / torch.clamp(rr, min=1e-12)[:, None],
+                            thr_n)
+        alive = alive_n & ~killed & (bounce + 1 < cfg.max_bounces)
+        o = torch.where(alive[:, None], pos, o)
+        d = torch.where(alive[:, None], dir_from_xi(xi[6:8].T), d)
+        thr = torch.where(alive[:, None], thr_n, thr)
+        bounce = bounce + 1
+        it += 1
+    if stats is not None:
+        stats.update(iterations=it, bounce_evals=evals)
+    return acc / spp
+
+
 def render_multiscatter(scene: Scene, camera, cfg: RenderConfig,
                         device="cuda", progress: bool = False,
                         stats: dict | None = None) -> np.ndarray:
     """Full MC render on ``device``: [H, W, 3] float32 on the host.
 
     Results are scattered into a device image that is copied to the host
-    once (the megakernel's launches are asynchronous; the grid wavefront
-    reads one flag per iteration).  ``progress`` prints the pixels done
-    after each chunk.  ``stats``, if given, receives the engine, the
-    render's seconds (host clock, after the engine choice and grid build,
-    ending with the copy to the host), the seconds of the engine choice
-    with the grid build (``grid_seconds``; a cached grid costs only its
-    content hash), paths, bounce evaluations (extension rays traced, on
-    the grid), chunks, grid iterations and Gaussian count."""
+    once (the megakernel's launches are asynchronous; the wavefronts read
+    one value per iteration).  ``progress`` prints the pixels done after
+    each chunk.  ``stats``, if given, receives the engine, the kernel
+    ('mega', 'big' or 'grid'), the render's seconds (host clock, after the
+    engine choice and grid build, ending with the copy to the host), the
+    seconds of the engine choice with the grid build (``grid_seconds``; a
+    cached grid costs only its content hash), paths, bounce evaluations
+    (the megakernel's count; on the wavefronts the live lanes or
+    extension rays traced), chunks, wavefront iterations and
+    Gaussian count."""
     t_build = time.perf_counter()
     engine = engine_for(cfg, scene.medium)
-    grid = grid_for(scene.medium) if engine == "grid" else None
+    if engine == "grid":
+        kernel = "grid"
+        grid = grid_for(scene.medium)
+    else:
+        kernel = "mega" if scene.medium.n <= MEGA_MAX_GAUSSIANS else "big"
     t0 = time.perf_counter()
     scene = scene.to(device)
     camera = camera.to(device)
@@ -119,33 +226,41 @@ def render_multiscatter(scene: Scene, camera, cfg: RenderConfig,
     img = torch.zeros((w * h, 3), dtype=torch.float32, device=device)
     evals = torch.zeros((), dtype=torch.int64, device=device)
     n_chunks = iterations = 0
-    if grid is None:
-        cam, table, lights, env, pinhole = _mega_inputs(scene, camera)
-        chunk = pick_chunk(cfg, scene.medium.n, device)
-    else:
+    if kernel == "grid":
         grid = grid.to(device)
         chunk = min(cfg.ray_chunk, GRID_CHUNK)
+    else:
+        chunk = pick_chunk(cfg, scene.medium.n, device)
+        if kernel == "mega":
+            cam, table, lights, env, pinhole = _mega_inputs(scene, camera)
+        else:
+            table = pack_rows(scene.medium)
     chunk = min(chunk, ((w * h + 255) // 256) * 256)
     for start in range(0, w * h, chunk):
         ids = order[start:start + chunk]
-        if grid is None:
+        st = {}
+        if kernel == "mega":
             sums, counts = mega_call(cam, table, ids, cfg, lights, env,
                                      pinhole)
             img[ids] = sums / cfg.spp
             if stats is not None:
                 evals += counts.sum()
+        elif kernel == "big":
+            img[ids] = wavefront_pixels_big(scene, camera, cfg, ids, st,
+                                            table)
+            evals += st["bounce_evals"]
         else:
-            st = {}
             img[ids] = wavefront_pixels_grid_pooled(scene, grid, camera, cfg,
                                                     ids, st)
             evals += st["ext_rays"]
-            iterations += st["iterations"]
+        iterations += st.get("iterations", 0)
         n_chunks += 1
         if progress:
             print(f"  pixels {min(start + chunk, w * h)}/{w * h}")
     out = img.cpu().numpy().reshape(h, w, 3)
     if stats is not None:
-        stats.update(engine=engine, seconds=time.perf_counter() - t0,
+        stats.update(engine=engine, kernel=kernel,
+                     seconds=time.perf_counter() - t0,
                      grid_seconds=t0 - t_build,
                      paths=w * h * cfg.spp, bounce_evals=int(evals),
                      chunks=n_chunks, iterations=iterations,

@@ -217,6 +217,23 @@ def solve_reference(grid: GridIndex, o, d, t_in, t_out, resid, cells,
 solve_reference.launches = 0
 
 
+def crossed_entries(grid: GridIndex, o, d, t_in, t_out, cells):
+    """The entries of each ray's cell that its interval [t_in, t_out]
+    crosses (K7's ok pairs), int64 [B], 0 without a live cell: the pairs
+    whose erf/exp K7's passes need, for measurements."""
+    n = torch.zeros(cells.shape[0], dtype=torch.int64, device=o.device)
+    flat = cells.long()
+    idx = torch.nonzero(flat >= 0).squeeze(1)
+    idx = idx[grid.cell_count[flat[idx]] > 0]
+    for part, k in _chunks(grid, flat[idx], idx.shape[0]):
+        i = idx[part]
+        col, mask = _cell_rows(grid, flat[i], k)
+        ray = [v[i][:, None] for v in (*o.T, *d.T)]
+        n[i] = _quants(col, ray, t_in[i][:, None], t_out[i][:, None],
+                       mask)[-1].sum(dim=1)
+    return n
+
+
 def check_grid(grid: GridIndex, dev) -> None:
     """The kernels read table rows as float4 and the cell ranges as
     int32."""

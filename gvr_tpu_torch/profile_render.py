@@ -2,15 +2,16 @@
 generated scene.
 
     python -m gvr_tpu_torch.profile_render [--gaussians 10000] [--size 512]
-        [--spp 16]
+        [--spp 16] [--engine auto|dense|grid]
 
 Renders ``random_gaussian_scene(gaussians, seed=0)`` with the default
-camera and engine (the grid above 2,000 Gaussians) twice unprofiled, the
-second giving the warm render seconds, then once under torch.profiler,
-and prints: the warm and profiled render seconds, the device time of all
-kernels and copies and its share of the warm render (the device's busy
-share; the rest is idle, bound by the host), kernel launches in all and
-per grid iteration, and the ops that take the most device time and the
+camera and the given engine (auto: the grid above 2,000 Gaussians; dense
+above 2,048: the big-N kernels K4/K5) twice unprofiled, the second giving
+the warm render seconds, then once under torch.profiler, and prints: the
+warm and profiled render seconds, the device time of all kernels and
+copies and its share of the warm render (the device's busy share; the
+rest is idle, bound by the host), kernel launches in all and per
+wavefront iteration, and the ops that take the most device time and the
 most host time.
 """
 
@@ -28,7 +29,8 @@ def _row(e):
 
 
 def profile_render(gaussians: int = 10_000, size: int = 512, spp: int = 16,
-                   top: int = 25, device: str = "cuda") -> dict:
+                   top: int = 25, device: str = "cuda",
+                   engine: str = "auto") -> dict:
     """Profile one render after two unprofiled ones; returns the summary
     that ``main`` prints (times in ms unless named seconds)."""
     import torch
@@ -45,7 +47,7 @@ def profile_render(gaussians: int = 10_000, size: int = 512, spp: int = 16,
                       device=device)
     cam = PinholeCamera.create([0, 1, 6], [0, 1, 0], math.radians(45.0),
                                device=device)
-    cfg = RenderConfig(width=size, height=size, spp=spp)
+    cfg = RenderConfig(width=size, height=size, spp=spp, engine=engine)
     stats = {}
     for _ in range(2):
         render_multiscatter(scene, cam, cfg, device=device, stats=stats)
@@ -66,7 +68,8 @@ def profile_render(gaussians: int = 10_000, size: int = 512, spp: int = 16,
     by_dev = sorted(rows, key=lambda e: -e.device_time_total)[:top]
     by_cpu = sorted(rows, key=lambda e: -e.self_cpu_time_total)[:top]
     return dict(
-        engine=prof_stats["engine"], gaussians=gaussians, size=size, spp=spp,
+        engine=prof_stats["engine"], kernel=prof_stats["kernel"],
+        gaussians=gaussians, size=size, spp=spp,
         warm_seconds=warm_s, profiled_seconds=prof_stats["seconds"],
         iterations=iters, device_busy_ms=busy_ms,
         busy_share_of_warm=busy_ms / 1e3 / warm_s,
@@ -84,6 +87,8 @@ def main(argv=None):
     ap.add_argument("--spp", type=int, default=16)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--engine", default="auto",
+                    choices=["auto", "dense", "grid"])
     args = ap.parse_args(argv)
     res = profile_render(**vars(args))
     for key in ("by_device", "by_host"):

@@ -5,8 +5,10 @@ Counterpart of ``gvr_tpu/scene/gaussians.py`` (reference ``gaussian.h``,
 g(x) = norm * exp(-0.5 (x-mu)^T S^-1 (x-mu)), norm = (2 pi)^-1.5 det(S)^-1/2;
 extinction mu_t(x) = density * g(x); support truncated at R_CUT sigma.
 
-``aabbs`` feeds the grid build (``accel/grid``).  The 11-parameter codec
-and ``morton_sorted`` wait for later slices.
+``aabbs`` feeds the grid build (``accel/grid``); ``morton_sorted`` orders
+the Gaussians along a Z-order curve of their means, which the big-N dense
+kernels (``kernels/pathtrace_big``) rely on for chunk culling.  The
+11-parameter codec waits for a later slice.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 # Support truncation radius in units of standard deviation (gaussian.h:36).
@@ -92,6 +95,16 @@ class GaussianMixture:
         q, m = self.qvec(), self.mean
         return q[:, 0] * m[:, 0] + q[:, 1] * m[:, 1] + q[:, 2] * m[:, 2]
 
+    def morton_sorted(self) -> "GaussianMixture":
+        """The Gaussians reordered along the Z-order curve of their means
+        (``morton_order``), as ``gvr_tpu``'s ``morton_sorted``: the mixture
+        is order-invariant, but then each 256-row chunk of the packed table
+        is spatially compact, so a coherent ray block touches few chunks."""
+        order = torch.from_numpy(morton_order(
+            self.mean.detach().cpu().numpy())).to(self.mean.device)
+        return GaussianMixture(*(getattr(self, f.name)[order]
+                                 for f in dataclasses.fields(self)))
+
     def aabbs(self):
         """World AABBs at R_CUT sigma: (bmin [N,3], bmax [N,3]).
 
@@ -106,3 +119,25 @@ class GaussianMixture:
         for j in (1, 2):
             h = (prod[..., j] + h.double()).float()
         return self.mean - h, self.mean + h
+
+
+def morton_order(points: np.ndarray) -> np.ndarray:
+    """Stable permutation sorting 3D points along a 30-bit Z-order curve
+    (10 bits an axis over the points' bounding box): a copy of
+    ``gvr_tpu/scene/gaussians.py:morton_order``, so both packages order a
+    scene alike."""
+    p = np.asarray(points, np.float64)
+    lo = p.min(axis=0)
+    span = np.maximum(p.max(axis=0) - lo, 1e-12)
+    q = np.clip((p - lo) / span * 1023.0, 0, 1023).astype(np.uint64)
+
+    def spread(x):
+        x = (x | (x << 16)) & np.uint64(0x030000FF)
+        x = (x | (x << 8)) & np.uint64(0x0300F00F)
+        x = (x | (x << 4)) & np.uint64(0x030C30C3)
+        x = (x | (x << 2)) & np.uint64(0x09249249)
+        return x
+
+    code = spread(q[:, 0]) | (spread(q[:, 1]) << np.uint64(1)) \
+        | (spread(q[:, 2]) << np.uint64(2))
+    return np.argsort(code, kind="stable")

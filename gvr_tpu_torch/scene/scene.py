@@ -75,9 +75,16 @@ def _read_text(path: Union[str, os.PathLike]) -> str:
         return f.read()
 
 
+# Above this many Gaussians the parser Morton-sorts the mixture
+# (gvr_tpu/scene/scene.py:173-176).
+MORTON_MIN_N = 512
+
+
 def parse_gmm(text: str, env_color=DEFAULT_ENV_COLOR,
               device="cpu") -> Scene:
-    """Parse GMM scene text into a Scene on ``device``."""
+    """Parse GMM scene text into a Scene on ``device``; above
+    MORTON_MIN_N Gaussians in Morton order, as the JAX package parses
+    it."""
     lights, means, covs, dens, albs, emis = [], [], [], [], [], []
     for tag, v in _parse_lines(text):
         if tag == "l" and len(v) >= 6:
@@ -93,6 +100,8 @@ def parse_gmm(text: str, env_color=DEFAULT_ENV_COLOR,
         np.asarray(means, np.float32), np.asarray(covs, np.float32),
         np.asarray(dens, np.float32), np.asarray(albs, np.float32),
         np.asarray(emis, np.float32), device=device)
+    if gmm.n > MORTON_MIN_N:
+        gmm = gmm.morton_sorted()
     lt = torch.as_tensor(np.asarray(lights, np.float32).reshape(-1, 6),
                          device=device)
     env = torch.as_tensor(env_color, dtype=torch.float32, device=device)

@@ -3,8 +3,14 @@ the JAX package), shared by the tests and ``chip_smoke.py``."""
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+
+from gvr_tpu_torch.cameras import PinholeCamera
+from gvr_tpu_torch.integrators.multiscatter import tile_order
+from gvr_tpu_torch.kernels import pathtrace_big
 
 # Bars for two bounce results, from gvr_tpu's tests/test_pallas_kernels.py
 # _check: scatter decisions agree on > 99.5 % of rays, tau to rtol 1e-3 /
@@ -135,3 +141,101 @@ def solve_agreement(got, want, cells) -> dict:
     res["ok"] = bool(n > 0 and res["t_within"] >= K7_BARS["share"]
                      and res["albedo_within"] >= K7_BARS["share"])
     return res
+
+
+# K4 + K5 (the big-N bounce), per ray.  Derived from the plain version in
+# float32 against itself in float64 on random_gaussian_scene(10_000, 0)
+# (CPU; 2,048 camera rays of the 512^2 image through the medium, 2,048
+# random rays from inside it, and 4,096 camera rays after one bounce):
+# scatter decisions agree on every ray; tau_tot is within 1e-4 + 1e-3 |tau|
+# on all but 1 ray in 2,048 (5.8x over: the erf difference of a thin
+# Gaussian cancels, as for K6), so a share must meet the tau bar.  K4's
+# inset Illinois step does not converge on a few rays, whose root after
+# solver_iters steps then moves with rounding: of the rays that scatter in
+# both, t is within 1e-5 + 1e-4 |t| on 99.94 % of the first rays but only
+# 98.64 % after a bounce, and within 1e-3 + 1e-2 |t| on 100 % and 99.969 %
+# (max |dt| 3.3e-3).  The albedo is within 1e-3 on all of them (a root
+# 1 % away may see another mix of Gaussians, so a share must meet it), and
+# K5 on the same NEE rays within 1e-4 + 1e-3 |Li| on every ray (at most
+# 0.14 of the bound).  Li is held on the rays whose t agrees, so a kernel and its
+# plain version compare Li on the same shadow rays.  Plain mutants miss
+# the t bar: Illinois clipped to [lo, hi] instead of the 5 % inset leaves
+# 99.63 % (first rays) and 97.47 % (after a bounce) within, a chunk vote
+# that drops each block's last hit chunk 78.5 %.
+BIG_BARS = dict(agree=0.999, tau_atol=1e-4, tau_rtol=1e-3, tau_share=0.998,
+                t_atol=1e-3, t_rtol=1e-2, share=0.999, albedo=1e-3,
+                albedo_share=0.998, li_atol=1e-4, li_rtol=1e-3)
+
+
+def big_agreement(outs, refs) -> dict:
+    """Measured agreement of two (t_sc, scattered, albedo, li [B,3],
+    tau_tot) bounce results (numpy arrays or tensors) and whether it meets
+    BIG_BARS."""
+    host = lambda x: (x.cpu().numpy() if isinstance(x, torch.Tensor)
+                      else np.asarray(x))
+    t_p, sc_p, alb_p, li_p, tau_p = (host(x) for x in outs[:5])
+    t_x, sc_x, alb_x, li_x, tau_x = (host(x) for x in refs[:5])
+    bars = BIG_BARS
+    dtau = np.abs(tau_p - tau_x)
+    t_ok = np.abs(t_p - t_x) <= bars["t_atol"] + bars["t_rtol"] * np.abs(t_x)
+    both = sc_p & sc_x
+    alb_ok = np.abs(alb_p - alb_x) <= bars["albedo"]
+    dli = np.abs(li_p - li_x)[t_ok]
+    li_bound = bars["li_atol"] + bars["li_rtol"] * np.abs(li_x[t_ok])
+    share = lambda m: float(m.mean()) if m.size else 1.0
+    res = dict(
+        n=int(t_p.shape[0]), agree=float((sc_p == sc_x).mean()),
+        tau_within=share(dtau <= bars["tau_atol"]
+                         + bars["tau_rtol"] * np.abs(tau_x)),
+        max_dtau=float(dtau.max()), n_both=int(both.sum()),
+        t_within=share(t_ok[both]),
+        max_dt=float(np.abs(t_p - t_x)[both].max()) if both.any() else 0.0,
+        albedo_within=share(alb_ok[both & t_ok]),
+        li_rays=int(t_ok.sum()),
+        li_worst_ratio=float((dli / li_bound).max()) if dli.size else 0.0,
+        max_dli=float(dli.max()) if dli.size else 0.0)
+    res["ok"] = bool(res["agree"] >= bars["agree"]
+                     and res["tau_within"] >= bars["tau_share"]
+                     and res["n_both"] > 10
+                     and res["t_within"] >= bars["share"]
+                     and res["albedo_within"] >= bars["albedo_share"]
+                     and res["li_worst_ratio"] <= 1.0)
+    return res
+
+
+def big_rays(medium, n: int, seed: int, device):
+    """(o, d, xi) of the big-N kernel checks: n tile-order camera rays
+    through pixel centres of the 512^2 image (pinhole at (0,1,6) looking at
+    (0,1,0), FOV 45 degrees), from the band of tile rows 31-32 across the
+    medium, then n rays from uniform points inside the box of the Gaussian
+    means in uniform directions; xi [2n, 5] uniforms.  All from numpy seed
+    ``seed``, float32 on ``device``."""
+    ids = tile_order(512, 512)[31 * 4096:31 * 4096 + n].astype(np.int64)
+    uv = np.stack([(ids % 512 + 0.5) / 512, (ids // 512 + 0.5) / 512], -1)
+    cam = PinholeCamera.create([0, 1, 6], [0, 1, 0], math.radians(45.0),
+                               device=device)
+    o1, d1 = cam.sample_ray(torch.tensor(uv, dtype=torch.float32,
+                                         device=device))
+    r = np.random.default_rng(seed)
+    mean = medium.mean.cpu().numpy()
+    o2 = r.uniform(mean.min(0), mean.max(0), (n, 3))
+    d2 = r.normal(size=(n, 3))
+    d2 /= np.linalg.norm(d2, axis=1, keepdims=True)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+    return (torch.cat([o1, f32(o2)]), torch.cat([d1, f32(d2)]).contiguous(),
+            f32(r.uniform(size=(2 * n, 5))))
+
+
+def big_kernel_vs_plain(table, o, d, xi, lights, env,
+                        solver_iters: int = 12) -> dict:
+    """K4 and K5 against their plain versions on one batch (CUDA tensors):
+    big_agreement of the two bounces, with K5 and its plain version both
+    given K4's NEE rays, so Li is compared on the same shadow rays."""
+    pb = pathtrace_big
+    s1 = pb.big_stage1(table, o, d, xi, lights, solver_iters)
+    s1_plain = pb.big_stage1_reference(table, o, d, xi, lights, solver_iters)
+    li, li_plain = (pb.big_nee(table, s1, env),
+                    pb.big_nee_reference(table, s1, env))
+    torch.cuda.synchronize()
+    bounce = lambda s, l: (s[0], s[1] > 0.5, s[2], l, s[3])
+    return big_agreement(bounce(s1, li), bounce(s1_plain, li_plain))

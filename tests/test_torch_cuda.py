@@ -19,14 +19,17 @@ from gvr_tpu_torch.cameras import OrthographicCamera, PinholeCamera
 from gvr_tpu_torch.config import RenderConfig
 from gvr_tpu_torch.integrators.gridscatter import (critical_crossing,
                                                    grid_tau_crossings)
-from gvr_tpu_torch.integrators.multiscatter import render_multiscatter
+from gvr_tpu_torch.integrators.multiscatter import (render_multiscatter,
+                                                    wavefront_pixels_big)
 from gvr_tpu_torch.kernels import gridtrace as tgt
 from gvr_tpu_torch.kernels import megatrace as tmt
 from gvr_tpu_torch.kernels import pathtrace as tpt
+from gvr_tpu_torch.kernels import pathtrace_big as tpb
 from gvr_tpu_torch.kernels import rng as trng
 from gvr_tpu_torch.scene.generators import random_gaussian_scene
 from gvr_tpu_torch.scene.scene import parse_gmm
-from gvr_tpu_torch.testing import (mega_agreement, solve_agreement,
+from gvr_tpu_torch.testing import (big_kernel_vs_plain, big_rays,
+                                   mega_agreement, solve_agreement,
                                    span_tau_agreement)
 
 pytestmark = pytest.mark.gpu
@@ -237,3 +240,75 @@ def test_grid_wrappers_refuse_bad_inputs(cuda_device):
         tgt.span_tau_pass(grid, o, d, tmax, cells.long())
     with pytest.raises(ValueError, match="tmax"):
         tgt.span_tau_pass(grid, o, d, tmax.cpu(), cells)
+
+
+@pytest.fixture(scope="module")
+def scene10k():
+    """random_gaussian_scene(10_000, 0), Morton-sorted by the parser: 40
+    chunks of 256 for K4/K5."""
+    return parse_gmm(random_gaussian_scene(10_000, seed=0))
+
+
+@pytest.mark.parametrize("lights", ["scene", "none", "inside"])
+def test_big_kernels_match_plain(cuda_device, scene10k, lights):
+    """K4 and K5 against their plain versions at testing.BIG_BARS on the
+    10k scene (2,048 camera rays through the medium, 2,048 rays from
+    inside it): with the scene's 3 lights, with none (NEE always to the
+    env), and with one light inside the medium, where K5's tmax clip
+    decides Li (the scene's lights lie outside it)."""
+    sc = scene10k.to(cuda_device)
+    lts = {"scene": sc.lights(), "none": sc.lights()[:0],
+           "inside": torch.tensor([[0.0, 1.0, 0.0, 5.0, 5.0, 5.0]],
+                                  device=cuda_device)}[lights]
+    o, d, xi = big_rays(sc.medium, 2048, seed=3, device=cuda_device)
+    res = big_kernel_vs_plain(tpb.pack_rows(sc.medium), o, d, xi, lts,
+                              sc.env_color)
+    assert res["ok"] and res["n_both"] > 1000, str(res)
+
+
+def test_big_wavefront_kernel_matches_plain(cuda_device):
+    """The big-N wavefront on the card (K3, K4, K5) against its plain run
+    on the CPU at 2,100 Gaussians, 16^2 spp 4: the bars of the CPU test
+    against JAX (median |diff| < 1e-4, image means within 0.5 %)."""
+    sc = parse_gmm(random_gaussian_scene(2100, seed=0))
+    cfg = RenderConfig(width=16, height=16, spp=4, max_bounces=4)
+    cam = _cameras("cpu")[0]
+    ids = torch.arange(256, dtype=torch.int32)
+    want = wavefront_pixels_big(sc, cam, cfg, ids).numpy()
+    got = wavefront_pixels_big(sc.to(cuda_device), cam.to(cuda_device), cfg,
+                               ids.to(cuda_device)).cpu().numpy()
+    assert np.isfinite(got).all() and got.std() > 0
+    assert np.median(np.abs(got - want)) < 1e-4
+    assert abs(got.mean() - want.mean()) < 5e-3 * want.mean()
+
+
+def test_big_render_launches_the_kernels(cuda_device):
+    """engine='dense' above 2,048 Gaussians renders through K4 and K5, one
+    launch each an iteration, and calls no plain version."""
+    counters = (tpb.big_stage1, tpb.big_nee, tpb.big_stage1_reference,
+                tpb.big_nee_reference, tmt.mega_call)
+    for fn in counters:
+        fn.launches = 0
+    stats = {}
+    img = render_multiscatter(
+        parse_gmm(random_gaussian_scene(2100, seed=0)),
+        _cameras(cuda_device)[0],
+        RenderConfig(width=32, height=32, spp=2, engine="dense"),
+        device=cuda_device, stats=stats)
+    assert np.isfinite(img).all() and img.std() > 0
+    assert stats["kernel"] == "big" and stats["iterations"] > 0
+    assert [fn.launches for fn in counters] == [stats["iterations"]] * 2 \
+        + [0, 0, 0]
+
+
+def test_big_wrappers_refuse_bad_tables(cuda_device):
+    o, d, xi = (torch.from_numpy(a).to(cuda_device)
+                for a in random_rays(64, seed=2))
+    lights = torch.zeros((0, 6), device=cuda_device)
+    for rows, match in ((97 * 256, "engine='grid'"), (300, "multiple")):
+        table = torch.zeros((rows, 16), device=cuda_device)
+        with pytest.raises(ValueError, match=match):
+            tpb.big_stage1(table, o, d, xi, lights)
+    with pytest.raises(ValueError, match="on cpu"):
+        tpb.big_stage1(torch.zeros((256, 16), device=cuda_device), o.cpu(),
+                       d, xi, lights)

@@ -227,6 +227,26 @@ def test_kernel_bars_admit_float64_rounding(grid, rays, kernel):
         assert res["n"] > 30 and res["ok"], res
 
 
+def test_crossed_entries_count_within_the_cell(grid, rays):
+    """crossed_entries, which K7's bound counts: 0 for a ray without a live
+    cell, at most its cell's entries, and a ray's count is that of its
+    clip [t_in, t_out] alone (a one-ray call gives the same)."""
+    o, d = (torch.from_numpy(a) for a in rays)
+    u = torch.from_numpy(np.random.default_rng(11).uniform(
+        0.01, 0.99, N_RAYS).astype(np.float32))
+    _, _, cells, t_in, t_out, _ = tgs.critical_crossing(
+        grid, *tgs.grid_tau_crossings(grid, o, d), u)
+    n = tgt.crossed_entries(grid, o, d, t_in, t_out, cells)
+    live = cells >= 0
+    assert n.dtype == torch.int64 and not bool(n[~live].any())
+    assert bool((n[live] <= grid.cell_count[cells[live].long()]).all())
+    assert int((n > 0).sum()) > 30
+    r = int(torch.argmax(n))
+    one = tgt.crossed_entries(grid, o[r:r + 1], d[r:r + 1], t_in[r:r + 1],
+                              t_out[r:r + 1], cells[r:r + 1])
+    assert int(one[0]) == int(n[r])
+
+
 def test_grid_free_flight_u_tau_zero_scatters_with_albedo(jgrid, grid,
                                                           rays):
     """u_tau == 0 (target 0): the 1e-12 target floor still lands the
@@ -320,12 +340,11 @@ def test_engine_for_auto_takes_the_grid_above_grid_min_n(mixture2500):
 
 def test_engine_for_s_cap_fallback(mixture2500, monkeypatch):
     """A grid whose densest cell exceeds S_CAP_MAX sends 'auto' to the
-    dense engine, which raises above MEGA_MAX_GAUSSIANS naming K4/K5, and
-    refuses engine='grid', as in the JAX package."""
+    dense engine (the big-N kernels above MEGA_MAX_GAUSSIANS) and refuses
+    engine='grid', as in the JAX package."""
     monkeypatch.setattr(tgrid, "S_CAP_MAX", 1)
     assert tgs.grid_for(mixture2500).s_cap > 1
-    with pytest.raises(NotImplementedError, match="K4/K5"):
-        engine_for(RenderConfig(), mixture2500)
+    assert engine_for(RenderConfig(), mixture2500) == "dense"
     with pytest.raises(ValueError, match="S_CAP_MAX"):
         engine_for(RenderConfig(engine="grid"), mixture2500)
 

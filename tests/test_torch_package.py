@@ -68,8 +68,12 @@ def test_engine_for_keeps_the_jax_thresholds():
     # above GRID_MIN_N, 'auto' takes the grid (its build decides S_CAP_MAX)
     mix = parse_gmm(random_gaussian_scene(GRID_MIN_N + 1, seed=0)).medium
     assert engine_for(RenderConfig(), mix) == "grid"
-    with pytest.raises(NotImplementedError, match="K4/K5"):
-        engine_for(RenderConfig(engine="dense"), Mix(2049))
+    # above MEGA_MAX_GAUSSIANS the dense engine is the big-N one, up to
+    # its 96 chunks of 256 Gaussians
+    assert engine_for(RenderConfig(engine="dense"), Mix(2049)) == "dense"
+    assert engine_for(RenderConfig(engine="dense"), Mix(24576)) == "dense"
+    with pytest.raises(ValueError, match="engine='grid'"):
+        engine_for(RenderConfig(engine="dense"), Mix(24577))
 
 
 @pytest.mark.parametrize("n", [1, 250, 2000])
@@ -85,7 +89,7 @@ def test_pick_chunk_budget_only_on_cpu(n):
 
 def test_build_sources_and_checks():
     names = {p.name for p in _build.CSRC.iterdir()}
-    assert {"kernels.cu", "bounce.cuh", "grid.cuh", "rng.cuh",
+    assert {"kernels.cu", "bounce.cuh", "grid.cuh", "big.cuh", "rng.cuh",
             "common.cuh"} <= names
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
