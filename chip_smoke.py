@@ -50,28 +50,40 @@ CLI.  One line per phase; any failure raises, so the exit code is non-zero.
              chunks): 8,192 tile-order camera rays of the 512^2 image
              through the medium and 8,192 rays from inside it, with the
              scene's 3 lights, with none, and with one light inside the
-             medium (where K5's tmax clip matters): testing.BIG_BARS
+             medium (where K5's tmax clip matters): testing.BIG_BARS;
+             then as many rays of the S_CAP_MAX fallback scene
+             (random_gaussian_scene(8000, 0, diameter 2-4), 32 chunks),
+             nearly all crossing more than MAX_HITS pairs:
+             testing.BIG_DENSE_BARS.  Each kernel's box tests admit the
+             chunks and groups the plain tests do, ray for ray.  The share
+             of rays over MAX_HITS, the chunks and groups admitted per ray
+             and per warp
  13 big timing  K4 and K5 kernel (CUDA events, 10 launches) and plain (2)
              at one iteration of the big main path: the 65,536 lanes of
              chunk 2 of the 512^2 image, primary rays and after one
-             bounce; the chunks each 64-ray block hits and the pairs
-             each ray crosses (mean, max)
- 14 big main `gvr_tpu_torch.cli render` of the 10k scene at 256^2 spp 16
-             (512^2 takes ~35 s), engine dense (K3, K4, K5): render
-             seconds, Mpaths/s, iterations, chunks; image finite, not
-             constant, its mean within 1 % of the grid engine's image of
-             the same scene, camera, size, spp and seed; no plain version
-             called
- 15 auto fallback  random_gaussian_scene(8000, 0, diameter 2-4), whose
-             grid exceeds S_CAP_MAX, through the CLI at 128^2 spp 4 with
-             engine auto: dense with the big kernel, K4/K5 launched, host
-             grid-build seconds
+             bounce; the chunks and groups admitted per ray and per warp
+             (K4 over [0, inf), K5 over [0, tmax]), the chunks holding a
+             crossed pair, the pairs each ray crosses (mean, max), the
+             share of rays over 32 and 64 of them, and each bound with
+             culling (box tests, pre-tests of the admitted groups' pairs,
+             pair tests of the crossed pairs) and of a full sweep (a pair
+             test of every pair)
+ 14 big main `gvr_tpu_torch.cli render` of the 10k scene at 512^2 spp 16,
+             engine dense (K3, K4, K5): render seconds, Mpaths/s,
+             iterations, chunks; image finite, not constant, its mean
+             within 1 % of phase 11's grid image of the same scene,
+             camera, size, spp and seed; no plain version called
+ 15 auto fallback  the fallback scene, whose grid exceeds S_CAP_MAX,
+             through the CLI at 128^2 spp 4 with engine auto: dense with
+             the big kernel, K4/K5 launched, host grid-build seconds,
+             render seconds and Mpaths/s
 
 The last three lines: the nvidia-smi line, the kernels JSON (each kernel
 with its launches on its main path, its kernel and plain times, and its
 bound: the larger of its operations over 67 TFLOP/s and its bytes, each
-input read and each output written once, over 3.35 TB/s), and the result
-JSON.  Without a CUDA card, or without the package beside it, the script
+input read and each output written once, over 3.35 TB/s; K4 and K5 also
+with ``bound_ms_sweep``, the bound of a sweep over every pair), and the
+result JSON.  Without a CUDA card, or without the package beside it, the script
 exits non-zero before printing any result.
 """
 
@@ -96,16 +108,16 @@ MEDIUM_CHUNK = 9
 # its pixel by its whole radiance / spp.  So the bars bound that radiance
 # (max_path_diff), the share of pixels beyond testing.OFF_ATOL/OFF_RTOL
 # (off_frac), the mean |diff| over the chunk and the evaluation total.  On
-# the H100 chunk 9 measured max_path_diff 2.67 (spp 4) and 4.29 (spp 64),
-# off_frac 1.2e-3 and 3.7e-3, mean_diff 2.3e-5 and 1.8e-5, evals_rel
-# 8.7e-6 and 1.1e-6.
+# an NVIDIA H100 80GB HBM3 at 700.00 W chunk 9 measured max_path_diff 2.67
+# (spp 4) and 4.29 (spp 64), off_frac 1.2e-3 and 3.7e-3, mean_diff 2.3e-5
+# and 1.8e-5, evals_rel 8.7e-6 and 1.1e-6.
 CHUNK_BARS = dict(max_path_diff=8.0, off_frac=1e-2, mean_diff=1e-4,
                   evals_rel=1e-4)
 GRID_SIZE, GRID_SPP, GRID_N = 512, 16, 10_000   # the grid main path
 GRID_CHUNK_INDEX = 4       # rows 256-319 of the 512^2 image, the centre
 BIG_RAYS = 8192            # phase 12: camera rays, and as many inside
 BIG_CHUNK_INDEX = 2        # rows 256-383 of the 512^2 image, 65,536 lanes
-BIG_SIZE = 256             # the big main path's render (512^2: ~35 s)
+FALLBACK = dict(n=8000, seed=0, diameter=(2.0, 4.0))   # S_CAP_MAX refuses
 # The card's peaks (NVIDIA H100 SXM data sheet): float32 outside the
 # tensor cores and HBM bandwidth.  A kernel's bound is the larger of its
 # operations over the first and its bytes over the second.
@@ -123,6 +135,15 @@ PAIR_TEST_FLOPS = 94
 # the other kernels' erf/exp work is not counted, so those bounds are
 # floors.
 CROSSED_EVAL_FLOPS = 13
+# Flops of one (box, ray) slab test, csrc/big.cuh box_admits: on each
+# axis two subtractions, two products, a max and a min, then the compare;
+# and of the division-free pre-test of a (Gaussian, ray) pair, may_cross:
+# w = o - mu, A d, a, b, A w, c and the compare.  K4 and K5 need a box test
+# for every chunk of every ray and for each group of a chunk the ray's own
+# test admits, a pre-test for every Gaussian of the groups it admits, and
+# a full pair test (PAIR_TEST_FLOPS) for each pair the ray crosses.
+BOX_TEST_FLOPS = 19
+PRE_TEST_FLOPS = 56
 SOLVER_ITERS, GRID_SOLVER_ITERS = 12, 6     # the RenderConfig defaults
 # K3: integer operations a uniform (the splitmix32 chain of
 # csrc/rng.cuh: ~40 a (pixel, sample, bounce) key, ~14 a draw, of 9).
@@ -528,7 +549,7 @@ def run(dev):
     k7_err = max(k7["t_max"], k7_main["t_max"])
 
     # ---- 11: the grid main path through the CLI ----
-    stats, wall, launches_g, img = cli_render(
+    stats, wall, launches_g, img_grid = cli_render(
         text10k, GRID_SIZE, GRID_SPP,
         ["span_tau_pass", "solve_pass", "planes_uniforms"])
     if stats["engine"] != "grid":
@@ -540,27 +561,63 @@ def run(dev):
         f"{stats['iterations']} iterations in {stats['chunks']} chunks, "
         f"{stats['bounce_evals']} extension rays "
         f"({stats['bounce_evals'] / stats['seconds'] / 1e6:.3f} M/s), image "
-        f"mean {img.mean():.6f}, launches {json.dumps(launches_g)} "
+        f"mean {img_grid.mean():.6f}, launches {json.dumps(launches_g)} "
         f"({smi})")
 
     # ---- 12: K4 and K5, the big-N kernels, against their plain versions
-    table10k = pathtrace_big.pack_rows(sc10k.medium)
+    pb = pathtrace_big
+
+    def mean(t):
+        return t.float().mean().item()
+
+    def cull_line(st, n_c):
+        return (f"rays over MAX_HITS={pb.MAX_HITS} pairs "
+                f"{mean(st['crossed'] > pb.MAX_HITS):.4f}, chunks admitted "
+                f"per ray {mean(st['admitted']):.2f} and per warp "
+                f"{mean(st['warp']):.2f} of {n_c}, groups per ray "
+                f"{mean(st['groups']):.2f} and per warp "
+                f"{mean(st['warp_groups']):.2f} of {8 * n_c}")
+
+    table10k, boxes10k = pb.pack_rows(sc10k.medium), pb.chunk_boxes(
+        sc10k.medium)
     o12, d12, xi12 = testing.big_rays(sc10k.medium, BIG_RAYS, 12, dev)
     inside = torch.tensor([[0.0, 1.0, 0.0, 5.0, 5.0, 5.0]], device=dev)
     k4_err = k5_err = 0.0
     for label, lts in (("3 lights", sc10k.lights()),
                        ("no lights", sc10k.lights()[:0]),
                        ("a light inside the medium", inside)):
-        res = testing.big_kernel_vs_plain(table10k, o12, d12, xi12, lts,
-                                          sc10k.env_color)
+        res = testing.big_kernel_vs_plain(table10k, boxes10k, o12, d12, xi12,
+                                          lts, sc10k.env_color)
         k4_err, k5_err = max(k4_err, res["max_dtau"]), max(k5_err,
                                                            res["max_dli"])
         log("12 K4/K5 vs plain", f"{GRID_N} Gaussians "
-            f"({table10k.shape[0] // pathtrace_big.G} chunks), {2 * BIG_RAYS} "
+            f"({table10k.shape[0] // pb.G} chunks), {2 * BIG_RAYS} "
             f"rays, {label}: {json.dumps(res)} (bars "
             f"{json.dumps(testing.BIG_BARS)})")
         if not res["ok"]:
             raise AssertionError(f"K4/K5 {label} miss BIG_BARS: {res}")
+    log("12 K4/K5 vs plain", f"{GRID_N} Gaussians: " + cull_line(
+        pb.culling_stats(table10k, boxes10k, o12, d12),
+        table10k.shape[0] // pb.G))
+    text_fb = random_gaussian_scene(FALLBACK["n"], seed=FALLBACK["seed"],
+                                    diameter=FALLBACK["diameter"])
+    sc_fb = parse_gmm(text_fb, device=dev)
+    table_fb, boxes_fb = pb.pack_rows(sc_fb.medium), pb.chunk_boxes(
+        sc_fb.medium)
+    o_fb, d_fb, xi_fb = testing.big_rays(sc_fb.medium, BIG_RAYS, 12, dev)
+    res = testing.big_kernel_vs_plain(table_fb, boxes_fb, o_fb, d_fb, xi_fb,
+                                      sc_fb.lights(), sc_fb.env_color,
+                                      bars=testing.BIG_DENSE_BARS)
+    st = pb.culling_stats(table_fb, boxes_fb, o_fb, d_fb)
+    log("12 K4/K5 vs plain", f"fallback scene ({FALLBACK['n']} Gaussians of "
+        f"diameter 2-4, {table_fb.shape[0] // pb.G} chunks), {2 * BIG_RAYS} "
+        f"rays, 3 lights: {cull_line(st, table_fb.shape[0] // pb.G)}; "
+        f"{json.dumps(res)} (bars {json.dumps(testing.BIG_DENSE_BARS)})")
+    if not res["ok"] or mean(st["crossed"] > pb.MAX_HITS) < 0.9:
+        raise AssertionError(f"K4/K5 on the fallback scene miss "
+                             f"BIG_DENSE_BARS: {res}")
+    k4_err, k5_err = max(k4_err, res["max_dtau"]), max(k5_err,
+                                                       res["max_dli"])
 
     # ---- 13: K4 and K5 timing at one big main-path iteration's shapes ----
     lanes = torch.from_numpy(tile_order(GRID_SIZE, GRID_SIZE)[
@@ -571,51 +628,77 @@ def run(dev):
     xi13 = torch.tensor(rr.uniform(size=(2, RAYS, 5)), dtype=torch.float32,
                         device=dev)
     lights10k, env10k = sc10k.lights(), sc10k.env_color
-    s1 = pathtrace_big.big_stage1(table10k, o13, d13, xi13[0], lights10k)
+    s1 = pb.big_stage1(table10k, o13, d13, xi13[0], lights10k,
+                       boxes=boxes10k)
     moved = (s1[1] > 0.5)[:, None]
     o13b = torch.where(moved, o13 + s1[0][:, None] * d13, o13)
     d13b = torch.where(moved, dir_from_xi(xi13[1, :, 3:5]), d13)
-    k4k5_main = {}
+    n_c = table10k.shape[0] // pb.G
     for label, o_, d_, x_ in (("primary", o13, d13, xi13[0]),
                               ("after one bounce", o13b, d13b, xi13[1])):
         args = (table10k, o_, d_, x_, lights10k)
-        k4_ms, s1 = cuda_ms(lambda: pathtrace_big.big_stage1(*args), 10)
-        p4_ms, s1_plain = cuda_ms(
-            lambda: pathtrace_big.big_stage1_reference(*args), 2)
-        k5_ms, li = cuda_ms(
-            lambda: pathtrace_big.big_nee(table10k, s1, env10k), 10)
+        k4_ms, s1 = cuda_ms(lambda: pb.big_stage1(*args, boxes=boxes10k),
+                            10)
+        p4_ms, s1_plain = cuda_ms(lambda: pb.big_stage1_reference(*args), 2)
+        k5_ms, li = cuda_ms(lambda: pb.big_nee(table10k, s1, env10k,
+                                               boxes10k), 10)
         p5_ms, li_plain = cuda_ms(
-            lambda: pathtrace_big.big_nee_reference(table10k, s1, env10k), 2)
+            lambda: pb.big_nee_reference(table10k, s1, env10k), 2)
         res = testing.big_agreement(
             (s1[0], s1[1] > 0.5, s1[2], li, s1[3]),
             (s1_plain[0], s1_plain[1] > 0.5, s1_plain[2], li_plain,
              s1_plain[3]))
-        hits, crossed = pathtrace_big.culling_stats(table10k, o_, d_)
-        k4k5_main[label] = res
-        n_pairs = RAYS * table10k.shape[0]
-        ray_bytes = table10k.numel() * 4 + lights10k.numel() * 4
+        st4 = pb.culling_stats(table10k, boxes10k, o_, d_)
+        st5 = pb.culling_stats(table10k, boxes10k, s1[4:7].T, s1[7:10].T,
+                               s1[10])
+        crossed = st4["crossed"]
         key = "" if label == "primary" else "_bounce1"
         times["big_stage1" + key] = (k4_ms, p4_ms)
         times["big_nee" + key] = (k5_ms, p5_ms)
-        # K4: a pair test for each pair, then the crossed pairs in the tau
-        # pass, the Newton steps and the albedo pass; K5: a pair test for
-        # each pair of the NEE rays
-        bounds["big_stage1" + key] = bound(
-            n_pairs * PAIR_TEST_FLOPS + int(crossed.sum())
-            * (SOLVER_ITERS + 2) * CROSSED_EVAL_FLOPS,
-            ray_bytes + RAYS * (3 + 3 + 5 + 16) * 4)
-        bounds["big_nee" + key] = bound(n_pairs * PAIR_TEST_FLOPS,
-                                        ray_bytes + RAYS * (12 + 3) * 4)
+        # K4: a box test for each (ray, chunk) and for each group of the
+        # chunks the ray's box test admits, a pre-test for each pair of
+        # the groups it admits and a pair test for each pair it crosses,
+        # then the crossed pairs in the tau pass, the Newton steps and the
+        # albedo pass; K5: the same tests of the NEE segments.  The sweep
+        # bounds charge a pair test for every pair instead.
+        ray_bytes = (table10k.numel() + lights10k.numel()
+                     + boxes10k.numel()) * 4
+        evals = int(crossed.sum()) * (SOLVER_ITERS + 2) * CROSSED_EVAL_FLOPS
+        sweep_flops = RAYS * table10k.shape[0] * PAIR_TEST_FLOPS
+        k4_bytes = ray_bytes + RAYS * (3 + 3 + 5 + 16) * 4
+        k5_bytes = ray_bytes + RAYS * (12 + 3) * 4
+
+        def cull_flops(st):
+            return (BOX_TEST_FLOPS * (RAYS * n_c + 8 * int(st["admitted"]
+                                                           .sum()))
+                    + PRE_TEST_FLOPS * pb.GROUP * int(st["groups"].sum())
+                    + PAIR_TEST_FLOPS * int(st["crossed"].sum()))
+
+        bounds["big_stage1" + key] = bound(cull_flops(st4) + evals, k4_bytes)
+        bounds["big_nee" + key] = bound(cull_flops(st5), k5_bytes)
+        bounds["big_stage1_sweep" + key] = bound(sweep_flops + evals,
+                                                 k4_bytes)
+        bounds["big_nee_sweep" + key] = bound(sweep_flops, k5_bytes)
         log("13 big timing", f"{label}, {RAYS} lanes of chunk "
             f"{BIG_CHUNK_INDEX} of {GRID_SIZE}^2: K4 kernel {k4_ms:.3f} ms, "
             f"plain {p4_ms:.3f} ms; K5 kernel {k5_ms:.3f} ms, plain "
-            f"{p5_ms:.3f} ms; chunks a 64-ray block hits: mean "
-            f"{hits.float().mean().item():.2f}, max {int(hits.max())} of "
-            f"{table10k.shape[0] // pathtrace_big.G}; pairs a ray crosses: "
-            f"mean {crossed.float().mean().item():.2f}, max "
-            f"{int(crossed.max())}; bounds K4 "
-            f"{bounds['big_stage1' + key][0]:.3f} ms, K5 "
-            f"{bounds['big_nee' + key][0]:.3f} ms; kernel vs plain "
+            f"{p5_ms:.3f} ms; K4 chunks admitted per ray "
+            f"{mean(st4['admitted']):.2f} and per warp "
+            f"{mean(st4['warp']):.2f}, holding a crossed pair "
+            f"{mean(st4['hit']):.2f} of {n_c}, groups per ray "
+            f"{mean(st4['groups']):.2f} and per warp "
+            f"{mean(st4['warp_groups']):.2f}; K5 chunks per ray "
+            f"{mean(st5['admitted']):.2f} and per warp "
+            f"{mean(st5['warp']):.2f}, groups per ray "
+            f"{mean(st5['groups']):.2f} and per warp "
+            f"{mean(st5['warp_groups']):.2f}; pairs a ray crosses: mean "
+            f"{mean(crossed):.2f}, max {int(crossed.max())}, rays over 32 "
+            f"{mean(crossed > 32):.5f} and over 64 {mean(crossed > 64):.5f} "
+            f"(MAX_HITS {pb.MAX_HITS}); bounds K4 "
+            f"{bounds['big_stage1' + key][0]:.4f} ms (sweep "
+            f"{bounds['big_stage1_sweep' + key][0]:.4f}), K5 "
+            f"{bounds['big_nee' + key][0]:.4f} ms (sweep "
+            f"{bounds['big_nee_sweep' + key][0]:.4f}); kernel vs plain "
             f"{json.dumps(res)} ({smi})")
         if not res["ok"]:
             raise AssertionError(f"K4/K5 {label} at the main path's shapes "
@@ -623,15 +706,12 @@ def run(dev):
         k4_err = max(k4_err, res["max_dtau"])
         k5_err = max(k5_err, res["max_dli"])
 
-    # ---- 14: the big-N main path through the CLI ----
-    img_grid = render_multiscatter(
-        sc10k, cam512, RenderConfig(width=BIG_SIZE, height=BIG_SIZE,
-                                    spp=GRID_SPP), device=dev)
+    # ---- 14: the big-N main path through the CLI, against phase 11 ----
     stats, wall, launches_b, img_big = cli_render(
-        text10k, BIG_SIZE, GRID_SPP,
+        text10k, GRID_SIZE, GRID_SPP,
         ["big_stage1", "big_nee", "planes_uniforms"], engine="dense")
     m_big, m_grid = float(img_big.mean()), float(img_grid.mean())
-    log("14 big main", f"cli render {GRID_N} Gaussians {BIG_SIZE}^2 spp "
+    log("14 big main", f"cli render {GRID_N} Gaussians {GRID_SIZE}^2 spp "
         f"{GRID_SPP} --engine dense ({stats['kernel']} kernel): render "
         f"{stats['seconds']:.3f} s ({wall:.3f} s with load and PPM), "
         f"{stats['paths'] / stats['seconds'] / 1e6:.3f} Mpaths/s, "
@@ -644,15 +724,16 @@ def run(dev):
         raise AssertionError("the big-N render misses the grid's mean")
 
     # ---- 15: engine auto falls back to K4/K5 where the grid refuses ----
-    stats, wall, launches_f, img = cli_render(
-        random_gaussian_scene(8000, seed=0, diameter=(2.0, 4.0)), 128, 4,
-        ["big_stage1", "big_nee"])
-    log("15 auto fallback", f"8000 Gaussians of diameter 2-4, 128^2 spp 4, "
-        f"engine auto: engine {stats['engine']} ({stats['kernel']} kernel), "
-        f"host grid build (refused by S_CAP_MAX) {stats['grid_seconds']:.3f}"
-        f" s, render {stats['seconds']:.3f} s, {stats['iterations']} "
-        f"iterations, image mean {img.mean():.6f}, launches "
-        f"{json.dumps(launches_f)} ({smi})")
+    stats, wall, launches_f, img = cli_render(text_fb, 128, 4,
+                                              ["big_stage1", "big_nee"])
+    log("15 auto fallback", f"{FALLBACK['n']} Gaussians of diameter 2-4, "
+        f"128^2 spp 4, engine auto: engine {stats['engine']} "
+        f"({stats['kernel']} kernel), host grid build (refused by "
+        f"S_CAP_MAX) {stats['grid_seconds']:.3f} s, render "
+        f"{stats['seconds']:.3f} s, "
+        f"{stats['paths'] / stats['seconds'] / 1e6:.4f} Mpaths/s, "
+        f"{stats['iterations']} iterations, image mean {img.mean():.6f}, "
+        f"launches {json.dumps(launches_f)} ({smi})")
     if (stats["engine"], stats["kernel"]) != ("dense", "big"):
         raise AssertionError(f"engine auto took {stats['engine']} "
                              f"({stats['kernel']}), not the big-N fallback")
@@ -692,6 +773,8 @@ def run(dev):
         k["path"] = "big"
         k["ms_bounce1"], k["plain_ms_bounce1"] = times[k["name"] + "_bounce1"]
         k["bound_ms_bounce1"] = bounds[k["name"] + "_bounce1"][0]
+        k["bound_ms_sweep"] = bounds[k["name"] + "_sweep"][0]
+        k["bound_ms_sweep_bounce1"] = bounds[k["name"] + "_sweep_bounce1"][0]
     kernels[0]["ms_spp4"], kernels[0]["plain_ms_spp4"] = times["mega_spp4"]
     print(smi)
     print(json.dumps({"kernels": kernels}))

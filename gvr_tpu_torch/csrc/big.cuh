@@ -1,4 +1,4 @@
-// The big-N dense engine's bounce, in two kernels: K4 (chunk-culled free
+// The big-N dense engine's bounce, in two kernels: K4 (box-culled free
 // flight, albedo and NEE set-up) and K5 (the NEE shadow ray's
 // transmittance and Li).
 //
@@ -7,35 +7,50 @@
 // its NEE stage (pallas_call :409, body _make_nee_kernel :283).  The table
 // is pack_table's [Np, 16] rows (Np a multiple of 256, at most 96 chunks of
 // 256 Morton-sorted Gaussians), read as four float4 a row through the
-// read-only cache, as K2 reads it.
+// read-only cache, as K2 reads it; the boxes are chunk_boxes'
+// [Np / 256, 9, 8] rows (a chunk's box, then its eight groups'), each read
+// as two float4 (min xyz pad, max xyz pad).
 //
 // What bounds them on this card: arithmetic and the special-function
-// units, not memory.  K4's first pass is N x B pair tests (about 95 flops
-// each, plus two erff and an expf for each pair a ray crosses), and each of
-// its solver_iters + 1 Newton and albedo passes repeats the pair test over
-// the chunks its block hit, with erff/expf for the crossed pairs.  K5 is
-// one pass of N x B pair tests.  The table (64 B a Gaussian, 640 KB at 10k)
-// stays in L2 and every thread of a warp reads the same row at once.
+// units, not memory.  A pair test is about 95 flops with two IEEE
+// divisions and a sqrtf (the pre-test 56 flops), and each pair a ray
+// crosses adds two erff and an expf in every pass.  The table (64 B a
+// Gaussian, 640 KB at 10k) stays in L2 and every thread of a warp reads
+// the same row at once.
 //
 // Design.  The TPU kernel compacts the chunks a 64- or 128-ray block hits
 // into nine [blk, cap*256] VMEM arrays and runs the Newton passes over
-// them; a 64-ray block of that would need ~6 MB, far beyond a block's
-// shared memory.  Here one thread owns one ray and recomputes each pair
-// from its row in every pass (as K2 and K7 do).  The first pass walks all
-// chunks; after each, the block votes (__syncthreads_or) and, where any ray
-// of the block crossed a Gaussian of the chunk, appends the chunk to a
-// shared list: the TPU's any_hit + compaction.  The Newton passes and the
-// albedo walk only the listed chunks.  That skip is exact: every pair of
-// an unlisted chunk is !ok for every ray of the block and adds 0.  The
-// list holds every chunk (plan() refuses scenes above 96), so the TPU
-// kernel's overflow branch (tau_over, output column 7) is dead there and
-// has no counterpart here.  Blocks are 64 rays of consecutive lanes, half
-// of a 16x8 screen tile in the wavefront's tile order, so the block's rays
-// are coherent and hit few chunks.
+// them; a block of that would need megabytes, far beyond a block's shared
+// memory.  Here one thread owns one ray and recomputes each pair from its
+// row in every pass (as K2 and K7 do), and both kernels cull by geometry:
+// - Boxes.  Each 256-row chunk has a box, and so has each of its eight
+//   32-row groups: the union of their Gaussians' 3-sigma AABBs, widened by
+//   a margin against float32 rounding.  A thread runs a slab test of its
+//   ray (K4 over [0, inf), K5 over [0, tmax]) against each chunk's box and,
+//   inside an admitted chunk, each group's; the warp walks a chunk's
+//   groups, and a group's rows, only if some lane's test admits it
+//   (__any_sync), and the lanes whose test failed skip the pair math.  On
+//   each row a division-free pre-test (may_cross) rejects the pairs whose
+//   line passes well outside the ellipsoid before interval() does its two
+//   divisions and sqrtf.  These skips are exact: a Gaussian's 3-sigma
+//   ellipsoid lies in its AABB, and the pre-test passes every pair that
+//   interval() finds ok, so a skipped pair is one that adds 0, and the
+//   surviving pairs are summed in the same row order as a sweep over
+//   every row.  (Groups: the warps of bounced and NEE rays, which fan out,
+//   walked 22-30 chunks where each ray admits 7; PERF.md.)
+// - K4's crossed-pair list.  The first pass records the rows of the ray's
+//   ok pairs (BIG_MAX_HITS of them, K2's hit list) and the chunks that
+//   held them (a 96-bit mask).  The solver_iters Newton passes and the
+//   albedo pass recompute only the listed pairs; a ray with more ok pairs
+//   than the list holds walks the rows of its masked chunks instead
+//   (without the pre-test, which passes most pairs there).
+// Nothing is shared between the threads of a block, so the block size is
+// free (chosen by measurement).  The mask holds every chunk (plan()
+// refuses scenes above 96), so the TPU kernel's overflow branch (tau_over,
+// output column 7) is dead there and has no counterpart here.
 //
-// K5 needs no vote: a thread tests every pair once anyway, and a pair that
-// is !ok skips its erff (the TPU kernel's lanes could not).  It is the
-// shadow-ray pass of K2 (tau_nee) over the stored NEE rays.
+// K5 is the shadow-ray pass of K2 (tau_nee's pair loop, tau_nee_row here)
+// over the stored NEE rays, in the groups its box tests admit.
 //
 // K4's Newton step is its own, not illinois_update: the falsi point is
 // clipped to a 5 % inset of the bracket and a Newton point is taken
@@ -43,14 +58,21 @@
 // finisher.
 #pragma once
 
+#include <math.h>
+
 #include "bounce.cuh"
 #include "common.cuh"
 
 namespace gvr {
 
 constexpr int BIG_G = 256;          // Gaussians a chunk
+constexpr int BIG_GROUP = 32;       // Gaussians a group
+constexpr int BIG_GROUPS = BIG_G / BIG_GROUP;
+constexpr int BIG_BOXES = 1 + BIG_GROUPS;  // boxes a chunk
 constexpr int BIG_MAX_CHUNKS = 96;  // plan()'s ceiling
-constexpr int BIG_BLOCK = 64;       // rays a block of K4
+constexpr int BIG_MAX_HITS = 32;    // K4's crossed-pair list
+constexpr int BIG_BLOCK = 128;      // rays a block of K4 and of K5
+constexpr unsigned FULL_WARP = 0xffffffffu;
 
 // Stage-1 output rows ([16, b], one column a ray); K5 reads rows 4-15.
 enum BigRow {
@@ -76,29 +98,146 @@ __device__ __forceinline__ void illinois_update_inset(float& lo, float& hi,
   t = good ? t_n : t_f;
 }
 
-// Calls f(pair) for every ok pair of the ray in the block's listed chunks.
+// A ray set up for slab tests: 1/d on each axis the ray moves along;
+// |d| < 1e-30 counts as not moving (flat).
+struct BoxRay {
+  float o[3], inv[3];
+  bool flat[3];
+};
+
+__device__ __forceinline__ BoxRay box_ray(const Ray& r) {
+  BoxRay br;
+  const float o[3] = {r.ox, r.oy, r.oz}, d[3] = {r.dx, r.dy, r.dz};
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    br.o[k] = o[k];
+    br.flat[k] = fabsf(d[k]) < 1e-30f;
+    br.inv[k] = 1.0f / (br.flat[k] ? 1.0f : d[k]);
+  }
+  return br;
+}
+
+// Does the segment [0, tmax] of the ray meet box k?  Per axis the slab's
+// entry and exit times (lo - o) * inv and (hi - o) * inv, ordered by the
+// sign of inv; a flat axis admits all t if the origin lies in the slab and
+// none otherwise.  An empty box (min > max) is missed by every ray.  No
+// operation here contracts into an FMA, so chunk_box_hits_reference's
+// torch ops give the same answer bit for bit.
+__device__ __forceinline__ bool box_admits(const float4* __restrict__ boxes,
+                                           int k, const BoxRay& br,
+                                           float tmax) {
+  const float4 lo4 = __ldg(boxes + 2 * k), hi4 = __ldg(boxes + 2 * k + 1);
+  const float lo[3] = {lo4.x, lo4.y, lo4.z}, hi[3] = {hi4.x, hi4.y, hi4.z};
+  float t_near = 0.0f, t_far = tmax;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    if (br.flat[a]) {
+      t_far = br.o[a] >= lo[a] && br.o[a] <= hi[a] ? t_far : -BIG;
+    } else {
+      const float ta = (lo[a] - br.o[a]) * br.inv[a];
+      const float tb = (hi[a] - br.o[a]) * br.inv[a];
+      t_near = fmaxf(t_near, br.inv[a] >= 0.0f ? ta : tb);
+      t_far = fminf(t_far, br.inv[a] >= 0.0f ? tb : ta);
+    }
+  }
+  return t_near <= t_far;
+}
+
+// Calls row(g) for each row g of the groups the segment [0, tmax]'s box
+// tests admit, in row order, and chunk(c) after each chunk c that some
+// lane of the warp admits; counts the chunks and groups this lane's tests
+// admit.  The warp votes on each box and skips it where no lane's test
+// admits it.  Every lane of the warp must call it, an inactive one with
+// active false.
+template <class Row, class Chunk>
+__device__ __forceinline__ void walk_admitted(
+    const float4* __restrict__ boxes, int n_chunks, const BoxRay& br,
+    float tmax, bool active, int& n_admit, int& n_groups, Row&& row,
+    Chunk&& chunk) {
+  for (int c = 0; c < n_chunks; ++c) {
+    const bool admit = active && box_admits(boxes, BIG_BOXES * c, br, tmax);
+    if (!__any_sync(FULL_WARP, admit)) continue;
+    n_admit += admit;
+    for (int q = 0; q < BIG_GROUPS; ++q) {
+      const bool in_group =
+          admit && box_admits(boxes, BIG_BOXES * c + 1 + q, br, tmax);
+      if (!__any_sync(FULL_WARP, in_group)) continue;
+      if (in_group) {
+        ++n_groups;
+        const int g0 = c * BIG_G + q * BIG_GROUP;
+        for (int g = g0; g < g0 + BIG_GROUP; ++g) row(g);
+      }
+    }
+    chunk(c);
+  }
+}
+
+// A division-free pre-test of the pair (g, ray): false only where the
+// ray's line misses the Gaussian's R_CUT ellipsoid by a margin.  With
+// w = o - mu, a = d'Ad, bh = w'Ad and c = w'Aw, the closest approach is
+// m2 = c - bh^2 / a, so the line crosses only where a c - bh^2 < R^2 a.
+// PRE_REL (a c + bh^2) covers the float32 rounding of this form and of
+// interval(): on camera rays, rays from inside the medium and far rays of
+// three scenes, the ok pairs of interval() reached at most 8e-8 (a c +
+// bh^2) beyond R^2 a (CPU, float32).  So every pair that interval() finds
+// ok passes, and goes through it unchanged.
+constexpr float PRE_REL = 1e-5f;
+
+__device__ __forceinline__ bool may_cross(const float4* __restrict__ tab,
+                                          int g, const Ray& r) {
+  const float4 c0 = __ldg(tab + 4 * g);      // ic00 ic11 ic22 ic01
+  const float4 c1 = __ldg(tab + 4 * g + 1);  // ic02 ic12 qx qy
+  const float4 c3 = __ldg(tab + 4 * g + 3);  // valid mx my mz
+  const float wx = r.ox - c3.y, wy = r.oy - c3.z, wz = r.oz - c3.w;
+  const float ax = c0.x * r.dx + c0.w * r.dy + c1.x * r.dz;
+  const float ay = c0.w * r.dx + c0.y * r.dy + c1.y * r.dz;
+  const float az = c1.x * r.dx + c1.y * r.dy + c0.z * r.dz;
+  const float a = r.dx * ax + r.dy * ay + r.dz * az;
+  const float bh = wx * ax + wy * ay + wz * az;
+  const float c = wx * (c0.x * wx + c0.w * wy + c1.x * wz) +
+                  wy * (c0.w * wx + c0.y * wy + c1.y * wz) +
+                  wz * (c1.x * wx + c1.y * wy + c0.z * wz);
+  const float ac = a * c, b2 = bh * bh;
+  return ac - b2 - R_CUT * R_CUT * a <= PRE_REL * (ac + b2);
+}
+
+// Calls f(pair) for every ok pair of the ray, in row order: the listed
+// rows, or, when the ray crossed more than BIG_MAX_HITS Gaussians, every
+// row of the chunks in its mask.
 template <class F>
-__device__ __forceinline__ void for_each_listed(const float4* __restrict__ tab,
-                                                const int* list, int n_list,
-                                                const Ray& r, F&& f) {
-  for (int k = 0; k < n_list; ++k) {
-    const int base = list[k] * BIG_G;
-    for (int j = 0; j < BIG_G; ++j) {
+__device__ __forceinline__ void for_each_crossed(
+    const float4* __restrict__ tab, const Ray& r, const uint16_t* hits,
+    int n_ok, const uint32_t (&mask)[3], F&& f) {
+  if (n_ok <= BIG_MAX_HITS) {
+    for (int j = 0; j < n_ok; ++j) {
       Pair p;
-      if (make_pair(tab, base + j, r, p)) f(p);
+      if (make_pair(tab, hits[j], r, p)) f(p);
+    }
+    return;
+  }
+#pragma unroll
+  for (int w = 0; w < 3; ++w) {
+    for (uint32_t m = mask[w]; m != 0u; m &= m - 1u) {
+      const int c = 32 * w + __ffs(m) - 1;
+      for (int g = c * BIG_G; g < (c + 1) * BIG_G; ++g) {
+        Pair p;
+        if (make_pair(tab, g, r, p)) f(p);
+      }
     }
   }
 }
 
 // K4: one thread per ray.  xi [b, 5] uniforms (target, NEE choice, light
-// index, env direction x2); out [16, b] (BigRow).
+// index, env direction x2); out [16, b] (BigRow); admitted [2, b] (or
+// null): the chunks and the groups the ray's box tests admitted.
 __global__ void __launch_bounds__(BIG_BLOCK)
     big_stage1_kernel(const float4* __restrict__ tab, int np,
+                      const float4* __restrict__ boxes,
                       const float* __restrict__ o, const float* __restrict__ d,
                       const float* __restrict__ xi, int b,
                       const float* __restrict__ light_rows, int n_lights,
-                      int solver_iters, float* __restrict__ out) {
-  __shared__ int list[BIG_MAX_CHUNKS];
+                      int solver_iters, float* __restrict__ out,
+                      int* __restrict__ admitted) {
   const int i = blockIdx.x * BIG_BLOCK + threadIdx.x;
   const bool active = i < b;
   Ray r = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 1.0f};
@@ -106,28 +245,36 @@ __global__ void __launch_bounds__(BIG_BLOCK)
     r = {o[3 * i], o[3 * i + 1], o[3 * i + 2],
          d[3 * i], d[3 * i + 1], d[3 * i + 2]};
 
-  // --- first pass over every chunk, and the block's vote on each ---
+  // --- first pass over the admitted rows: tau_tot, the bracket, the
+  // crossed-pair list and the chunk mask ---
+  uint16_t hits[BIG_MAX_HITS];
+  uint32_t mask[3] = {0u, 0u, 0u};
+  int n_ok = 0, n_before = 0, n_admit = 0, n_groups = 0;
   float tau_tot = 0.0f, t_lo = BIG, t_hi = 0.0f;
-  int n_list = 0;
-  for (int c = 0; c < np / BIG_G; ++c) {
-    bool hit = false;
-    if (active) {
-      for (int j = 0; j < BIG_G; ++j) {
+  walk_admitted(
+      boxes, np / BIG_G, box_ray(r), INFINITY, active, n_admit, n_groups,
+      [&](int g) {
         Pair p;
-        if (!make_pair(tab, c * BIG_G + j, r, p)) continue;
+        if (!may_cross(tab, g, r) || !make_pair(tab, g, r, p)) return;
         tau_tot += p.tau_i;
         t_lo = fminf(t_lo, p.t0);
         t_hi = fmaxf(t_hi, p.t1);
-        hit = true;
-      }
-    }
-    if (__syncthreads_or(hit)) {
-      if (threadIdx.x == 0) list[n_list] = c;
-      ++n_list;
-    }
-  }
-  __syncthreads();
+        if (n_ok < BIG_MAX_HITS) hits[n_ok] = static_cast<uint16_t>(g);
+        ++n_ok;
+      },
+      [&](int c) {
+        // constant indices keep the mask in registers
+        const uint32_t bit = n_ok > n_before ? 1u << (c & 31) : 0u;
+        mask[0] |= c < 32 ? bit : 0u;
+        mask[1] |= c >= 32 && c < 64 ? bit : 0u;
+        mask[2] |= c >= 64 ? bit : 0u;
+        n_before = n_ok;
+      });
   if (!active) return;
+  if (admitted) {
+    admitted[i] = n_admit;
+    admitted[b + i] = n_groups;
+  }
   t_lo = fminf(t_lo, t_hi);
 
   const float* x = xi + 5 * i;
@@ -135,21 +282,21 @@ __global__ void __launch_bounds__(BIG_BLOCK)
   const bool scattered = tau_tot > target;
   const float tgt = fminf(target, tau_tot * 0.999999f);
 
-  // --- solver_iters Newton + inset-Illinois steps over the listed chunks
+  // --- solver_iters Newton + inset-Illinois steps over the crossed pairs
   float lo = t_lo, hi = t_hi, flo = -tgt;
   float fhi = fmaxf(tau_tot - tgt, 1e-12f);
   float t = 0.5f * (t_lo + t_hi);
   for (int it = 0; it < solver_iters; ++it) {
     float tau = 0.0f, sig = 0.0f;
-    for_each_listed(tab, list, n_list, r,
-                    [&](const Pair& p) { tau_sig_at(p, t, tau, sig); });
+    for_each_crossed(tab, r, hits, n_ok, mask,
+                     [&](const Pair& p) { tau_sig_at(p, t, tau, sig); });
     illinois_update_inset(lo, hi, flo, fhi, t, tau - tgt, sig);
   }
   const float t_sc = fminf(fmaxf(t, t_lo), t_hi);
 
   // --- mixture albedo at the scatter point (gmm.h:128-143) ---
   float s_sum = 0.0f, sa_sum = 0.0f;
-  for_each_listed(tab, list, n_list, r, [&](const Pair& p) {
+  for_each_crossed(tab, r, hits, n_ok, mask, [&](const Pair& p) {
     albedo_at(p, t_sc, s_sum, sa_sum);
   });
 
@@ -163,17 +310,53 @@ __global__ void __launch_bounds__(BIG_BLOCK)
     out[static_cast<size_t>(k) * b + i] = row[k];
 }
 
-// K5: one thread per NEE ray of stage 1's rows; out [3, b] Li.
-__global__ void big_nee_kernel(const float4* __restrict__ tab, int np,
-                               const float* __restrict__ s1, int b,
-                               const float* __restrict__ env,
-                               float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= b) return;
+// tau_nee's pair loop (bounce.cuh) for row g, added to tau.
+__device__ __forceinline__ void tau_nee_row(const float4* __restrict__ tab,
+                                            int g, const Ray& r, float tmax,
+                                            float& tau) {
+  float a_s, b, t0, t1, m2, dens_norm, albedo;
+  if (!may_cross(tab, g, r) ||
+      !interval(tab, g, r, a_s, b, t0, t1, m2, dens_norm, albedo))
+    return;
+  const float hi = fminf(t1, tmax);
+  if (!(hi > t0)) return;
+  const float sa = sqrtf(a_s);
+  const float zoff = b * (0.5f / sa);
+  const float pref = dens_norm * expf(-0.5f * m2) *
+                     sqrtf(PI_F / (2.0f * a_s));
+  tau += pref * (erff((sa * hi + zoff) * SQRT_HALF) -
+                 erff((sa * t0 + zoff) * SQRT_HALF));
+}
+
+// K5: one thread per NEE ray of stage 1's rows; out [3, b] Li; admitted
+// [2, b] (or null): the chunks and the groups the segment's box tests
+// admitted.
+__global__ void __launch_bounds__(BIG_BLOCK)
+    big_nee_kernel(const float4* __restrict__ tab, int np,
+                   const float4* __restrict__ boxes,
+                   const float* __restrict__ s1, int b,
+                   const float* __restrict__ env, float* __restrict__ out,
+                   int* __restrict__ admitted) {
+  const int i = blockIdx.x * BIG_BLOCK + threadIdx.x;
+  const bool active = i < b;
   const auto at = [&](int k) { return s1[static_cast<size_t>(k) * b + i]; };
-  const Ray s = {at(kPx), at(kPx + 1), at(kPx + 2),
-                 at(kWx), at(kWx + 1), at(kWx + 2)};
-  const float tr = expf(-tau_nee(tab, np, s, at(kTmax)));
+  Ray s = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 1.0f};
+  float tmax = 0.0f;
+  if (active) {
+    s = {at(kPx), at(kPx + 1), at(kPx + 2), at(kWx), at(kWx + 1), at(kWx + 2)};
+    tmax = at(kTmax);
+  }
+  float tau = 0.0f;
+  int n_admit = 0, n_groups = 0;
+  walk_admitted(
+      boxes, np / BIG_G, box_ray(s), tmax, active, n_admit, n_groups,
+      [&](int g) { tau_nee_row(tab, g, s, tmax, tau); }, [](int) {});
+  if (!active) return;
+  if (admitted) {
+    admitted[i] = n_admit;
+    admitted[b + i] = n_groups;
+  }
+  const float tr = expf(-tau);
   const bool is_env = at(kIsEnv) > 0.5f;
   for (int c = 0; c < 3; ++c)
     out[static_cast<size_t>(c) * b + i] =

@@ -8,8 +8,8 @@
 //   gvr_mega        K1  pooled path loop     (gvr_tpu/kernels/megatrace.py:501)
 //   gvr_span_tau    K6  tau per crossing     (gvr_tpu/kernels/gridtrace.py:217)
 //   gvr_grid_solve  K7  in-cell solve        (gvr_tpu/kernels/gridtrace.py:425)
-//   gvr_big_stage1  K4  chunk-culled bounce  (gvr_tpu/kernels/pathtrace_big.py:384)
-//   gvr_big_nee     K5  chunk-streamed NEE   (gvr_tpu/kernels/pathtrace_big.py:409)
+//   gvr_big_stage1  K4  box-culled bounce    (gvr_tpu/kernels/pathtrace_big.py:384)
+//   gvr_big_nee     K5  box-culled NEE       (gvr_tpu/kernels/pathtrace_big.py:409)
 
 #include "big.cuh"
 #include "bounce.cuh"
@@ -398,26 +398,31 @@ int gvr_grid_solve(const float* tab, const int* cell_first,
   return static_cast<int>(cudaGetLastError());
 }
 
-int gvr_big_stage1(const float* tab, int np, const float* o, const float* d,
-                   const float* xi, int b, const float* light_rows,
-                   int n_lights, int solver_iters, float* out, void* stream) {
+int gvr_big_stage1(const float* tab, int np, const float* boxes,
+                   const float* o, const float* d, const float* xi, int b,
+                   const float* light_rows, int n_lights, int solver_iters,
+                   float* out, int* admitted, void* stream) {
   if (b > 0) {
     gvr::big_stage1_kernel<<<(b + gvr::BIG_BLOCK - 1) / gvr::BIG_BLOCK,
                              gvr::BIG_BLOCK, 0,
                              static_cast<cudaStream_t>(stream)>>>(
-        reinterpret_cast<const float4*>(tab), np, o, d, xi, b, light_rows,
-        n_lights, solver_iters, out);
+        reinterpret_cast<const float4*>(tab), np,
+        reinterpret_cast<const float4*>(boxes), o, d, xi, b, light_rows,
+        n_lights, solver_iters, out, admitted);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-int gvr_big_nee(const float* tab, int np, const float* stage1, int b,
-                const float* env, float* out, void* stream) {
+int gvr_big_nee(const float* tab, int np, const float* boxes,
+                const float* stage1, int b, const float* env, float* out,
+                int* admitted, void* stream) {
   if (b > 0) {
-    const int threads = 128;
-    gvr::big_nee_kernel<<<(b + threads - 1) / threads, threads, 0,
+    gvr::big_nee_kernel<<<(b + gvr::BIG_BLOCK - 1) / gvr::BIG_BLOCK,
+                          gvr::BIG_BLOCK, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-        reinterpret_cast<const float4*>(tab), np, stage1, b, env, out);
+        reinterpret_cast<const float4*>(tab), np,
+        reinterpret_cast<const float4*>(boxes), stage1, b, env, out,
+        admitted);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -93,7 +93,8 @@ def grid_solve_from_crossings(grid: GridIndex, o, d, tau, cells, t_in,
     scattered, tau_tot, cell_c, tin_c, tout_c, residual = \
         critical_crossing(grid, tau, cells, t_in, t_out, u_tau)
     # K7 takes the rays in lane order: sorting them by cell measured 0.22 ms
-    # an iteration on the H100 and saved K7 0.01-0.18 ms (PERF.md)
+    # an iteration and saved K7 0.01-0.18 ms (NVIDIA H100 80GB HBM3,
+    # 700.00 W; PERF.md)
     t_sc, albedo = solve_pass(grid, o, d, tin_c, tout_c, residual, cell_c,
                               solver_iters)
     return (torch.where(scattered, t_sc, NO_SCATTER), scattered,

@@ -36,8 +36,8 @@ from gvr_tpu_torch.kernels.megatrace import (INV_4PI, camera_vector,
                                              mega_call, strat_n, strat_uv)
 from gvr_tpu_torch.kernels.pathtrace import MEGA_MAX_GAUSSIANS, pack_table
 from gvr_tpu_torch.kernels.pathtrace_big import (bounce_step_big,
-                                                 n_chunks_for, pack_rows,
-                                                 plan)
+                                                 chunk_boxes, n_chunks_for,
+                                                 pack_rows, plan)
 from gvr_tpu_torch.kernels.rng import JITTER_TAG, planes_uniforms
 from gvr_tpu_torch.ops.sampling import dir_from_xi
 from gvr_tpu_torch.scene.scene import Scene
@@ -101,7 +101,8 @@ def wavefront_pixels(scene: Scene, camera, cfg: RenderConfig,
 
 def wavefront_pixels_big(scene: Scene, camera, cfg: RenderConfig,
                          ids: torch.Tensor, stats: dict | None = None,
-                         table: torch.Tensor | None = None) -> torch.Tensor:
+                         table: torch.Tensor | None = None,
+                         boxes: torch.Tensor | None = None) -> torch.Tensor:
     """Mean radiance [B,3] over the spp samples of each pixel id [B]
     (int32), by the big-N dense wavefront
     (``gvr_tpu/integrators/multiscatter.py:528-611``): one lane per pixel;
@@ -114,18 +115,19 @@ def wavefront_pixels_big(scene: Scene, camera, cfg: RenderConfig,
     a path.  One host read an iteration, the live lanes, which is also
     the loop condition.  JAX traces every lane and masks the finished
     ones; tracing only the live lanes gives the same results, as a lane's
-    bounce does not depend on the others in its block; on an H100 the 10k
-    scene's render took 8-14 % less time than with every lane traced
-    (PERF.md).  ``table`` is
-    ``pack_rows`` of the scene (built here if not given).  ``stats``, if
-    given, receives 'iterations' and 'bounce_evals' (live lanes
-    traced)."""
+    bounce does not depend on the others in its block, and took less time
+    on the card (PERF.md, the A/B of compacted and every lane).
+    ``table`` and ``boxes`` are ``pack_rows`` and ``chunk_boxes`` of the
+    scene (built here if not given).  ``stats``, if given, receives
+    'iterations' and 'bounce_evals' (live lanes traced)."""
     dev = ids.device
     b = ids.shape[0]
     w, h, spp = cfg.width, cfg.height, cfg.spp
     n_strat = strat_n(spp)
     if table is None:
         table = pack_rows(scene.medium)
+    if boxes is None:
+        boxes = chunk_boxes(scene.medium)
     lights, env = scene.lights(), scene.env_color
     w_ne = float(lights.shape[0] + 1) if lights.shape[0] else 1.0
     f32 = dict(dtype=torch.float32, device=dev)
@@ -163,7 +165,7 @@ def wavefront_pixels_big(scene: Scene, camera, cfg: RenderConfig,
         # K4/K5 trace the live lanes only, in lane order; the others' results
         # are masked below, as in JAX, where every lane is traced
         res = bounce_step_big(table, o[live], d[live], xi[:5, live].T,
-                              lights, env, cfg.solver_iters)
+                              lights, env, cfg.solver_iters, boxes)
         t_sc, scattered, albedo, li = (
             torch.zeros((b,) + r.shape[1:], dtype=r.dtype, device=dev)
             .index_copy_(0, live, r) for r in res[:4])
@@ -234,7 +236,7 @@ def render_multiscatter(scene: Scene, camera, cfg: RenderConfig,
         if kernel == "mega":
             cam, table, lights, env, pinhole = _mega_inputs(scene, camera)
         else:
-            table = pack_rows(scene.medium)
+            table, boxes = pack_rows(scene.medium), chunk_boxes(scene.medium)
     chunk = min(chunk, ((w * h + 255) // 256) * 256)
     for start in range(0, w * h, chunk):
         ids = order[start:start + chunk]
@@ -247,7 +249,7 @@ def render_multiscatter(scene: Scene, camera, cfg: RenderConfig,
                 evals += counts.sum()
         elif kernel == "big":
             img[ids] = wavefront_pixels_big(scene, camera, cfg, ids, st,
-                                            table)
+                                            table, boxes)
             evals += st["bounce_evals"]
         else:
             img[ids] = wavefront_pixels_grid_pooled(scene, grid, camera, cfg,

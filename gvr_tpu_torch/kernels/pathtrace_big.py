@@ -1,5 +1,5 @@
-"""The big-N dense bounce: the table, the plain versions and the CUDA
-kernels K4 (chunk-culled bounce) and K5 (chunk-streamed NEE).
+"""The big-N dense bounce: the table, the chunk boxes, the plain versions
+and the CUDA kernels K4 (box-culled bounce) and K5 (box-culled NEE).
 
 Replaces ``gvr_tpu/kernels/pathtrace_big.py:374 _big_call``: its stage 1
 (pallas_call :384, body ``_make_kernel`` :98) and its NEE stage (:409,
@@ -21,9 +21,17 @@ Plain versions (``big_stage1_reference``, ``big_nee_reference``): that
 math on [N, B] tensors with torch.erf (the TPU kernel's A&S erf is within
 1.5e-7 of it), chunked over rays so a 65,536-ray batch fits on the card.
 Kernels (``csrc/big.cuh``, launchers ``gvr_big_stage1`` and
-``gvr_big_nee`` in ``csrc/kernels.cu``): one thread per ray; K4's blocks
-vote on the chunks their rays hit and walk only those in the Newton and
-albedo passes.  The source note in ``big.cuh`` says what bounds them.
+``gvr_big_nee`` in ``csrc/kernels.cu``): one thread per ray.  Each tests
+its ray against every chunk's box and, in an admitted chunk, against its
+eight 32-row groups' boxes (``chunk_boxes``: the union of the Gaussians'
+3-sigma AABBs, widened; ``chunk_box_hits_reference`` is that test in
+plain torch), a warp walks a box's rows only where one of its rays' tests
+admits it, and a division-free pre-test (``may_cross_reference``) spares
+most rows the pair test.  K4's first pass lists the pairs its ray
+crosses, and its Newton and albedo passes walk only those (the chunks
+that held them where a ray crosses more than MAX_HITS).  Both give the
+plain versions' results, as every pair they skip adds 0.  The source note
+in ``big.cuh`` says what bounds them.
 """
 
 from __future__ import annotations
@@ -31,26 +39,38 @@ from __future__ import annotations
 import torch
 
 from gvr_tpu_torch.kernels import _build
-from gvr_tpu_torch.kernels.pathtrace import (TABLE_COLS, _albedo, _coeffs,
-                                             _interval, _li, _nee_ray,
-                                             _newton, _pairs, _tau_nee,
-                                             pack_table)
+from gvr_tpu_torch.kernels.pathtrace import (BIG, TABLE_COLS, _albedo,
+                                             _coeffs, _interval, _li,
+                                             _nee_ray, _newton, _pairs,
+                                             _tau_nee, pack_table)
 from gvr_tpu_torch.ops.solvers import illinois_update_inset
-from gvr_tpu_torch.scene.gaussians import GaussianMixture
+from gvr_tpu_torch.scene.gaussians import R_CUT, GaussianMixture
 
 G = 256                  # Gaussians a chunk
+GROUP = 32               # Gaussians a group, the finer box (BIG_GROUP)
 MAX_CHUNKS = 96          # the JAX package's ceiling (24,576 Gaussians)
-BLOCK_RAYS = 64          # rays a block of K4 (csrc/big.cuh BIG_BLOCK)
+MAX_HITS = 32            # K4's crossed-pair list (csrc/big.cuh BIG_MAX_HITS)
+WARP = 32                # rays that vote together on walking a box
 STAGE1_ROWS = 16         # K4's output rows, csrc/big.cuh BigRow
+BOX_COLS = 8             # a box: min x y z, pad, max x y z, pad
+# The pre-test's margin (csrc/big.cuh PRE_REL, may_cross_reference)
+PRE_REL = 1e-5
+# A box is widened by BOX_REL of its largest extent plus BOX_ABS of
+# its largest |coordinate| (at least 1): far above the float32 rounding of
+# the slab test and of the pair test it stands in for, so the cull stays
+# conservative (tests/test_torch_big.py holds it so).
+BOX_REL, BOX_ABS = 1e-3, 1e-4
+EMPTY_BOX = 1e30         # a box without a Gaussian: min 1e30, max -1e30
 # Bound on the [N, rays] pairs one chunk of a plain version holds:
 # ~30 float32 temporaries of this many elements each.
 PAIR_BUDGET = 1 << 22
 
 
 def plan(n_chunks: int) -> int:
-    """The chunks a K4 block may list: all of them.  Raises above
-    MAX_CHUNKS with the JAX package's advice, so the chunk list can never
-    overflow (which is why the TPU kernel's overflow branch is dead)."""
+    """The chunks K4 and K5 walk: all of them, each culled by its box.
+    Raises above MAX_CHUNKS with the JAX package's advice, so K4's chunk
+    mask holds every chunk (which is why the TPU kernel's overflow branch
+    is dead)."""
     if n_chunks > MAX_CHUNKS:
         raise ValueError(
             f"chunk-streaming kernel supports at most {MAX_CHUNKS * G} "
@@ -91,6 +111,115 @@ def check_big_table(table: torch.Tensor, dev) -> None:
         raise ValueError(f"table: {rows} rows, not a positive multiple of "
                          f"{G}")
     plan(rows // G)
+
+
+def _union_boxes(lo, hi, rows: int) -> torch.Tensor:
+    """[K, 8] boxes of consecutive ``rows``-row blocks of the per-row
+    boxes lo, hi [K * rows, 3] (padding rows +inf, -inf), widened."""
+    lo = lo.view(-1, rows, 3).amin(1)
+    hi = hi.view(-1, rows, 3).amax(1)
+    scale = torch.maximum(lo.abs(), hi.abs()).amax(1, keepdim=True)
+    margin = (BOX_REL * (hi - lo).amax(1, keepdim=True)
+              + BOX_ABS * torch.clamp(scale, min=1.0))
+    empty = ~torch.isfinite(lo).all(1, keepdim=True)
+    boxes = torch.zeros((lo.shape[0], BOX_COLS), dtype=lo.dtype,
+                        device=lo.device)
+    boxes[:, 0:3] = torch.where(empty, EMPTY_BOX, lo - margin)
+    boxes[:, 4:7] = torch.where(empty, -EMPTY_BOX, hi + margin)
+    return boxes
+
+
+def chunk_boxes(gmm: GaussianMixture) -> torch.Tensor:
+    """[Np / G, 9, 8] float32 boxes of ``pack_rows``' chunks: for each
+    chunk its box, then the boxes of its eight GROUP-row groups, each min
+    x, y, z, 0, max x, y, z, 0.  A box is the union of ``gmm.aabbs()``
+    (the R_CUT-sigma boxes) over its Gaussians, widened by the margin of
+    BOX_REL and BOX_ABS; padding rows are left out, and a chunk or group
+    with no Gaussian gets an empty box (EMPTY_BOX) that every ray misses.
+    Built once per render, beside ``pack_rows``."""
+    n_c = plan(n_chunks_for(gmm.n))
+    f32 = dict(dtype=torch.float32, device=gmm.mean.device)
+    lo = torch.full((n_c * G, 3), float("inf"), **f32)
+    hi = torch.full((n_c * G, 3), float("-inf"), **f32)
+    if gmm.n:
+        lo[:gmm.n], hi[:gmm.n] = gmm.aabbs()
+    return torch.cat([_union_boxes(lo, hi, G)[:, None],
+                      _union_boxes(lo, hi, GROUP).view(n_c, G // GROUP,
+                                                       BOX_COLS)], dim=1)
+
+
+def check_chunk_boxes(boxes, table: torch.Tensor, dev) -> None:
+    """[Np / G, 9, 8] float32 on ``dev`` (``chunk_boxes`` of the scene
+    whose ``pack_rows`` is ``table``), contiguous, 16-byte aligned."""
+    if boxes is None:
+        raise ValueError("boxes: the kernels need chunk_boxes() of the "
+                         "scene")
+    _build.check(boxes, "boxes", torch.float32,
+                 (table.shape[0] // G, 1 + G // GROUP, BOX_COLS), dev)
+    if boxes.data_ptr() % 16:
+        raise ValueError("boxes: data pointer is not 16-byte aligned")
+
+
+def chunk_box_hits_reference(boxes, o, d, tmax=None) -> torch.Tensor:
+    """The kernels' box test in plain torch: [B, K] bool, whether the
+    segment [0, tmax] of each ray (o, d [B,3]; tmax [B], or None for
+    [0, inf)) meets each box of ``boxes`` [K, 8].  The same float32
+    operations as ``csrc/big.cuh`` ``box_admits``, so the same answers bit
+    for bit: per axis the slab's entry and exit times (lo - o) / d and
+    (hi - o) / d, ordered by the sign of 1/d; an axis with |d| < 1e-30
+    admits every t if the origin lies in the slab and none otherwise."""
+    lo, hi = boxes[None, :, 0:3], boxes[None, :, 4:7]       # [1, K, 3]
+    o, d = o[:, None, :], d[:, None, :]                     # [B, 1, 3]
+    flat = d.abs() < 1e-30
+    inv = 1.0 / torch.where(flat, 1.0, d)
+    ta, tb = (lo - o) * inv, (hi - o) * inv                 # [B, K, 3]
+    pos = inv >= 0.0
+    near = torch.where(flat, 0.0, torch.where(pos, ta, tb))
+    far = torch.where(flat, torch.where((o >= lo) & (o <= hi),
+                                        float("inf"), -BIG),
+                      torch.where(pos, tb, ta)).amin(-1)
+    if tmax is not None:
+        far = torch.minimum(far, tmax[:, None])
+    return torch.clamp(near.amax(-1), min=0.0) <= far
+
+
+def admitted_reference(boxes, o, d, tmax=None):
+    """What the kernels' box tests admit, in plain torch: (chunks [B,
+    n_chunks] bool, groups [B, n_chunks, 8] bool, a group counting only in
+    an admitted chunk, as the kernels test it only there)."""
+    chunks = chunk_box_hits_reference(boxes[:, 0], o, d, tmax)
+    groups = chunk_box_hits_reference(boxes[:, 1:].reshape(-1, BOX_COLS),
+                                      o, d, tmax).view(chunks.shape + (-1,))
+    return chunks, groups & chunks[..., None]
+
+
+def admitted_counts_reference(boxes, o, d, tmax=None) -> torch.Tensor:
+    """[2, B] int32: the chunks and the groups each ray's box tests admit
+    (``admitted_reference``), as the kernels count them."""
+    chunks, groups = admitted_reference(boxes, o, d, tmax)
+    return torch.stack([chunks.sum(1), groups.sum((1, 2))]).int()
+
+
+def may_cross_reference(table, o, d) -> torch.Tensor:
+    """The kernels' division-free pre-test in plain torch (csrc/big.cuh
+    ``may_cross``): [N, B] bool, false only where the ray's line misses
+    the R_CUT ellipsoid by the PRE_REL margin.  The kernels run
+    ``interval`` only on the pairs it passes, so it must pass every pair
+    that ``interval`` finds ok."""
+    col = lambda f: table[:, f:f + 1]
+    ray = [v[:, k][None, :] for v in (o, d) for k in range(3)]
+    ic = [col(k) for k in range(6)]         # ic00 ic11 ic22 ic01 ic02 ic12
+    mat = lambda x, y, z: (ic[0] * x + ic[3] * y + ic[4] * z,
+                           ic[3] * x + ic[1] * y + ic[5] * z,
+                           ic[4] * x + ic[5] * y + ic[2] * z)
+    w = [ray[k] - col(13 + k) for k in range(3)]
+    ad = mat(*ray[3:])
+    aw = mat(*w)
+    a = sum(ray[3 + k] * ad[k] for k in range(3))
+    bh = sum(w[k] * ad[k] for k in range(3))
+    c = sum(w[k] * aw[k] for k in range(3))
+    ac, b2 = a * c, bh * bh
+    return ac - b2 - R_CUT * R_CUT * a <= PRE_REL * (ac + b2)
 
 
 def _by_rays(table, b: int, fn):
@@ -151,10 +280,24 @@ def big_nee_reference(table, stage1, env):
 big_nee_reference.launches = 0
 
 
-def big_stage1(table, o, d, xi, lights, solver_iters: int = 12):
-    """K4's [16, B] rows; the arguments of ``big_stage1_reference``.  A CPU
-    tensor takes the plain version; a CUDA tensor launches K4 or raises."""
+def _admitted_out(admitted, b: int, dev) -> int:
+    if admitted is None:
+        return 0
+    _build.check(admitted, "admitted", torch.int32, (2, b), dev)
+    return admitted.data_ptr()
+
+
+def big_stage1(table, o, d, xi, lights, solver_iters: int = 12, boxes=None,
+               admitted=None):
+    """K4's [16, B] rows; the arguments of ``big_stage1_reference``, and
+    ``boxes``, the scene's ``chunk_boxes``, which the kernel needs.  A CPU
+    tensor takes the plain version (which needs no boxes); a CUDA tensor
+    launches K4 or raises.  ``admitted``, an int32 [2, B] tensor if
+    given, receives the chunks and the groups each ray's box tests
+    admitted (on the CPU from ``admitted_counts_reference``)."""
     if table.device.type == "cpu":
+        if admitted is not None:
+            admitted.copy_(admitted_counts_reference(boxes, o, d))
         return big_stage1_reference(table, o, d, xi, lights, solver_iters)
     dev = table.device
     b = o.shape[0]
@@ -164,11 +307,13 @@ def big_stage1(table, o, d, xi, lights, solver_iters: int = 12):
     _build.check(d, "d", torch.float32, (b, 3), dev)
     _build.check(xi5, "xi", torch.float32, (b, 5), dev)
     _build.check(lights, "lights", torch.float32, (None, 6), dev)
+    check_chunk_boxes(boxes, table, dev)
     out = torch.empty((STAGE1_ROWS, b), dtype=torch.float32, device=dev)
     _build.launch(
-        "gvr_big_stage1", _build.ptr(table), table.shape[0], _build.ptr(o),
-        _build.ptr(d), _build.ptr(xi5), b, _build.ptr(lights),
-        lights.shape[0], solver_iters, _build.ptr(out), device=dev)
+        "gvr_big_stage1", _build.ptr(table), table.shape[0],
+        _build.ptr(boxes), _build.ptr(o), _build.ptr(d), _build.ptr(xi5), b,
+        _build.ptr(lights), lights.shape[0], solver_iters, _build.ptr(out),
+        _admitted_out(admitted, b, dev), device=dev)
     big_stage1.launches += 1
     return out
 
@@ -176,20 +321,26 @@ def big_stage1(table, o, d, xi, lights, solver_iters: int = 12):
 big_stage1.launches = 0
 
 
-def big_nee(table, stage1, env):
-    """Li [B,3] from K4's rows; the arguments of ``big_nee_reference``.  A
-    CPU tensor takes the plain version; a CUDA tensor launches K5 or
-    raises."""
+def big_nee(table, stage1, env, boxes=None, admitted=None):
+    """Li [B,3] from K4's rows; the arguments of ``big_nee_reference``, and
+    ``boxes`` and ``admitted`` as for ``big_stage1`` (each NEE segment's
+    box tests over [0, tmax]).  A CPU tensor takes the plain version; a CUDA
+    tensor launches K5 or raises."""
     if table.device.type == "cpu":
+        if admitted is not None:
+            admitted.copy_(admitted_counts_reference(
+                boxes, stage1[4:7].T, stage1[7:10].T, stage1[10]))
         return big_nee_reference(table, stage1, env)
     dev = table.device
     b = stage1.shape[1]
     check_big_table(table, dev)
     _build.check(stage1, "stage1", torch.float32, (STAGE1_ROWS, b), dev)
     _build.check(env, "env", torch.float32, (3,), dev)
+    check_chunk_boxes(boxes, table, dev)
     out = torch.empty((3, b), dtype=torch.float32, device=dev)
     _build.launch("gvr_big_nee", _build.ptr(table), table.shape[0],
-                  _build.ptr(stage1), b, _build.ptr(env), _build.ptr(out),
+                  _build.ptr(boxes), _build.ptr(stage1), b, _build.ptr(env),
+                  _build.ptr(out), _admitted_out(admitted, b, dev),
                   device=dev)
     big_nee.launches += 1
     return out.T
@@ -198,27 +349,45 @@ def big_nee(table, stage1, env):
 big_nee.launches = 0
 
 
-def bounce_step_big(table, o, d, xi, lights, env, solver_iters: int = 12):
+def bounce_step_big(table, o, d, xi, lights, env, solver_iters: int = 12,
+                    boxes=None):
     """One bounce through K4 and K5, the contract of the JAX package's
     ``bounce_step_pallas_big``: (t_sc [B], scattered bool [B], albedo [B],
-    li [B,3], tau_tot [B]); table from ``pack_rows``."""
-    s1 = big_stage1(table, o, d, xi, lights, solver_iters)
-    return s1[0], s1[1] > 0.5, s1[2], big_nee(table, s1, env), s1[3]
+    li [B,3], tau_tot [B]); table from ``pack_rows``, boxes (needed on the
+    card) from ``chunk_boxes``."""
+    s1 = big_stage1(table, o, d, xi, lights, solver_iters, boxes)
+    return s1[0], s1[1] > 0.5, s1[2], big_nee(table, s1, env, boxes), s1[3]
 
 
-def culling_stats(table, o, d, block: int = BLOCK_RAYS):
-    """What K4's passes walk, in plain torch, for measurements: (chunks
-    each block of ``block`` consecutive rays hits [ceil(B / block)], the
-    pairs each ray crosses [B]), both int64.  A chunk counts for a block
-    when any of its rays crosses any of its Gaussians (K4's vote)."""
+def culling_stats(table, boxes, o, d, tmax=None) -> dict:
+    """What K4 (``tmax`` None: each ray over [0, inf)) or K5 (each segment
+    [0, tmax]) walks, in plain torch, for measurements; int64 tensors:
+    'admitted' and 'groups' [B] the chunks and the groups each ray's box
+    tests admit; 'warp' and 'warp_groups' [ceil(B / WARP)] those each warp
+    of consecutive rays walks (the ones some ray of it admits); 'hit' [B]
+    the chunks that hold a pair the ray crosses; 'crossed' [B] those pairs
+    (with tmax, the pairs whose interval starts before it)."""
     col = lambda f: table[:, f:f + 1]
-    step = max(block, (PAIR_BUDGET // table.shape[0]) // block * block)
-    hits, crossed = [], []
+    n_c = table.shape[0] // G
+    step = max(WARP, (PAIR_BUDGET // table.shape[0]) // WARP * WARP)
+    keys = ("admitted", "groups", "warp", "warp_groups", "hit", "crossed")
+    out = {k: [] for k in keys}
+    warps = lambda x: torch.nn.functional.pad(
+        x.float(), (0, 0, 0, -x.shape[0] % WARP)).view(
+        -1, WARP, x.shape[1]).amax(1).sum(1)
     for s in range(0, o.shape[0], step):
-        ray = [v[s:s + step, k][None, :] for v in (o, d) for k in range(3)]
-        ok = _interval(col, *ray, *_coeffs(col, *ray))[3].float()  # [N, b]
-        crossed.append(ok.sum(0))
-        ok = torch.nn.functional.pad(ok, (0, -ok.shape[1] % block))
-        hits.append(ok.reshape(ok.shape[0] // G, G, -1, block)
-                    .amax(3).amax(1).sum(0))
-    return torch.cat(hits).long(), torch.cat(crossed).long()
+        sl = slice(s, s + step)
+        ray = [v[sl, k][None, :] for v in (o, d) for k in range(3)]
+        t0, t1, _, ok = _interval(col, *ray, *_coeffs(col, *ray))  # [N, b]
+        tm = None if tmax is None else tmax[sl]
+        if tm is not None:
+            ok = ok & (torch.minimum(t1, tm[None, :]) > t0)
+        out["crossed"].append(ok.sum(0))
+        out["hit"].append(ok.reshape(n_c, G, -1).any(1).sum(0))
+        chunks, groups = admitted_reference(boxes, o[sl], d[sl], tm)
+        groups = groups.flatten(1)
+        out["admitted"].append(chunks.sum(1))
+        out["groups"].append(groups.sum(1))
+        out["warp"].append(warps(chunks))
+        out["warp_groups"].append(warps(groups))
+    return {k: torch.cat(v).long() for k, v in out.items()}

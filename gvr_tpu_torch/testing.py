@@ -80,9 +80,9 @@ def mega_agreement(outs, refs, spp: int) -> dict:
 # peak the densest entry of the slot's cell, t_out the crossing's far end.
 # The resolution term only admits the few slots of the thinnest Gaussians,
 # so at most beyond_share of the live slots may exceed atol + rtol |tau|.
-# On the H100 the kernel measured at most 43 % of this bound and 1.4e-4 of
-# the slots beyond the base (chip_smoke phase 10); float32 vs float64 of
-# the plain version 3.8 % and none.
+# On an NVIDIA H100 80GB HBM3 at 700.00 W the kernel measured at most 43 %
+# of this bound and 1.4e-4 of the slots beyond the base (chip_smoke phase
+# 10); float32 vs float64 of the plain version 3.8 % and none.
 K6_BARS = dict(atol=1e-4, rtol=1e-3, resolution=4 * 2.0 ** -23,
                beyond_share=1e-3)
 
@@ -116,9 +116,10 @@ def span_tau_agreement(got, want, grid, cells, t_out) -> dict:
 # A root next to a threshold (a support end, the finisher's active test) may
 # take the other branch in one version, so a share of the rays must meet
 # the t bar, and of those the same share the albedo bar (a root at a
-# support end may count that Gaussian in one version only).  On the H100
-# the kernel left 1 of 16,395 and 1 of 28,776 rays outside the t bar and 0
-# and 2 outside the albedo bar (chip_smoke phases 8 and 10).
+# support end may count that Gaussian in one version only).  On an NVIDIA
+# H100 80GB HBM3 at 700.00 W the kernel left 1 of 16,395 and 1 of 28,776
+# rays outside the t bar and 0 and 2 outside the albedo bar (chip_smoke
+# phases 8 and 10).
 K7_BARS = dict(t_atol=1e-5, t_rtol=1e-4, albedo=1e-3, share=0.999)
 
 
@@ -160,22 +161,31 @@ def solve_agreement(got, want, cells) -> dict:
 # 0.14 of the bound).  Li is held on the rays whose t agrees, so a kernel and its
 # plain version compare Li on the same shadow rays.  Plain mutants miss
 # the t bar: Illinois clipped to [lo, hi] instead of the 5 % inset leaves
-# 99.63 % (first rays) and 97.47 % (after a bounce) within, a chunk vote
-# that drops each block's last hit chunk 78.5 %.
+# 99.63 % (first rays) and 97.47 % (after a bounce) within, skipping the
+# pairs of each 64-ray block's last crossed chunk 78.5 %.
 BIG_BARS = dict(agree=0.999, tau_atol=1e-4, tau_rtol=1e-3, tau_share=0.998,
                 t_atol=1e-3, t_rtol=1e-2, share=0.999, albedo=1e-3,
                 albedo_share=0.998, li_atol=1e-4, li_rtol=1e-3)
+# BIG_BARS where every ray crosses thousands of overlapping Gaussians (the
+# S_CAP_MAX fallback scene, random_gaussian_scene(8000, 0, diameter 2-4):
+# tau_tot from 29, median 121, on big_rays): there K4's inset Illinois
+# step leaves 1-2 % of the roots short of convergence after solver_iters
+# steps, where they move with the order of the sums.  The plain version in
+# float32 against itself with the rows permuted kept t within the t bar on
+# 98.8 % of 1,024 rays (max |dt| 0.042), in float64 on 97.9 % (0.060;
+# CPU), so 95 % of the rays must be within; every other bar held there as
+# it is.
+BIG_DENSE_BARS = dict(BIG_BARS, share=0.95)
 
 
-def big_agreement(outs, refs) -> dict:
+def big_agreement(outs, refs, bars=BIG_BARS) -> dict:
     """Measured agreement of two (t_sc, scattered, albedo, li [B,3],
     tau_tot) bounce results (numpy arrays or tensors) and whether it meets
-    BIG_BARS."""
+    ``bars`` (BIG_BARS, or BIG_DENSE_BARS)."""
     host = lambda x: (x.cpu().numpy() if isinstance(x, torch.Tensor)
                       else np.asarray(x))
     t_p, sc_p, alb_p, li_p, tau_p = (host(x) for x in outs[:5])
     t_x, sc_x, alb_x, li_x, tau_x = (host(x) for x in refs[:5])
-    bars = BIG_BARS
     dtau = np.abs(tau_p - tau_x)
     t_ok = np.abs(t_p - t_x) <= bars["t_atol"] + bars["t_rtol"] * np.abs(t_x)
     both = sc_p & sc_x
@@ -226,16 +236,33 @@ def big_rays(medium, n: int, seed: int, device):
             f32(r.uniform(size=(2 * n, 5))))
 
 
-def big_kernel_vs_plain(table, o, d, xi, lights, env,
-                        solver_iters: int = 12) -> dict:
+def big_kernel_vs_plain(table, boxes, o, d, xi, lights, env,
+                        solver_iters: int = 12, bars=BIG_BARS) -> dict:
     """K4 and K5 against their plain versions on one batch (CUDA tensors):
-    big_agreement of the two bounces, with K5 and its plain version both
-    given K4's NEE rays, so Li is compared on the same shadow rays."""
+    big_agreement of the two bounces at ``bars``, with K5 and its plain
+    version both given K4's NEE rays, so Li is compared on the same shadow
+    rays; and the chunks and groups each kernel's box tests admitted
+    against ``admitted_counts_reference`` on the same rays, which must be
+    equal ray for ray (the same float32 operations): 'k4_admitted' and
+    'k5_admitted' are the means per ray (chunks, groups), 'ok' also needs
+    the equality."""
     pb = pathtrace_big
-    s1 = pb.big_stage1(table, o, d, xi, lights, solver_iters)
+    b = o.shape[0]
+    adm4, adm5 = (torch.empty((2, b), dtype=torch.int32, device=o.device)
+                  for _ in range(2))
+    s1 = pb.big_stage1(table, o, d, xi, lights, solver_iters, boxes, adm4)
     s1_plain = pb.big_stage1_reference(table, o, d, xi, lights, solver_iters)
-    li, li_plain = (pb.big_nee(table, s1, env),
+    li, li_plain = (pb.big_nee(table, s1, env, boxes, adm5),
                     pb.big_nee_reference(table, s1, env))
     torch.cuda.synchronize()
     bounce = lambda s, l: (s[0], s[1] > 0.5, s[2], l, s[3])
-    return big_agreement(bounce(s1, li), bounce(s1_plain, li_plain))
+    res = big_agreement(bounce(s1, li), bounce(s1_plain, li_plain), bars)
+    want4 = pb.admitted_counts_reference(boxes, o, d)
+    want5 = pb.admitted_counts_reference(boxes, s1[4:7].T, s1[7:10].T,
+                                         s1[10])
+    means = lambda a: [float(x) for x in a.float().mean(1)]
+    res.update(k4_admitted=means(adm4), k5_admitted=means(adm5),
+               admitted_equal=bool(torch.equal(adm4, want4)
+                                   and torch.equal(adm5, want5)))
+    res["ok"] = res["ok"] and res["admitted_equal"]
+    return res

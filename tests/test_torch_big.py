@@ -1,8 +1,10 @@
 """The port's big-N dense engine on the CPU against gvr_tpu's: the Morton
 order, the transposed table, the chunk plan, the plain versions of K4
-(chunk-culled bounce) and K5 (chunk-streamed NEE) against
+(box-culled bounce) and K5 (box-culled NEE) against
 ``bounce_step_pallas_big`` in interpret mode, the big-N wavefront against
-``wavefront_pixels``, and the engine dispatch.
+``wavefront_pixels``, and the engine dispatch; and the port's own chunk
+boxes and box test, which must never cull a chunk that holds a pair a ray
+crosses.
 
 Inputs are made with numpy from seeds and handed to both packages; the
 JAX scene crosses over as numpy arrays, so both pack the same table.  JAX's
@@ -31,10 +33,11 @@ from gvr_tpu_torch.config import RenderConfig
 from gvr_tpu_torch.integrators.multiscatter import (engine_for,
                                                     render_multiscatter,
                                                     wavefront_pixels_big)
+from gvr_tpu_torch.kernels import pathtrace as tpt
 from gvr_tpu_torch.kernels import pathtrace_big as tpb
-from gvr_tpu_torch.scene.gaussians import morton_order
+from gvr_tpu_torch.scene.gaussians import GaussianMixture, morton_order
 from gvr_tpu_torch.scene.scene import MORTON_MIN_N, parse_gmm
-from gvr_tpu_torch.testing import big_agreement
+from gvr_tpu_torch.testing import BIG_DENSE_BARS, big_agreement, big_rays
 
 # test_pallas_kernels.test_big_kernel_matches_xla's scene, and one above
 # MEGA_MAX_GAUSSIANS that the dense engine sends to K4/K5
@@ -151,18 +154,222 @@ def test_big_bars_admit_float64_rounding():
 
 
 def test_culling_stats_count_the_vote():
-    """Per block of 64 rays, the chunks whose Gaussians any of its rays
-    crosses: at least the chunks of any one ray's crossings, at most all;
-    and per ray, the pairs it crosses."""
+    """Per warp of 32 consecutive rays, the chunks and groups some ray of
+    it admits (the kernels' __any_sync votes): at least those of any one
+    of its rays, at most all; per ray, the admitted chunks include every
+    chunk with a crossed pair, and a segment cut at tmax admits and crosses
+    no more.  The CPU wrappers report the same admitted chunks and
+    groups."""
     sc = parse_gmm(_text(2100))
+    table, boxes = tpb.pack_rows(sc.medium), tpb.chunk_boxes(sc.medium)
+    o, d, xi = (torch.from_numpy(a) for a in random_rays(256, seed=1))
+    st = tpb.culling_stats(table, boxes, o, d)
+    n_c = table.shape[0] // tpb.G
+    assert st["warp"].shape == (8,) and st["admitted"].shape == (256,)
+    for key, warp, top in (("admitted", "warp", n_c),
+                           ("groups", "warp_groups", 8 * n_c)):
+        assert (st[warp] >= st[key].view(8, 32).amax(1)).all()
+        assert (st[warp] <= top).all()
+    assert (st["groups"] <= 8 * st["admitted"]).all()
+    assert (st["admitted"] >= st["hit"]).all()
+    assert (st["hit"] <= st["crossed"]).all() and int(st["crossed"].sum()) > 0
+    assert int(st["admitted"].sum()) < 256 * n_c
+    assert int(st["groups"].sum()) < 8 * int(st["admitted"].sum())
+    tmax = torch.full((256,), 0.3)
+    cut = tpb.culling_stats(table, boxes, o, d, tmax)
+    assert (cut["admitted"] <= st["admitted"]).all()
+    assert int(cut["admitted"].sum()) < int(st["admitted"].sum())
+    assert (cut["crossed"] <= st["crossed"]).all()
+    adm = torch.zeros((2, 256), dtype=torch.int32)
+    s1 = tpb.big_stage1(table, o, d, xi, sc.lights(), boxes=boxes,
+                        admitted=adm)
+    assert torch.equal(adm.long(), torch.stack([st["admitted"],
+                                                st["groups"]]))
+    tpb.big_nee(table, s1, sc.env_color, boxes, adm)
+    nee = tpb.culling_stats(table, boxes, s1[4:7].T, s1[7:10].T, s1[10])
+    assert torch.equal(adm.long(), torch.stack([nee["admitted"],
+                                                nee["groups"]]))
+
+
+@pytest.mark.parametrize("n", [600, 2100])
+def test_chunk_boxes_contain_every_aabb(n):
+    """Each chunk's box, and each of its eight 32-row groups' boxes, holds
+    every aabbs() box of its Gaussians and equals their union over its
+    Gaussians only (2,100: the last chunk is 80 % padding rows, which
+    would span [-3, 3]^3, and its last six groups have none, so their
+    boxes are empty), widened by the stated margin, recomputed in float64
+    with numpy from the eigen-decomposition; the pad columns are 0."""
+    gmm = parse_gmm(_text(n)).medium
+    boxes = tpb.chunk_boxes(gmm).numpy()
+    n_c = -(-n // tpb.G)
+    assert boxes.shape == (n_c, 9, tpb.BOX_COLS)
+    assert (boxes[..., 3] == 0).all() and (boxes[..., 7] == 0).all()
+    lo, hi = (x.numpy() for x in gmm.aabbs())
+    ev = np.clip(gmm.eigvals.numpy().astype(np.float64), 0.0, None)
+    half = (np.abs(gmm.eigvecs.numpy().astype(np.float64))
+            * (3.0 * np.sqrt(ev))[:, None, :]).sum(-1)
+    mean = gmm.mean.numpy().astype(np.float64)
+    for k, rows in ((0, tpb.G), (1, tpb.GROUP)):
+        flat = boxes[:, 0] if k == 0 else boxes[:, 1:].reshape(-1, 8)
+        block = np.arange(n) // rows
+        assert (flat[block, 0:3] <= lo).all()
+        assert (flat[block, 4:7] >= hi).all()
+        for j in range(flat.shape[0]):
+            sl = slice(j * rows, min(n, (j + 1) * rows))
+            if sl.start >= n:
+                assert (flat[j, 0:3] == tpb.EMPTY_BOX).all()
+                assert (flat[j, 4:7] == -tpb.EMPTY_BOX).all()
+                continue
+            b_lo, b_hi = (mean - half)[sl].min(0), (mean + half)[sl].max(0)
+            margin = (tpb.BOX_REL * (b_hi - b_lo).max() + tpb.BOX_ABS
+                      * max(1.0, np.abs(b_lo).max(), np.abs(b_hi).max()))
+            np.testing.assert_allclose(flat[j, 0:3], b_lo - margin,
+                                       atol=1e-5)
+            np.testing.assert_allclose(flat[j, 4:7], b_hi + margin,
+                                       atol=1e-5)
+
+
+def test_empty_chunk_box_is_missed():
+    """A mixture without Gaussians packs one chunk of padding; its boxes
+    are empty and every ray misses them, also rays along an axis."""
+    gmm = GaussianMixture.from_covariances(
+        np.zeros((0, 3)), np.zeros((0, 3, 3)), np.zeros(0), np.zeros(0))
+    boxes = tpb.chunk_boxes(gmm)
+    assert boxes.shape == (1, 9, 8)
+    assert (boxes[..., 0:3] > boxes[..., 4:7]).all()
+    o, d, _ = (torch.from_numpy(a) for a in random_rays(64, seed=5))
+    d[:8] = torch.eye(3).repeat(3, 1)[:8]
+    flat = boxes.view(-1, 8)
+    assert not tpb.chunk_box_hits_reference(flat, o, d).any()
+    assert not tpb.chunk_box_hits_reference(
+        flat, torch.zeros((1, 3)), torch.tensor([[0.0, 0.0, 1.0]])).any()
+
+
+# test_pallas_kernels' 2,100-Gaussian scene, and one whose Gaussians are as
+# large as the S_CAP_MAX fallback scene's (diameter 2-4, every ray crossing
+# all of them)
+BOX_SCENES = {2100: dict(seed=0), 2300: dict(seed=0, diameter=(2.0, 4.0))}
+
+
+def _box_rays(medium, kind: str, n: int = 768, seed: int = 0):
+    """(o, d, tmax or None) of one kind: camera rays over the whole 512^2
+    image; rays from inside the box of the means; NEE segments from inside
+    points to the generator's 3 lights (tmax their distance) or in random
+    directions (tmax 0.02-1.5); rays along an axis or in an axis plane."""
+    r = np.random.default_rng(seed)
+    mean = medium.mean.numpy()
+    inside = r.uniform(mean.min(0), mean.max(0), (n, 3))
+    dirs = r.normal(size=(n, 3))
+    tmax = None
+    if kind == "camera":
+        cam = PinholeCamera.create([0, 1, 6], [0, 1, 0], math.radians(45.0))
+        o, d = cam.sample_ray(torch.tensor(r.uniform(size=(n, 2)),
+                                           dtype=torch.float32))
+        return o, d.contiguous(), None
+    if kind == "nee":
+        lights = np.array([[0.0, 5.0, 0.1], [-3.0, 3.0, 0.3],
+                           [3.0, 3.0, -0.2]])
+        to = lights[r.integers(0, 3, n)] - inside
+        dist = np.linalg.norm(to, axis=1)
+        env = r.uniform(size=n) < 0.5
+        dirs = np.where(env[:, None], dirs, to)
+        tmax = np.where(env, r.uniform(0.02, 1.5, n), dist)
+    if kind == "axis":
+        dirs = np.zeros((n, 3))
+        dirs[np.arange(n), r.integers(0, 3, n)] = r.choice([-1.0, 1.0], n)
+        half = n // 2
+        dirs[half:] = r.normal(size=(n - half, 3))
+        dirs[np.arange(half, n), r.integers(0, 3, n - half)] = 0.0
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32)
+    return f32(inside), f32(dirs), None if tmax is None else f32(tmax)
+
+
+def _crossed(table, o, d, tmax=None):
+    """[N, B] bool: the pairs a ray crosses by ``_interval`` (a NEE
+    segment: those that start before tmax), over chunks of 256 rays."""
+    col = lambda f: table[:, f:f + 1]
+    out = []
+    for s in range(0, o.shape[0], 256):
+        sl = slice(s, s + 256)
+        ray = [v[sl, k][None, :] for v in (o, d) for k in range(3)]
+        t0, t1, _, ok = tpt._interval(col, *ray, *tpt._coeffs(col, *ray))
+        if tmax is not None:
+            ok = ok & (torch.minimum(t1, tmax[sl][None, :]) > t0)
+        out.append(ok)
+    return torch.cat(out, dim=1)
+
+
+@pytest.mark.parametrize("kind", ["camera", "inside", "nee", "axis"])
+@pytest.mark.parametrize("n", sorted(BOX_SCENES))
+def test_box_test_is_conservative(n, kind):
+    """Every chunk, and every 32-row group, that holds an ok pair of a ray
+    by ``_interval`` (for a NEE segment: one that starts before tmax) is
+    admitted by the box tests (``admitted_reference``, the kernels'
+    operations), so the kernels' cull skips only boxes that add exactly
+    0; and on the small Gaussians the tests cull."""
+    medium = parse_gmm(random_gaussian_scene(n, **BOX_SCENES[n])).medium
+    table, boxes = tpb.pack_rows(medium), tpb.chunk_boxes(medium)
+    o, d, tmax = _box_rays(medium, kind)
+    ok = _crossed(table, o, d, tmax)
+    n_c = table.shape[0] // tpb.G
+    hit_groups = ok.reshape(n_c, 8, tpb.GROUP, -1).any(2).permute(2, 0, 1)
+    chunks, groups = tpb.admitted_reference(boxes, o, d, tmax)
+    assert hit_groups.any()
+    assert not (hit_groups.any(2) & ~chunks).any()
+    assert not (hit_groups & ~groups).any()
+    if n == 2100:
+        assert chunks.float().mean() < 0.8
+        assert groups.float().sum() < 0.5 * 8 * chunks.float().sum()
+
+
+@pytest.mark.parametrize("n", sorted(BOX_SCENES))
+def test_pre_test_passes_every_ok_pair(n):
+    """The kernels' division-free pre-test (``may_cross_reference``)
+    passes every pair that ``_interval`` finds ok, for camera rays, rays
+    from inside the medium and far rays (the camera rays' origins 20x
+    farther out), so the rows it skips add exactly 0; on the small
+    Gaussians it rejects most of them."""
+    medium = parse_gmm(random_gaussian_scene(n, **BOX_SCENES[n])).medium
+    table = tpb.pack_rows(medium)
+    o, d = [], []
+    for kind in ("camera", "inside"):
+        oo, dd, _ = _box_rays(medium, kind, n=512)
+        o += [oo, oo * 20.0] if kind == "camera" else [oo]
+        d += [dd, dd] if kind == "camera" else [dd]
+    o, d = torch.cat(o), torch.cat(d)
+    ok = _crossed(table, o, d)
+    passed = torch.cat([tpb.may_cross_reference(table, o[s:s + 256],
+                                                d[s:s + 256])
+                        for s in range(0, o.shape[0], 256)], dim=1)
+    assert ok.any() and not (ok & ~passed).any()
+    if n == 2100:        # the Gaussians' rows, not the padding's
+        assert passed[:n].float().mean() < 0.05
+
+
+def test_big_dense_bars_admit_float32_rounding():
+    """BIG_DENSE_BARS admit the plain version against itself in float64
+    and with the table's rows permuted (so summed in another order) on
+    large overlapping Gaussians (2,300 of diameter 2-4), where K4's inset
+    Illinois step leaves a few roots short of convergence; Li on the same
+    NEE rays."""
+    sc = parse_gmm(random_gaussian_scene(2300, **BOX_SCENES[2300]))
     table = tpb.pack_rows(sc.medium)
-    o, d, _ = (torch.from_numpy(a) for a in random_rays(256, seed=1))
-    hits, crossed = tpb.culling_stats(table, o, d)
-    assert hits.shape == (4,) and crossed.shape == (256,)
-    assert ((hits >= 1) & (hits <= table.shape[0] // tpb.G)).all()
-    single, _ = tpb.culling_stats(table, o[:64], d[:64], block=1)
-    assert int(hits[0]) >= int(single.max()) and int(single.max()) > 0
-    assert int(crossed.sum()) >= int(single.sum()) > 0
+    o, d, xi = big_rays(sc.medium, 384, seed=5, device="cpu")
+    args = (o, d, xi, sc.lights())
+    s1 = tpb.big_stage1_reference(table, *args)
+    perm = torch.from_numpy(np.random.default_rng(0).permutation(
+        table.shape[0]))
+    for other in (table.double(), table[perm].contiguous()):
+        s2 = tpb.big_stage1_reference(other, *(a.to(other.dtype)
+                                                for a in args)).float()
+        li = [tpb.big_nee_reference(t, s1.to(t.dtype), sc.env_color
+                                    .to(t.dtype)).float()
+              for t in (table, other)]
+        res = big_agreement((s1[0], s1[1] > 0.5, s1[2], li[0], s1[3]),
+                            (s2[0], s2[1] > 0.5, s2[2], li[1], s2[3]),
+                            BIG_DENSE_BARS)
+        assert res["ok"] and res["agree"] == 1.0, res
 
 
 def test_big_wavefront_matches_jax():

@@ -28,9 +28,9 @@ from gvr_tpu_torch.kernels import pathtrace_big as tpb
 from gvr_tpu_torch.kernels import rng as trng
 from gvr_tpu_torch.scene.generators import random_gaussian_scene
 from gvr_tpu_torch.scene.scene import parse_gmm
-from gvr_tpu_torch.testing import (big_kernel_vs_plain, big_rays,
-                                   mega_agreement, solve_agreement,
-                                   span_tau_agreement)
+from gvr_tpu_torch.testing import (BIG_DENSE_BARS, big_kernel_vs_plain,
+                                   big_rays, mega_agreement,
+                                   solve_agreement, span_tau_agreement)
 
 pytestmark = pytest.mark.gpu
 
@@ -249,21 +249,148 @@ def scene10k():
     return parse_gmm(random_gaussian_scene(10_000, seed=0))
 
 
+def _big_inputs(sc):
+    return tpb.pack_rows(sc.medium), tpb.chunk_boxes(sc.medium)
+
+
 @pytest.mark.parametrize("lights", ["scene", "none", "inside"])
 def test_big_kernels_match_plain(cuda_device, scene10k, lights):
     """K4 and K5 against their plain versions at testing.BIG_BARS on the
     10k scene (2,048 camera rays through the medium, 2,048 rays from
     inside it): with the scene's 3 lights, with none (NEE always to the
     env), and with one light inside the medium, where K5's tmax clip
-    decides Li (the scene's lights lie outside it)."""
+    decides Li (the scene's lights lie outside it); each kernel's box test
+    admits the chunks the plain one does."""
     sc = scene10k.to(cuda_device)
     lts = {"scene": sc.lights(), "none": sc.lights()[:0],
            "inside": torch.tensor([[0.0, 1.0, 0.0, 5.0, 5.0, 5.0]],
                                   device=cuda_device)}[lights]
     o, d, xi = big_rays(sc.medium, 2048, seed=3, device=cuda_device)
-    res = big_kernel_vs_plain(tpb.pack_rows(sc.medium), o, d, xi, lts,
-                              sc.env_color)
+    res = big_kernel_vs_plain(*_big_inputs(sc), o, d, xi, lts, sc.env_color)
     assert res["ok"] and res["n_both"] > 1000, str(res)
+
+
+@pytest.fixture(scope="module")
+def fallback_scene():
+    """The S_CAP_MAX fallback scene: 8,000 Gaussians of diameter 2-4, 32
+    chunks (the last 75 % padding), every ray crossing all of them."""
+    return parse_gmm(random_gaussian_scene(8000, seed=0,
+                                           diameter=(2.0, 4.0)))
+
+
+def test_big_kernels_match_plain_fallback(cuda_device, fallback_scene):
+    """K4 and K5 against their plain versions on the fallback scene, where
+    nearly every ray crosses more than MAX_HITS pairs, so K4's Newton and
+    albedo passes walk its chunk mask: at testing.BIG_DENSE_BARS."""
+    sc = fallback_scene.to(cuda_device)
+    table, boxes = _big_inputs(sc)
+    o, d, xi = big_rays(sc.medium, 2048, seed=4, device=cuda_device)
+    crossed = tpb.culling_stats(table, boxes, o, d)["crossed"]
+    assert (crossed > tpb.MAX_HITS).float().mean() > 0.9
+    res = big_kernel_vs_plain(table, boxes, o, d, xi, sc.lights(),
+                              sc.env_color, bars=BIG_DENSE_BARS)
+    assert res["ok"] and res["n_both"] > 1000, str(res)
+
+
+def test_big_kernels_box_edges(cuda_device, scene10k):
+    """Rays from inside the chunk boxes (their centres and corners, in
+    random and axis directions) through K4 and K5 against their plain
+    versions at BIG_BARS; and NEE segments that end before a chunk's box
+    (from outside it toward its centre, tmax half the way to its entry)
+    through K5: Li equal to the plain version's within the Li bar, and the
+    chunks and groups admitted equal to the plain box tests over
+    [0, tmax], which admit fewer than over [0, inf)."""
+    sc = scene10k.to(cuda_device)
+    table, boxes = _big_inputs(sc)
+    r = np.random.default_rng(6)
+    lo, hi = (boxes[:, 0, k:k + 3].cpu().numpy() for k in (0, 4))
+    n_c = lo.shape[0]
+    pick = r.integers(0, n_c, 4096)
+    w = np.where(np.arange(4096)[:, None] < 2048, 0.5,
+                 r.integers(0, 2, (4096, 3)))
+    o = lo[pick] + w * (hi[pick] - lo[pick])
+    d = r.normal(size=(4096, 3))
+    d[:1024] = 0.0
+    d[np.arange(1024), r.integers(0, 3, 1024)] = r.choice([-1.0, 1.0], 1024)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    xi = r.uniform(size=(4096, 5))
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda_device)
+    res = big_kernel_vs_plain(table, boxes, f32(o), f32(d), f32(xi),
+                              sc.lights(), sc.env_color)
+    assert res["ok"] and res["n_both"] > 1000, str(res)
+
+    centre = 0.5 * (lo + hi)
+    u = r.normal(size=(n_c, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    p = centre + u * (np.linalg.norm(hi - lo, axis=1, keepdims=True) + 0.5)
+    w_dir = (centre - p) / np.linalg.norm(centre - p, axis=1, keepdims=True)
+    t_in = ((np.where(w_dir > 0, lo, hi) - p) / w_dir).max(1)
+    s1 = torch.zeros((tpb.STAGE1_ROWS, n_c), device=cuda_device)
+    s1[4:7], s1[7:10] = f32(p).T, f32(w_dir).T
+    s1[10], s1[11] = f32(0.5 * t_in), 1.0
+    adm = torch.zeros((2, n_c), dtype=torch.int32, device=cuda_device)
+    li = tpb.big_nee(table, s1, sc.env_color, boxes, adm)
+    want = tpb.big_nee_reference(table, s1, sc.env_color)
+    np.testing.assert_allclose(li.cpu().numpy(), want.cpu().numpy(),
+                               atol=1e-4, rtol=1e-3)
+    seg = (s1[4:7].T, s1[7:10].T)
+    assert torch.equal(adm, tpb.admitted_counts_reference(boxes, *seg,
+                                                          s1[10]))
+    cut = tpb.admitted_reference(boxes, *seg, s1[10])[0]
+    ray = tpb.admitted_reference(boxes, *seg)[0]
+    assert not cut[torch.arange(n_c), torch.arange(n_c)].any()
+    assert ray[torch.arange(n_c), torch.arange(n_c)].all()
+
+
+def test_big_kernels_padded_last_chunk(cuda_device):
+    """A scene whose last chunk is mostly padding (2,100 Gaussians: 52 of
+    the last chunk's 256 rows): rays aimed at the last chunk's Gaussians
+    from the camera and from inside its box, most with a low scatter
+    target, through K4 and K5 against their plain versions at BIG_BARS."""
+    sc = parse_gmm(random_gaussian_scene(2100, seed=0), device=cuda_device)
+    table, boxes = _big_inputs(sc)
+    last = sc.medium.mean[(table.shape[0] // tpb.G - 1) * tpb.G:]
+    assert last.shape[0] == 2100 - 8 * tpb.G
+    r = np.random.default_rng(7)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda_device)
+    target = last[torch.from_numpy(r.integers(0, last.shape[0], 2048))
+                  .to(cuda_device)]
+    o = torch.cat([f32(np.tile([0.0, 1.0, 6.0], (1024, 1))),
+                   f32(r.uniform(boxes[-1, 0, 0:3].cpu().numpy(),
+                                 boxes[-1, 0, 4:7].cpu().numpy(),
+                                 (1024, 3)))])
+    d = torch.nn.functional.normalize(target - o, dim=1).contiguous()
+    xi = f32(r.uniform(size=(2048, 5)))
+    xi[:1536, 0] *= 1e-3
+    res = big_kernel_vs_plain(table, boxes, o, d, xi, sc.lights(),
+                              sc.env_color)
+    assert res["ok"] and res["n_both"] > 500, str(res)
+
+
+@pytest.mark.parametrize("scene", ["10k", "fallback"])
+def test_chunk_boxes_hold_every_crossed_chunk(cuda_device, scene10k,
+                                              fallback_scene, scene):
+    """On the card, at the main paths' scale: every chunk and every 32-row
+    group holding a pair that a ray crosses (camera rays, rays from inside
+    the medium, and K4's NEE segments with their tmax) is admitted by the
+    box tests, and the kernels' pre-test passes every such pair, so the
+    kernels' culls add exactly 0."""
+    sc = (scene10k if scene == "10k" else fallback_scene).to(cuda_device)
+    table, boxes = _big_inputs(sc)
+    o, d, xi = big_rays(sc.medium, 2048, seed=8, device=cuda_device)
+    s1 = tpb.big_stage1(table, o, d, xi, sc.lights(), boxes=boxes)
+    col = lambda f: table[:, f:f + 1]
+    for oo, dd, tmax in ((o, d, None), (s1[4:7].T, s1[7:10].T, s1[10])):
+        ray = [v[:, k][None, :] for v in (oo, dd) for k in range(3)]
+        t0, t1, _, ok = tpt._interval(col, *ray, *tpt._coeffs(col, *ray))
+        if tmax is not None:
+            ok = ok & (torch.minimum(t1, tmax[None, :]) > t0)
+        hit = ok.reshape(-1, 8, tpb.GROUP, ok.shape[1]).any(2).permute(
+            2, 0, 1)
+        chunks, groups = tpb.admitted_reference(boxes, oo, dd, tmax)
+        assert hit.any() and not (hit & ~groups).any()
+        assert not (hit.any(2) & ~chunks).any()
+        assert not (ok & ~tpb.may_cross_reference(table, oo, dd)).any()
 
 
 def test_big_wavefront_kernel_matches_plain(cuda_device):
@@ -312,3 +439,19 @@ def test_big_wrappers_refuse_bad_tables(cuda_device):
     with pytest.raises(ValueError, match="on cpu"):
         tpb.big_stage1(torch.zeros((256, 16), device=cuda_device), o.cpu(),
                        d, xi, lights)
+
+
+def test_big_wrappers_refuse_bad_boxes(cuda_device):
+    """A CUDA table needs the scene's chunk boxes: missing, of another
+    chunk count or on another device, the wrappers raise."""
+    sc = parse_gmm(random_gaussian_scene(2100, seed=0), device=cuda_device)
+    table, boxes = _big_inputs(sc)
+    o, d, xi = (torch.from_numpy(a).to(cuda_device)
+                for a in random_rays(64, seed=2))
+    for bad, match in ((None, "chunk_boxes"), (boxes[:-1], "shape"),
+                       (boxes.cpu(), "on cpu")):
+        with pytest.raises(ValueError, match=match):
+            tpb.big_stage1(table, o, d, xi, sc.lights(), boxes=bad)
+        with pytest.raises(ValueError, match=match):
+            tpb.big_nee(table, torch.zeros((16, 64), device=cuda_device),
+                        sc.env_color, bad)
