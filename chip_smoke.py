@@ -21,7 +21,13 @@ CLI.  One line per phase; any failure raises, so the exit code is non-zero.
   5 timing   each kernel and its plain version (CUDA events) at the main
              path's shapes: K3 [9, 65536], K2 65,536 rays at N = 250, K1 the
              headline's 65,536-pixel chunk through the medium at spp 4 and
-             spp 64, there also held against the plain version (CHUNK_BARS)
+             spp 64, there also held against the plain version
+             (CHUNK_BARS); K1's phase split at both (an instrumented launch:
+             each phase's share of the warps' clock64() cycles and its
+             active lanes per warp-step), its blocks resident per SM, and
+             the work its paths need at spp 64 (a plain count: evaluations,
+             those that scatter, the pairs their rays and shadow rays
+             cross), from which its bound
   6 main     `gvr_tpu_torch.cli render` of random_gaussian_scene(250, 0) at
              1024^2 spp 64; image finite and not constant, megakernel
              launched, no plain version called
@@ -41,7 +47,8 @@ CLI.  One line per phase; any failure raises, so the exit code is non-zero.
              32,768 camera rays of the 512^2 image (tile-order chunk 4)
              and their 32,768 NEE rays, K7 over the scattered ones; both
              held there against their plain results at K6_BARS and
-             K7_BARS; the entries K7 solves and those its rays cross
+             K7_BARS; the entries K7 solves and those its rays cross, and
+             K7's bound with its pre-test and of a walk of whole cells
  11 grid main  `gvr_tpu_torch.cli render` of random_gaussian_scene(10000, 0)
              at 512^2 spp 16, engine auto: grid build seconds, render
              seconds, Mpaths/s, iterations, extension rays/s; image finite
@@ -81,10 +88,11 @@ CLI.  One line per phase; any failure raises, so the exit code is non-zero.
 The last three lines: the nvidia-smi line, the kernels JSON (each kernel
 with its launches on its main path, its kernel and plain times, and its
 bound: the larger of its operations over 67 TFLOP/s and its bytes, each
-input read and each output written once, over 3.35 TB/s; K4 and K5 also
-with ``bound_ms_sweep``, the bound of a sweep over every pair), and the
-result JSON.  Without a CUDA card, or without the package beside it, the script
-exits non-zero before printing any result.
+input read and each output written once, over 3.35 TB/s; K1, K4, K5 and
+K7 also with ``bound_ms_sweep``, the bound of the same work with a pair
+test of every pair instead of the pre-test and the crossed-pair lists),
+and the result JSON.  Without a CUDA card, or without the package beside
+it, the script exits non-zero before printing any result.
 """
 
 import json
@@ -130,9 +138,9 @@ PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 PAIR_TEST_FLOPS = 94
 # Flops of one evaluation of a crossed pair at a point, bounce.cuh
 # tau_sig_at(): z, the erf difference, the exp term and the two sums, an
-# erff or expf counted as 1.  K4 and K7 need it for each pair a ray
+# erff or expf counted as 1.  K1, K4 and K7 need it for each pair a ray
 # crosses in each pass (the tau pass, the solver's steps, the albedo);
-# the other kernels' erf/exp work is not counted, so those bounds are
+# K2's, K5's and K6's erf/exp work is not counted, so those bounds are
 # floors.
 CROSSED_EVAL_FLOPS = 13
 # Flops of one (box, ray) slab test, csrc/big.cuh box_admits: on each
@@ -141,7 +149,11 @@ CROSSED_EVAL_FLOPS = 13
 # w = o - mu, A d, a, b, A w, c and the compare.  K4 and K5 need a box test
 # for every chunk of every ray and for each group of a chunk the ray's own
 # test admits, a pre-test for every Gaussian of the groups it admits, and
-# a full pair test (PAIR_TEST_FLOPS) for each pair the ray crosses.
+# a full pair test (PAIR_TEST_FLOPS) for each pair the ray crosses.  K1
+# needs a pre-test of every row in each sweep (every bounce evaluation's
+# extension ray, and the shadow ray of each one that scatters) and a pair
+# test for each pair those rays cross; K7 a pre-test of every entry of the
+# solved cell and a pair test of each entry its ray crosses.
 BOX_TEST_FLOPS = 19
 PRE_TEST_FLOPS = 56
 SOLVER_ITERS, GRID_SOLVER_ITERS = 12, 6     # the RenderConfig defaults
@@ -338,6 +350,7 @@ def run(dev):
     cam1k = PinholeCamera.create([0, 1, 6], [0, 1, 0], math.radians(45.0),
                                  device=dev)
     chunk_res = {}
+    per_sm, sms = megatrace.resident_blocks(dev)
     for spp in (4, MAIN_SPP):
         cfg = RenderConfig(width=MAIN_SIZE, height=MAIN_SIZE, spp=spp)
         args = mega_args(sc250, cam1k, cfg, chunk)
@@ -352,17 +365,46 @@ def run(dev):
             f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
             f"({time.perf_counter() - t0:.1f} s); kernel vs plain "
             f"{json.dumps(res)} (bars {json.dumps(CHUNK_BARS)})")
+        phases = torch.zeros((len(megatrace.MEGA_PHASES), 3),
+                             dtype=torch.int64, device=dev)
+        megatrace.mega_call(*args, phases=phases)
+        split = megatrace.phase_split(phases)
+        log("5 timing", f"K1 phase split spp {spp} (share of the warps' "
+            f"cycles, active lanes per warp-step): " + ", ".join(
+                f"{k} {v[0] * 100:.1f} % {v[1]:.1f}"
+                for k, v in split.items())
+            + f"; {per_sm} blocks resident per SM, {sms} SMs; counters "
+            f"{phases.tolist()}")
+    # the work chunk 9's paths need at spp 64, counted by the plain version
+    work = {}
+    megatrace.mega_reference(*args, counts=work)
+    rows = table250.shape[0]
+    mega_bytes = table250.numel() * 4 + RAYS * (4 + 12 + 4)
     bounds = {
         "rng": bound(RNG_OPS_PER_KEY * RAYS, 12 * 4 * RAYS),
         "bounce": bound(2 * RAYS * table250.shape[0] * PAIR_TEST_FLOPS,
                         table250.numel() * 4 + RAYS * (3 + 3 + 5 + 8) * 4),
-        # every bounce evaluation tests all pairs once, and every one that
-        # scatters (at least evaluations - paths) once more for its NEE ray
+        # a pre-test of every row for each evaluation's extension ray and
+        # each scattering one's shadow ray, a pair test and a tau-pass
+        # evaluation of each pair they cross, and each crossed pair of a
+        # ray that scatters in the Newton steps and the albedo pass
         f"mega_spp{MAIN_SPP}": bound(
-            (2 * chunk_res[MAIN_SPP]["evals"] - RAYS * MAIN_SPP)
-            * table250.shape[0] * PAIR_TEST_FLOPS,
-            table250.numel() * 4 + RAYS * (4 + 12 + 4)),
+            PRE_TEST_FLOPS * rows * (work["evals"] + work["scattered"])
+            + (PAIR_TEST_FLOPS + CROSSED_EVAL_FLOPS)
+            * (work["ext_pairs"] + work["nee_pairs"])
+            + CROSSED_EVAL_FLOPS * (SOLVER_ITERS + 1) * work["solve_pairs"],
+            mega_bytes),
+        # the count without the pre-test: a pair test of every row in both
+        # sweeps
+        "mega_sweep": bound(
+            (work["evals"] + work["scattered"]) * rows * PAIR_TEST_FLOPS,
+            mega_bytes),
     }
+    log("5 timing", f"K1 chunk {MEDIUM_CHUNK} spp {MAIN_SPP} work (plain "
+        f"count): {json.dumps(work)}; bound "
+        f"{bounds[f'mega_spp{MAIN_SPP}'][0]:.4f} ms "
+        f"({bounds[f'mega_spp{MAIN_SPP}'][1]}), of a full sweep "
+        f"{bounds['mega_sweep'][0]:.4f} ms")
     for spp, res in chunk_res.items():
         if not (res["finite"]
                 and all(res[k] <= CHUNK_BARS[k] for k in CHUNK_BARS)):
@@ -534,15 +576,21 @@ def run(dev):
     bounds["span_tau"] = bound(crossings * PAIR_TEST_FLOPS,
                                cell_bytes + o2.shape[0] * 7 * 4
                                + cells2.numel() * 8)
-    # K7: a pair test for each entry of the solved cells, then the crossed
-    # entries in the tau pass, the Newton steps and the albedo pass
+    # K7: a pre-test for each entry of the solved cells and a pair test for
+    # each entry the ray crosses, then the crossed entries in the tau pass,
+    # the Newton steps and the albedo pass; the sweep bound a pair test of
+    # every entry instead
+    crossed_evals = crossed7 * (GRID_SOLVER_ITERS + 2) * CROSSED_EVAL_FLOPS
     bounds["grid_solve"] = bound(
-        solved * PAIR_TEST_FLOPS
-        + crossed7 * (GRID_SOLVER_ITERS + 2) * CROSSED_EVAL_FLOPS,
+        solved * PRE_TEST_FLOPS + crossed7 * PAIR_TEST_FLOPS + crossed_evals,
         cell_bytes + n_ext * 12 * 4)
+    bounds["grid_solve_sweep"] = bound(solved * PAIR_TEST_FLOPS
+                                       + crossed_evals,
+                                       cell_bytes + n_ext * 12 * 4)
     log("10 grid timing", f"K6 {crossings} cell-entry visits, bound "
         f"{bounds['span_tau'][0]:.4f} ms; K7 {solved} entries of solved "
-        f"cells, {crossed7} crossed, bound {bounds['grid_solve'][0]:.4f} ms")
+        f"cells, {crossed7} crossed, bound {bounds['grid_solve'][0]:.4f} ms "
+        f"(walking whole cells {bounds['grid_solve_sweep'][0]:.4f} ms)")
     if not (k6_main["ok"] and k7_main["ok"]):
         raise AssertionError(f"K6/K7 at the main path's shapes miss their "
                              f"bars: {k6_main} {k7_main}")
@@ -776,6 +824,8 @@ def run(dev):
         k["bound_ms_sweep"] = bounds[k["name"] + "_sweep"][0]
         k["bound_ms_sweep_bounce1"] = bounds[k["name"] + "_sweep_bounce1"][0]
     kernels[0]["ms_spp4"], kernels[0]["plain_ms_spp4"] = times["mega_spp4"]
+    kernels[0]["bound_ms_sweep"] = bounds["mega_sweep"][0]
+    kernels[4]["bound_ms_sweep"] = bounds["grid_solve_sweep"][0]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -30,14 +30,14 @@
 //   inside an admitted chunk, each group's; the warp walks a chunk's
 //   groups, and a group's rows, only if some lane's test admits it
 //   (__any_sync), and the lanes whose test failed skip the pair math.  On
-//   each row a division-free pre-test (may_cross) rejects the pairs whose
-//   line passes well outside the ellipsoid before interval() does its two
-//   divisions and sqrtf.  These skips are exact: a Gaussian's 3-sigma
-//   ellipsoid lies in its AABB, and the pre-test passes every pair that
-//   interval() finds ok, so a skipped pair is one that adds 0, and the
-//   surviving pairs are summed in the same row order as a sweep over
-//   every row.  (Groups: the warps of bounced and NEE rays, which fan out,
-//   walked 22-30 chunks where each ray admits 7; PERF.md.)
+//   each row the division-free pre-test (may_cross, bounce.cuh) rejects
+//   the pairs whose line passes well outside the ellipsoid before
+//   interval() does its two divisions and sqrtf.  These skips are exact: a
+//   Gaussian's 3-sigma ellipsoid lies in its AABB, and the pre-test passes
+//   every pair that interval() finds ok, so a skipped pair is one that adds
+//   0, and the surviving pairs are summed in the same row order as a sweep
+//   over every row.  (Groups: the warps of bounced and NEE rays, which fan
+//   out, walked 22-30 chunks where each ray admits 7; PERF.md.)
 // - K4's crossed-pair list.  The first pass records the rows of the ray's
 //   ok pairs (BIG_MAX_HITS of them, K2's hit list) and the chunks that
 //   held them (a 96-bit mask).  The solver_iters Newton passes and the
@@ -49,8 +49,8 @@
 // refuses scenes above 96), so the TPU kernel's overflow branch (tau_over,
 // output column 7) is dead there and has no counterpart here.
 //
-// K5 is the shadow-ray pass of K2 (tau_nee's pair loop, tau_nee_row here)
-// over the stored NEE rays, in the groups its box tests admit.
+// K5 is the shadow-ray pass of K2 (tau_nee's pair loop, bounce.cuh
+// tau_nee_row) over the stored NEE rays, in the groups its box tests admit.
 //
 // K4's Newton step is its own, not illinois_update: the falsi point is
 // clipped to a 5 % inset of the bracket and a Newton point is taken
@@ -72,7 +72,6 @@ constexpr int BIG_BOXES = 1 + BIG_GROUPS;  // boxes a chunk
 constexpr int BIG_MAX_CHUNKS = 96;  // plan()'s ceiling
 constexpr int BIG_MAX_HITS = 32;    // K4's crossed-pair list
 constexpr int BIG_BLOCK = 128;      // rays a block of K4 and of K5
-constexpr unsigned FULL_WARP = 0xffffffffu;
 
 // Stage-1 output rows ([16, b], one column a ray); K5 reads rows 4-15.
 enum BigRow {
@@ -170,35 +169,6 @@ __device__ __forceinline__ void walk_admitted(
     }
     chunk(c);
   }
-}
-
-// A division-free pre-test of the pair (g, ray): false only where the
-// ray's line misses the Gaussian's R_CUT ellipsoid by a margin.  With
-// w = o - mu, a = d'Ad, bh = w'Ad and c = w'Aw, the closest approach is
-// m2 = c - bh^2 / a, so the line crosses only where a c - bh^2 < R^2 a.
-// PRE_REL (a c + bh^2) covers the float32 rounding of this form and of
-// interval(): on camera rays, rays from inside the medium and far rays of
-// three scenes, the ok pairs of interval() reached at most 8e-8 (a c +
-// bh^2) beyond R^2 a (CPU, float32).  So every pair that interval() finds
-// ok passes, and goes through it unchanged.
-constexpr float PRE_REL = 1e-5f;
-
-__device__ __forceinline__ bool may_cross(const float4* __restrict__ tab,
-                                          int g, const Ray& r) {
-  const float4 c0 = __ldg(tab + 4 * g);      // ic00 ic11 ic22 ic01
-  const float4 c1 = __ldg(tab + 4 * g + 1);  // ic02 ic12 qx qy
-  const float4 c3 = __ldg(tab + 4 * g + 3);  // valid mx my mz
-  const float wx = r.ox - c3.y, wy = r.oy - c3.z, wz = r.oz - c3.w;
-  const float ax = c0.x * r.dx + c0.w * r.dy + c1.x * r.dz;
-  const float ay = c0.w * r.dx + c0.y * r.dy + c1.y * r.dz;
-  const float az = c1.x * r.dx + c1.y * r.dy + c0.z * r.dz;
-  const float a = r.dx * ax + r.dy * ay + r.dz * az;
-  const float bh = wx * ax + wy * ay + wz * az;
-  const float c = wx * (c0.x * wx + c0.w * wy + c1.x * wz) +
-                  wy * (c0.w * wx + c0.y * wy + c1.y * wz) +
-                  wz * (c1.x * wx + c1.y * wy + c0.z * wz);
-  const float ac = a * c, b2 = bh * bh;
-  return ac - b2 - R_CUT * R_CUT * a <= PRE_REL * (ac + b2);
 }
 
 // Calls f(pair) for every ok pair of the ray, in row order: the listed
@@ -308,24 +278,6 @@ __global__ void __launch_bounds__(BIG_BLOCK)
       n.is_env ? 1.0f : 0.0f, n.rad[0], n.rad[1], n.rad[2], n.inv_d2};
   for (int k = 0; k < kBigRows; ++k)
     out[static_cast<size_t>(k) * b + i] = row[k];
-}
-
-// tau_nee's pair loop (bounce.cuh) for row g, added to tau.
-__device__ __forceinline__ void tau_nee_row(const float4* __restrict__ tab,
-                                            int g, const Ray& r, float tmax,
-                                            float& tau) {
-  float a_s, b, t0, t1, m2, dens_norm, albedo;
-  if (!may_cross(tab, g, r) ||
-      !interval(tab, g, r, a_s, b, t0, t1, m2, dens_norm, albedo))
-    return;
-  const float hi = fminf(t1, tmax);
-  if (!(hi > t0)) return;
-  const float sa = sqrtf(a_s);
-  const float zoff = b * (0.5f / sa);
-  const float pref = dens_norm * expf(-0.5f * m2) *
-                     sqrtf(PI_F / (2.0f * a_s));
-  tau += pref * (erff((sa * hi + zoff) * SQRT_HALF) -
-                 erff((sa * t0 + zoff) * SQRT_HALF));
 }
 
 // K5: one thread per NEE ray of stage 1's rows; out [3, b] Li; admitted

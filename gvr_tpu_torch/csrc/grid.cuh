@@ -5,11 +5,17 @@
 // _make_span_tau_kernel :93) and :425 solve_pass (body _make_solve_kernel
 // :261).  A cell's entries are rows [first, first + count) of the
 // cell-sorted table (accel/grid.py), 64 bytes each, read as four float4
-// through the read-only cache.  Each pass recomputes a pair from its row
+// through the read-only cache.  A pair is computed from its row
 // (interval + pair_over of bounce.cuh) with its interval clipped to the
 // cell crossing, so erf_lo is taken at the clipped lower end, as the TPU
 // kernels' _quants does; the TPU kernel's nine [s_cap*32, 128] VMEM
-// arrays have no counterpart in a thread's registers.
+// arrays have no counterpart in a thread's registers.  K6 walks the cell
+// once.  K7 walks it once for the cell's tau and bracket, behind the
+// division-free pre-test (may_cross), and keeps the offsets of the entries
+// its ray crosses; its solver_iters Newton passes, the finisher and the
+// albedo pass recompute only those (a solved cell holds ~120 entries on
+// the 10k grid, a ray crosses ~2; PERF.md), and a ray that crosses more
+// than MAX_HITS walks the whole cell in every pass, as before.
 #pragma once
 
 #include "bounce.cuh"
@@ -40,6 +46,28 @@ __device__ __forceinline__ void for_each_cell_pair(
     if (!(hi > lo)) continue;
     pair_over(a_s, b, m2, dens_norm, lo, hi, p);
     f(p);
+  }
+}
+
+// K7's walk: for_each_cell_pair over the entries first + hits[k], k <
+// n_hits, and behind the pre-test where `pretest` (the first pass).  The
+// same statements as for_each_cell_pair, so the same arithmetic.
+template <class F>
+__device__ __forceinline__ void for_each_listed_pair(
+    const float4* __restrict__ tab, int first, const uint16_t* hits,
+    int n_hits, bool pretest, const Ray& r, float t_in, float t_out,
+    F&& f) {
+  for (int k = 0; k < n_hits; ++k) {
+    const int g = first + (hits ? hits[k] : k);
+    float a_s, b, t0, t1, m2, dens_norm;
+    Pair p;
+    if ((pretest && !may_cross(tab, g, r)) ||
+        !interval(tab, g, r, a_s, b, t0, t1, m2, dens_norm, p.albedo))
+      continue;
+    const float lo = fmaxf(t0, t_in), hi = fminf(t1, t_out);
+    if (!(hi > lo)) continue;
+    pair_over(a_s, b, m2, dens_norm, lo, hi, p);
+    f(p, g - first);
   }
 }
 
@@ -82,19 +110,39 @@ __device__ __forceinline__ float cell_span_tau(
 // cell's entries clipped to the DDA interval [t_in, t_out], the cell's tau
 // and bracket, solver_iters Newton + Illinois steps toward
 // tgt = min(resid, 0.999999 tau_cell), the erfinv finisher (always on),
-// and the mixture albedo at the root.
+// and the mixture albedo at the root.  The first pass lists the offsets
+// (from first) of the entries the ray crosses; the later passes walk the
+// list, in the same order and with the same arithmetic as a walk of the
+// whole cell, or the whole cell where the list overflowed.
 __device__ __forceinline__ void cell_solve(const float4* __restrict__ tab,
                                            int first, int count,
                                            const Ray& r, float t_in,
                                            float t_out, float resid,
                                            int solver_iters, float& t_sc,
                                            float& albedo) {
+  uint16_t hits[MAX_HITS];
+  int n_ok = 0;
   float tau_cell = 0.0f, t_lo = BIG, t_hi = 0.0f;
-  for_each_cell_pair(tab, first, count, r, t_in, t_out, [&](const Pair& p) {
-    tau_cell += p.tau_i;
-    t_lo = fminf(t_lo, p.t0);
-    t_hi = fmaxf(t_hi, p.t1);
-  });
+  for_each_listed_pair(tab, first, nullptr, count, true, r, t_in, t_out,
+                       [&](const Pair& p, int j) {
+                         tau_cell += p.tau_i;
+                         t_lo = fminf(t_lo, p.t0);
+                         t_hi = fmaxf(t_hi, p.t1);
+                         if (n_ok < MAX_HITS)
+                           hits[n_ok] = static_cast<uint16_t>(j);
+                         ++n_ok;
+                       });
+  // the later passes: the listed entries, or the whole cell if the list
+  // overflowed
+  const auto each = [&](auto&& f) {
+    const auto g = [&](const Pair& p, int) { f(p); };
+    if (n_ok > MAX_HITS)
+      for_each_listed_pair(tab, first, nullptr, count, false, r, t_in,
+                           t_out, g);
+    else
+      for_each_listed_pair(tab, first, hits, n_ok, false, r, t_in, t_out,
+                           g);
+  };
   const float tgt = fminf(resid, tau_cell * 0.999999f);
   t_lo = fminf(t_lo, t_out);
   t_hi = fmaxf(t_hi, t_lo);
@@ -104,23 +152,19 @@ __device__ __forceinline__ void cell_solve(const float4* __restrict__ tab,
   float t = 0.5f * (t_lo + t_hi);
   for (int it = 0; it < solver_iters; ++it) {
     float tau = 0.0f, sig = 0.0f;
-    for_each_cell_pair(tab, first, count, r, t_in, t_out,
-                       [&](const Pair& p) { tau_sig_at(p, t, tau, sig); });
+    each([&](const Pair& p) { tau_sig_at(p, t, tau, sig); });
     illinois_update(lo, hi, flo, fhi, t, tau - tgt, sig);
   }
   t = fminf(fmaxf(t, t_lo), t_hi);
 
   Finisher f;
-  for_each_cell_pair(tab, first, count, r, t_in, t_out,
-                     [&](const Pair& p) { f.add(p, t); });
+  each([&](const Pair& p) { f.add(p, t); });
   float t_a;
   if (f.root(tgt, t_a)) t = t_a;
   t = fminf(fmaxf(t, t_lo), t_hi);
 
   float s_sum = 0.0f, sa_sum = 0.0f;
-  for_each_cell_pair(tab, first, count, r, t_in, t_out, [&](const Pair& p) {
-    albedo_at(p, t, s_sum, sa_sum);
-  });
+  each([&](const Pair& p) { albedo_at(p, t, s_sum, sa_sum); });
   t_sc = t;
   albedo = mixture_albedo(s_sum, sa_sum);
 }

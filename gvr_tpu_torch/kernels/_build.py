@@ -34,12 +34,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, \
     ctypes.c_float
-# argument types of each C entry point, the stream last
+# argument types of each C entry point, the stream last (gvr_mega_resident
+# launches nothing and takes none)
 SIGNATURES = {
     "gvr_uniforms": [_P, _P, _P, _U, _I, _I, _U, _U, _P, _P],
     "gvr_bounce": [_P, _I, _P, _P, _P, _I, _P, _I, _P, _I, _I, _P, _P],
     "gvr_mega": [_P, _P, _I, _P, _I, _P, _I, _P, _F, _I, _I, _I, _I, _U,
-                 _U, _I, _I, _I, _F, _I, _F, _I, _I, _P, _P, _P],
+                 _U, _I, _I, _I, _F, _I, _F, _I, _I, _I, _P, _P, _P, _P],
+    "gvr_mega_resident": [_P, _P],
     "gvr_span_tau": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P, _P,
                      _P, _P, _I, _I, _P, _P],
     "gvr_grid_solve": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],

@@ -16,21 +16,31 @@ Plain version (``mega_reference``): the per-lane wavefront of
 pixel; a lane whose path ended starts the pixel's next sample) around
 ``bounce_core_reference``.
 
-Kernel (``csrc/kernels.cu:mega_kernel``): one block owns 128 consecutive
-ids of the chunk, and their 128 x spp (pixel, sample) slots form a pool.  A
-thread without a live path claims the next slot with a shared-memory
-atomic, traces that path bounce by bounce, adds its radiance into the
-pixel's shared accumulator when it ends, and claims again; the block writes
-its pixel sums when the pool is empty.  It is bound by the bounce math
-(K2's device function, arithmetic and special functions); path-length
-variance within a block is absorbed by the pool, and the state of a path
-never leaves registers.  Sums arrive in a run-dependent order, so images
-match the plain version to float tolerance, not bit for bit.
+Kernel (``csrc/kernels.cu:mega_kernel``): one block of 128 threads owns
+``pool_pixels`` consecutive ids of the chunk (chosen from spp so that the
+chunk makes several waves of blocks on the card), and their (pixel,
+sample) slots form a pool.  A warp's lanes without a live path claim the
+next slots with one shared-memory atomic, trace their paths bounce by
+bounce, add their radiance into the pixel's shared accumulator when they
+end, and claim again; the block writes its pixel sums when the pool is
+empty.  A bounce sweeps all rows for the extension ray behind a
+division-free pre-test, keeps the crossed pairs in shared memory for the
+solve, and solves only where the ray scatters; its shadow ray goes into a
+per-warp queue that the warp sweeps 32 at a time with every lane active.
+It is bound by the bounce math (K2's device functions, arithmetic and
+special functions): on the headline's heaviest chunk its warps spend ~57 %
+of their cycles in the extension sweeps and ~23 % in the shadow-ray
+sweeps, a pre-test of every row each (PERF.md), and the state of a path
+never leaves registers.  Sums
+arrive in a run-dependent order, so images match the plain version to
+float tolerance, not bit for bit; every path's decisions, and so the
+evaluation counts, do not depend on the order.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -39,12 +49,20 @@ import torch
 from gvr_tpu_torch.cameras import PinholeCamera, camera_rays
 from gvr_tpu_torch.integrators.common import ids_to_pixels
 from gvr_tpu_torch.kernels import _build
-from gvr_tpu_torch.kernels.pathtrace import (bounce_core_reference,
+from gvr_tpu_torch.kernels.pathtrace import (_coeffs, _interval, _nee_ray,
+                                             bounce_core_reference,
                                              check_lights, check_table)
 from gvr_tpu_torch.kernels.rng import JITTER_TAG, seed_words
 from gvr_tpu_torch.ops.sampling import dir_from_xi, path_uniforms
 
 INV_4PI = 1.0 / (4.0 * math.pi)
+MEGA_BLOCK = 128            # threads of a K1 block (csrc/kernels.cu)
+MEGA_MAX_PIX = 128          # most pixels one block's pool holds
+POOL_PATHS = 4 * MEGA_BLOCK  # paths a block's pool aims at
+FILL_WAVES = 4              # waves of resident blocks a chunk should make
+# The phases of K1's optional counters (csrc/kernels.cu MegaPhase), each
+# [cycles, warp-steps, active lanes summed over the steps].
+MEGA_PHASES = ("sweep", "solve", "nee", "other")
 
 
 def camera_vector(camera) -> torch.Tensor:
@@ -77,10 +95,65 @@ def strat_uv(x, y, sample_idx, n_strat: int, w: int, h: int, xi0, xi1):
     return u, v
 
 
-def mega_reference(cam_vec, table, ids, cfg, lights, env, pinhole: bool):
+def pool_pixels(spp: int, b: int, resident: int) -> int:
+    """Pixels of one K1 block's pool for a chunk of ``b`` pixels at ``spp``
+    on a card that holds ``resident`` blocks at once: about POOL_PATHS
+    paths a block, fewer where the chunk would then make under FILL_WAVES
+    waves of blocks, but never fewer paths than threads."""
+    pix = min(max(1, POOL_PATHS // spp), max(1, b // (FILL_WAVES * resident)))
+    return min(MEGA_MAX_PIX, max(pix, -(-MEGA_BLOCK // spp)))
+
+
+@functools.lru_cache(maxsize=None)
+def resident_blocks(device) -> tuple:
+    """(K1 blocks one SM holds at once, SMs) on CUDA ``device``."""
+    per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = _build.library().gvr_mega_resident(ctypes.byref(per_sm),
+                                                ctypes.byref(sms))
+    if rc != 0:
+        raise RuntimeError(f"gvr_mega_resident: CUDA error {rc}")
+    return per_sm.value, sms.value
+
+
+def phase_split(phases: torch.Tensor) -> dict:
+    """K1's phase counters [4, 3] as {phase: (share of the cycles, active
+    lanes per warp-step)}."""
+    ph = phases.double().cpu()
+    total = float(ph[:, 0].sum()) or 1.0
+    return {name: (float(ph[k, 0]) / total,
+                   float(ph[k, 2]) / max(float(ph[k, 1]), 1.0))
+            for k, name in enumerate(MEGA_PHASES)}
+
+
+def _count_pairs(counts, table, o, d, xi, alive, scattered, t_sc, lights):
+    """Adds one bounce's work to ``counts`` (see ``mega_reference``)."""
+    col = lambda f: table[:, f:f + 1]
+    ray = [v[:, k][None, :] for v in (o, d) for k in range(3)]
+    crossed = _interval(col, *ray, *_coeffs(col, *ray))[-1].sum(0)
+    p, w, tmax, *_ = _nee_ray(ray, t_sc[None, :],
+                              *(xi[:, k][None, :] for k in range(1, 5)),
+                              lights)
+    t0, t1, _, ok = _interval(col, *p, *w, *_coeffs(col, *p, *w))
+    nee = (ok & (torch.minimum(t1, tmax) > t0)).sum(0)
+    sc = alive & scattered
+    for key, v in (("evals", alive), ("scattered", sc),
+                   ("ext_pairs", torch.where(alive, crossed, 0)),
+                   ("solve_pairs", torch.where(sc, crossed, 0)),
+                   ("nee_pairs", torch.where(sc, nee, 0))):
+        counts[key] = counts.get(key, 0) + int(v.sum())
+
+
+def mega_reference(cam_vec, table, ids, cfg, lights, env, pinhole: bool,
+                   counts: dict | None = None):
     """Plain version of K1.  ids [B] int32 pixel ids; cfg a RenderConfig.
     Returns (radiance sums over the spp samples [B,3], bounce evaluations
-    per pixel [B] int32)."""
+    per pixel [B] int32).  ``counts``, a dict if given, receives the work
+    the paths need, for measurements: 'evals' bounce evaluations,
+    'scattered' those that scatter (each sweeps a shadow ray and solves),
+    'ext_pairs' the pairs their extension rays cross, 'solve_pairs' those
+    of the rays that scatter, 'nee_pairs' the pairs the shadow rays'
+    segments cross."""
     mega_reference.launches += 1
     dev = ids.device
     b = ids.shape[0]
@@ -121,6 +194,9 @@ def mega_reference(cam_vec, table, ids, cfg, lights, env, pinhole: bool):
             table, o, d, xi, lights, env, cfg.solver_iters,
             cfg.solver_finisher)
         evals += alive.to(torch.int32)
+        if counts is not None:
+            _count_pairs(counts, table, o, d, xi, alive, scattered, t_sc,
+                         lights)
 
         acc = acc + torch.where((alive & ~scattered)[:, None], thr * env3,
                                 0.0)
@@ -153,11 +229,16 @@ def mega_reference(cam_vec, table, ids, cfg, lights, env, pinhole: bool):
 mega_reference.launches = 0
 
 
-def mega_call(cam_vec, table, ids, cfg, lights, env, pinhole: bool):
+def mega_call(cam_vec, table, ids, cfg, lights, env, pinhole: bool,
+              phases=None):
     """Radiance sums [B,3] and bounce evaluations [B] for the spp samples
     of each pixel id in ``ids``; the arguments of ``mega_reference``.  A CPU
-    tensor takes the plain version; a CUDA tensor launches K1 or raises."""
+    tensor takes the plain version; a CUDA tensor launches K1 or raises.
+    ``phases``, an int64 [4, 3] CUDA tensor if given, receives the
+    instrumented kernel's phase counters (added to it; MEGA_PHASES)."""
     if ids.device.type == "cpu":
+        if phases is not None:
+            raise ValueError("phases: K1's counters exist only on the card")
         return mega_reference(cam_vec, table, ids, cfg, lights, env, pinhole)
     dev = ids.device
     b = ids.shape[0]
@@ -165,11 +246,15 @@ def mega_call(cam_vec, table, ids, cfg, lights, env, pinhole: bool):
     _build.check(ids, "ids", torch.int32, (b,), dev)
     check_table(table, dev)
     check_lights(lights, env, dev)
+    if phases is not None:
+        _build.check(phases, "phases", torch.int64,
+                     (len(MEGA_PHASES), 3), dev)
     out_rad = torch.empty((b, 3), dtype=torch.float32, device=dev)
     out_count = torch.empty(b, dtype=torch.int32, device=dev)
     n_lights = lights.shape[0]
     nee_w = float(np.float32(INV_4PI * (n_lights + 1 if n_lights else 1)))
     seed_mix, seed_raw = seed_words(cfg.seed)
+    per_sm, sms = resident_blocks(dev)
     _build.launch(
         "gvr_mega", _build.ptr(cam_vec), _build.ptr(table), table.shape[0],
         _build.ptr(ids), b, _build.ptr(lights), n_lights, _build.ptr(env),
@@ -177,8 +262,9 @@ def mega_call(cam_vec, table, ids, cfg, lights, env, pinhole: bool):
         ctypes.c_uint32(seed_mix), ctypes.c_uint32(seed_raw),
         cfg.solver_iters, int(cfg.solver_finisher), cfg.min_scatter,
         cfg.rr_cap, cfg.rr_tail_after, cfg.rr_cap_tail, cfg.max_bounces,
-        int(pinhole), _build.ptr(out_rad), _build.ptr(out_count),
-        device=dev)
+        int(pinhole), pool_pixels(cfg.spp, b, per_sm * sms),
+        _build.ptr(out_rad), _build.ptr(out_count),
+        None if phases is None else _build.ptr(phases), device=dev)
     mega_call.launches += 1
     return out_rad, out_count
 

@@ -16,9 +16,11 @@ Kernel (``csrc/bounce.cuh`` device function, shared with the megakernel;
 ``csrc/kernels.cu:gvr_bounce`` launcher): one thread per ray.  On this card
 it is bound by arithmetic and the special-function units (erf/exp per pair
 per pass), not by memory: the table is 64 B per Gaussian and stays in the
-read-only cache.  The design recomputes per-pair quantities from the table
-in each pass instead of holding [N, B] arrays, and lists the Gaussians a
-ray crosses in its first pass so the Newton passes touch only those.
+read-only cache.  Its first pass over all rows runs a division-free
+pre-test (``may_cross_reference`` is its plain version) before each pair
+test, and keeps the pairs the ray crosses in shared memory (the first
+few whole, the rows of the rest), so the Newton, finisher and albedo
+passes touch only those instead of holding [N, B] arrays.
 """
 
 from __future__ import annotations
@@ -39,6 +41,11 @@ BIG = 1e30
 MAX_PALLAS_GAUSSIANS = 256
 MEGA_MAX_GAUSSIANS = 2048
 TABLE_COLS = 16
+# A ray's crossed pairs that K1's and K2's solve passes walk by list, and
+# of those the ones kept whole in shared memory (csrc/bounce.cuh)
+MAX_HITS, PAIR_CACHE = 32, 2
+# The pre-test's margin (csrc/bounce.cuh PRE_REL, may_cross_reference)
+PRE_REL = 1e-5
 
 
 def padded_n(n: int) -> int:
@@ -94,6 +101,28 @@ def _interval(col, ox, oy, oz, dx, dy, dz, a, b):
     t0 = torch.clamp(t_star - half, min=0.0)
     ok = (gap > 0.0) & (t1 >= 0.0) & (col(12) > 0.0)
     return t0, t1, m2, ok
+
+
+def may_cross_reference(table, o, d) -> torch.Tensor:
+    """The kernels' division-free pre-test in plain torch (csrc/bounce.cuh
+    ``may_cross``, which K1, K2, K4, K5 and K7 run before ``interval``):
+    [N, B] bool, false only where the ray's line misses the R_CUT
+    ellipsoid by the PRE_REL margin.  It must pass every pair that
+    ``interval`` finds ok."""
+    col = lambda f: table[:, f:f + 1]
+    ray = [v[:, k][None, :] for v in (o, d) for k in range(3)]
+    ic = [col(k) for k in range(6)]         # ic00 ic11 ic22 ic01 ic02 ic12
+    mat = lambda x, y, z: (ic[0] * x + ic[3] * y + ic[4] * z,
+                           ic[3] * x + ic[1] * y + ic[5] * z,
+                           ic[4] * x + ic[5] * y + ic[2] * z)
+    w = [ray[k] - col(13 + k) for k in range(3)]
+    ad = mat(*ray[3:])
+    aw = mat(*w)
+    a = sum(ray[3 + k] * ad[k] for k in range(3))
+    bh = sum(w[k] * ad[k] for k in range(3))
+    c = sum(w[k] * aw[k] for k in range(3))
+    ac, b2 = a * c, bh * bh
+    return ac - b2 - R_CUT * R_CUT * a <= PRE_REL * (ac + b2)
 
 
 def _tau_nee(col, px, py, pz, wx, wy, wz, tmax):

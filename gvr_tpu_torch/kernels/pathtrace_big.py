@@ -43,8 +43,10 @@ from gvr_tpu_torch.kernels.pathtrace import (BIG, TABLE_COLS, _albedo,
                                              _coeffs, _interval, _li,
                                              _nee_ray, _newton, _pairs,
                                              _tau_nee, pack_table)
+# the kernels' pre-test, shared with K1/K2 and kept importable from here
+from gvr_tpu_torch.kernels.pathtrace import may_cross_reference  # noqa: F401
 from gvr_tpu_torch.ops.solvers import illinois_update_inset
-from gvr_tpu_torch.scene.gaussians import R_CUT, GaussianMixture
+from gvr_tpu_torch.scene.gaussians import GaussianMixture
 
 G = 256                  # Gaussians a chunk
 GROUP = 32               # Gaussians a group, the finer box (BIG_GROUP)
@@ -53,8 +55,6 @@ MAX_HITS = 32            # K4's crossed-pair list (csrc/big.cuh BIG_MAX_HITS)
 WARP = 32                # rays that vote together on walking a box
 STAGE1_ROWS = 16         # K4's output rows, csrc/big.cuh BigRow
 BOX_COLS = 8             # a box: min x y z, pad, max x y z, pad
-# The pre-test's margin (csrc/big.cuh PRE_REL, may_cross_reference)
-PRE_REL = 1e-5
 # A box is widened by BOX_REL of its largest extent plus BOX_ABS of
 # its largest |coordinate| (at least 1): far above the float32 rounding of
 # the slab test and of the pair test it stands in for, so the cull stays
@@ -198,28 +198,6 @@ def admitted_counts_reference(boxes, o, d, tmax=None) -> torch.Tensor:
     (``admitted_reference``), as the kernels count them."""
     chunks, groups = admitted_reference(boxes, o, d, tmax)
     return torch.stack([chunks.sum(1), groups.sum((1, 2))]).int()
-
-
-def may_cross_reference(table, o, d) -> torch.Tensor:
-    """The kernels' division-free pre-test in plain torch (csrc/big.cuh
-    ``may_cross``): [N, B] bool, false only where the ray's line misses
-    the R_CUT ellipsoid by the PRE_REL margin.  The kernels run
-    ``interval`` only on the pairs it passes, so it must pass every pair
-    that ``interval`` finds ok."""
-    col = lambda f: table[:, f:f + 1]
-    ray = [v[:, k][None, :] for v in (o, d) for k in range(3)]
-    ic = [col(k) for k in range(6)]         # ic00 ic11 ic22 ic01 ic02 ic12
-    mat = lambda x, y, z: (ic[0] * x + ic[3] * y + ic[4] * z,
-                           ic[3] * x + ic[1] * y + ic[5] * z,
-                           ic[4] * x + ic[5] * y + ic[2] * z)
-    w = [ray[k] - col(13 + k) for k in range(3)]
-    ad = mat(*ray[3:])
-    aw = mat(*w)
-    a = sum(ray[3 + k] * ad[k] for k in range(3))
-    bh = sum(w[k] * ad[k] for k in range(3))
-    c = sum(w[k] * aw[k] for k in range(3))
-    ac, b2 = a * c, bh * bh
-    return ac - b2 - R_CUT * R_CUT * a <= PRE_REL * (ac + b2)
 
 
 def _by_rays(table, b: int, fn):

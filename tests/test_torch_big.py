@@ -323,17 +323,25 @@ def test_box_test_is_conservative(n, kind):
         assert groups.float().sum() < 0.5 * 8 * chunks.float().sum()
 
 
-@pytest.mark.parametrize("n", sorted(BOX_SCENES))
+# The pre-test's scenes: the headline's (K1 and K2 run the pre-test in
+# both sweeps), one at the megakernel's ceiling of 2,048 Gaussians, and
+# the box tests' two
+PRE_SCENES = {250: dict(seed=0), 2048: dict(seed=0), **BOX_SCENES}
+
+
+@pytest.mark.parametrize("n", sorted(PRE_SCENES))
 def test_pre_test_passes_every_ok_pair(n):
     """The kernels' division-free pre-test (``may_cross_reference``)
-    passes every pair that ``_interval`` finds ok, for camera rays, rays
-    from inside the medium and far rays (the camera rays' origins 20x
-    farther out), so the rows it skips add exactly 0; on the small
-    Gaussians it rejects most of them."""
-    medium = parse_gmm(random_gaussian_scene(n, **BOX_SCENES[n])).medium
+    passes every pair that ``_interval`` finds ok, for camera rays (the
+    headline's view), far rays (those origins 20x farther out), rays from
+    inside the medium and NEE segments' rays (from inside the medium
+    toward the lights or in random directions; the pre-test ignores tmax,
+    so it is held on the whole line), so the rows it skips add exactly 0;
+    on the small Gaussians it rejects most of them."""
+    medium = parse_gmm(random_gaussian_scene(n, **PRE_SCENES[n])).medium
     table = tpb.pack_rows(medium)
     o, d = [], []
-    for kind in ("camera", "inside"):
+    for kind in ("camera", "inside", "nee"):
         oo, dd, _ = _box_rays(medium, kind, n=512)
         o += [oo, oo * 20.0] if kind == "camera" else [oo]
         d += [dd, dd] if kind == "camera" else [dd]
@@ -343,7 +351,7 @@ def test_pre_test_passes_every_ok_pair(n):
                                                 d[s:s + 256])
                         for s in range(0, o.shape[0], 256)], dim=1)
     assert ok.any() and not (ok & ~passed).any()
-    if n == 2100:        # the Gaussians' rows, not the padding's
+    if n != 2300:        # the Gaussians' rows, not the padding's
         assert passed[:n].float().mean() < 0.05
 
 

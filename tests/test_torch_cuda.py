@@ -138,6 +138,68 @@ def test_mega_kernel_ragged_chunk(cuda_device):
                                atol=1e-3)
 
 
+@pytest.mark.parametrize("spp", [1, 64])
+def test_mega_kernel_ragged_pool(cuda_device, spp):
+    """A chunk of 203 pixels, not a multiple of the block's pool on this
+    card (``pool_pixels``), so the last block holds fewer pixels than the
+    others, matches the plain version at spp 1 and spp 64."""
+    sc = parse_gmm(SCENE24, device=cuda_device)
+    ids = torch.arange(3, 206, dtype=torch.int32, device=cuda_device)
+    per_sm, sms = tmt.resident_blocks(cuda_device)
+    assert ids.shape[0] % tmt.pool_pixels(spp, ids.shape[0], per_sm * sms)
+    _hold_mega(sc, _cameras(cuda_device)[0],
+               RenderConfig(**dict(MEGA_KW, spp=spp)), ids)
+
+
+@pytest.mark.parametrize("ids", [[33], [33, 34, 57]])
+def test_mega_kernel_tiny_chunk(cuda_device, ids):
+    """1 and 3 pixels at spp 1, each path scattering at least once: a warp
+    queues fewer shadow rays than a full drain takes, so only its last,
+    partial drain adds their NEE radiance."""
+    sc = parse_gmm(SCENE24, device=cuda_device)
+    evals = _hold_mega(sc, _cameras(cuda_device)[0],
+                       RenderConfig(**dict(MEGA_KW, spp=1)),
+                       torch.tensor(ids, dtype=torch.int32,
+                                    device=cuda_device))[1]
+    assert (evals >= 2).all()
+
+
+# Rays crossing many pairs: 600 Gaussians of diameter 0.1-0.25 (camera
+# rays cross a median 15 pairs, some more than MAX_HITS), and the
+# S_CAP_MAX fallback's kind (2,000 of diameter 2-4, every ray crossing
+# hundreds).  The plain version with its rows permuted moved no pixel by
+# more than 1.2e-5 and 3e-7 there (CPU), so atol 1e-4 holds.
+CROWDED = {"600": dict(n=600, seed=0, diameter=(0.1, 0.25)),
+           "2000": dict(n=2000, seed=0, diameter=(2.0, 4.0))}
+
+
+@pytest.mark.parametrize("scene", sorted(CROWDED))
+def test_mega_kernel_crowded_rays(cuda_device, scene):
+    """K1 where rays cross more pairs than the pair cache holds (600:
+    cached pairs, listed rows and the walk of all rows in one launch) and
+    more than MAX_HITS (2000: the walk of all rows), against the plain
+    version."""
+    kw = dict(CROWDED[scene])
+    sc = parse_gmm(random_gaussian_scene(kw.pop("n"), **kw),
+                   device=cuda_device)
+    cam = _cameras(cuda_device)[0]
+    table = tpt.pack_table(sc.medium)
+    ids = torch.arange(0, 256, 2, dtype=torch.int32, device=cuda_device)
+    uv = torch.stack([(ids % 16 + 0.5) / 16, (ids // 16 + 0.5) / 16], -1)
+    ray = [v[:, k][None, :] for v in cam.sample_ray(uv.float())
+           for k in range(3)]
+    col = lambda f: table[:, f:f + 1]
+    crossed = tpt._interval(col, *ray, *tpt._coeffs(col, *ray))[-1].sum(0)
+    if scene == "600":
+        assert ((crossed > tpt.PAIR_CACHE)
+                & (crossed <= tpt.MAX_HITS)).float().mean() > 0.3
+        assert (crossed > tpt.MAX_HITS).any()
+    else:
+        assert (crossed > tpt.MAX_HITS).all()
+    _hold_mega(sc, cam, RenderConfig(width=16, height=16, spp=4,
+                                     max_bounces=4), ids)
+
+
 def test_render_on_card_matches_cpu(cuda_device):
     cfg = RenderConfig(width=16, height=16, spp=9)
     for cam in _cameras("cpu"):
@@ -202,6 +264,30 @@ def test_grid_solve_kernel_matches_plain(cuda_device, n):
         0.01, 0.99, o.shape[0]).astype(np.float32)).to(cuda_device)
     _, _, cells, t_in, t_out, resid = critical_crossing(
         grid, *grid_tau_crossings(grid, o, d), u)
+    args = (grid, o, d, t_in, t_out, resid, cells, 6)
+    got, want = tgt.solve_pass(*args), tgt.solve_reference(*args)
+    torch.cuda.synchronize()
+    res = solve_agreement(got, want, cells)
+    assert res["n"] > 1000 and res["ok"], res
+
+
+def test_grid_solve_kernel_overflow(cuda_device):
+    """K7 where nearly every ray crosses more than MAX_HITS entries of its
+    critical cell (600 Gaussians of diameter 1-2 on a 3^3 grid), so its
+    Newton, finisher and albedo passes walk the whole cell: at
+    testing.K7_BARS (the plain version in float64 kept every t within
+    them here, CPU)."""
+    sc = parse_gmm(random_gaussian_scene(600, seed=0, diameter=(1.0, 2.0)),
+                   device=cuda_device)
+    grid = build_grid(sc.medium)
+    o, d = _grid_rays(cuda_device, n=4096)
+    u = torch.from_numpy(np.random.default_rng(11).uniform(
+        0.01, 0.99, o.shape[0]).astype(np.float32)).to(cuda_device)
+    _, _, cells, t_in, t_out, resid = critical_crossing(
+        grid, *grid_tau_crossings(grid, o, d), u)
+    live = cells >= 0
+    crossed = tgt.crossed_entries(grid, o, d, t_in, t_out, cells)
+    assert (crossed[live] > tpt.MAX_HITS).float().mean() > 0.9
     args = (grid, o, d, t_in, t_out, resid, cells, 6)
     got, want = tgt.solve_pass(*args), tgt.solve_reference(*args)
     torch.cuda.synchronize()

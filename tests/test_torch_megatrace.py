@@ -111,3 +111,55 @@ def test_mega_agreement_counts_one_diverged_path():
     assert res["max_path_diff"] == pytest.approx(2.5, rel=1e-6)
     assert res["mean_diff"] == pytest.approx(2.5 / tcfg.spp / 768, rel=1e-5)
     assert res["evals_rel"] == 1 / int(evals.sum())
+
+
+@pytest.mark.parametrize("spp", [1, 4, 9, 64, 256])
+def test_pool_pixels(spp):
+    """K1's pool of a block (``pool_pixels``): at most MEGA_MAX_PIX
+    pixels, enough paths for every thread where the cap allows, about
+    POOL_PATHS paths otherwise, and, for a chunk large enough, at least
+    FILL_WAVES waves of blocks on the card."""
+    threads = -(-tmt.MEGA_BLOCK // spp)            # pixels for a full block
+    for resident in (660, 1056):
+        for b in (1, 3, 203, 4096, 65536):
+            pix = tmt.pool_pixels(spp, b, resident)
+            assert 1 <= pix <= tmt.MEGA_MAX_PIX
+            assert pix >= min(threads, tmt.MEGA_MAX_PIX)
+            assert pix == min(threads, tmt.MEGA_MAX_PIX) or (
+                pix * spp <= tmt.POOL_PATHS
+                and -(-b // pix) >= tmt.FILL_WAVES * resident)
+    # the headline's chunk on an H100 holding 5 blocks an SM
+    want = {1: 128, 4: 32, 9: 24, 64: 8, 256: 2}[spp]
+    assert tmt.pool_pixels(spp, 65536, 5 * 132) == want
+
+
+def test_mega_phases_only_on_the_card():
+    """The phase counters come from the instrumented kernel, so a CPU
+    call that asks for them raises; ``phase_split`` turns counters into
+    cycle shares and active lanes per warp-step."""
+    sc, cam, kw = _mega_config()
+    args, _ = _port_mega(sc, cam, kw)
+    with pytest.raises(ValueError, match="phases"):
+        tmt.mega_call(*args, phases=torch.zeros((4, 3), dtype=torch.int64))
+    split = tmt.phase_split(torch.tensor([[600, 10, 320], [200, 4, 40],
+                                          [150, 2, 64], [50, 5, 100]]))
+    assert list(split) == list(tmt.MEGA_PHASES)
+    assert sum(v[0] for v in split.values()) == pytest.approx(1.0)
+    assert split["sweep"] == (0.6, 32.0) and split["solve"][1] == 10.0
+
+
+def test_mega_reference_counts_the_work():
+    """``mega_reference``'s optional counts (chip_smoke's bound of K1):
+    the evaluations equal the returned ones, the rays that scatter are
+    fewer, every pair of a ray that scatters is a pair of an extension
+    ray, and the image is the same with and without counting."""
+    sc, cam, kw = _mega_config()
+    args, _ = _port_mega(sc, cam, kw)
+    counts = {}
+    sums, evals = tmt.mega_reference(*args, counts=counts)
+    assert counts["evals"] == int(evals.sum())
+    assert 0 < counts["scattered"] < counts["evals"]
+    assert 0 < counts["solve_pairs"] <= counts["ext_pairs"]
+    assert counts["nee_pairs"] > 0
+    again = tmt.mega_reference(*args)
+    assert torch.equal(again[0], sums) and torch.equal(again[1], evals)
