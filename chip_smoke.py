@@ -22,12 +22,13 @@ CLI.  One line per phase; any failure raises, so the exit code is non-zero.
              path's shapes: K3 [9, 65536], K2 65,536 rays at N = 250, K1 the
              headline's 65,536-pixel chunk through the medium at spp 4 and
              spp 64, there also held against the plain version
-             (CHUNK_BARS); K1's phase split at both (an instrumented launch:
+             (testing.CHUNK_BARS); K1's phase split at both (an instrumented launch:
              each phase's share of the warps' clock64() cycles and its
              active lanes per warp-step), its blocks resident per SM, and
-             the work its paths need at spp 64 (a plain count: evaluations,
-             those that scatter, the pairs their rays and shadow rays
-             cross), from which its bound
+             the work its paths need at spp 64 (a plain count on every 8th
+             pixel, scaled: evaluations, those that scatter, the pairs
+             their rays and shadow rays cross, the 32-row group boxes they
+             meet and those groups' rows), from which its bounds
   6 main     `gvr_tpu_torch.cli render` of random_gaussian_scene(250, 0) at
              1024^2 spp 64; image finite and not constant, megakernel
              launched, no plain version called
@@ -90,8 +91,9 @@ with its launches on its main path, its kernel and plain times, and its
 bound: the larger of its operations over 67 TFLOP/s and its bytes, each
 input read and each output written once, over 3.35 TB/s; K1, K4, K5 and
 K7 also with ``bound_ms_sweep``, the bound of the same work with a pair
-test of every pair instead of the pre-test and the crossed-pair lists),
-and the result JSON.  Without a CUDA card, or without the package beside
+test of every pair instead of the culling, the pre-test and the
+crossed-pair lists; K1 also with ``bound_ms_pretest``, its own walk: a
+pre-test of every row instead of the group boxes), and the result JSON.  Without a CUDA card, or without the package beside
 it, the script exits non-zero before printing any result.
 """
 
@@ -110,17 +112,10 @@ RAYS = 65536                        # K2 rays, K3 draws, K1 chunk pixels
 # The headline's 16 chunks are 64-row bands in tile order; band 9 (rows
 # 576-639) crosses the medium and has the most bounce evaluations.
 MEDIUM_CHUNK = 9
-# K1 at the main path's shape, kernel vs plain per pixel (mean radiance).
-# Rounding differences grow along a path, and a path whose scatter or RR
-# test sits within them of its threshold takes the other branch and moves
-# its pixel by its whole radiance / spp.  So the bars bound that radiance
-# (max_path_diff), the share of pixels beyond testing.OFF_ATOL/OFF_RTOL
-# (off_frac), the mean |diff| over the chunk and the evaluation total.  On
-# an NVIDIA H100 80GB HBM3 at 700.00 W chunk 9 measured max_path_diff 2.67
-# (spp 4) and 4.29 (spp 64), off_frac 1.2e-3 and 3.7e-3, mean_diff 2.3e-5
-# and 1.8e-5, evals_rel 8.7e-6 and 1.1e-6.
-CHUNK_BARS = dict(max_path_diff=8.0, off_frac=1e-2, mean_diff=1e-4,
-                  evals_rel=1e-4)
+# K1's bound counts the work of the paths of every COUNT_STRIDE-th pixel of
+# chunk 9 at spp 64 (plain version, each path whole) and scales it by
+# COUNT_STRIDE: a count of the whole chunk would cost a second plain run.
+COUNT_STRIDE = 8
 GRID_SIZE, GRID_SPP, GRID_N = 512, 16, 10_000   # the grid main path
 GRID_CHUNK_INDEX = 4       # rows 256-319 of the 512^2 image, the centre
 BIG_RAYS = 8192            # phase 12: camera rays, and as many inside
@@ -132,9 +127,9 @@ FALLBACK = dict(n=8000, seed=0, diameter=(2.0, 4.0))   # S_CAP_MAX refuses
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 # Flops of one (Gaussian, ray) pair test, csrc/bounce.cuh interval(), an
 # FMA counted as 2: two 23-flop bilinear forms, q.d, b, t*, the closest
-# point, m2, the gap and the interval.  The function needs it once for
-# each pair: every Gaussian for each ray in K1, K2, K4 and K5, every entry
-# of a crossed or solved cell in K6 and K7.
+# point, m2, the gap and the interval.  A full sweep needs it once for
+# each pair: every Gaussian for each ray in K2 and in the sweep bounds of
+# K1, K4 and K5, every entry of a crossed or solved cell in K6 and K7.
 PAIR_TEST_FLOPS = 94
 # Flops of one evaluation of a crossed pair at a point, bounce.cuh
 # tau_sig_at(): z, the erf difference, the exp term and the two sums, an
@@ -149,11 +144,12 @@ CROSSED_EVAL_FLOPS = 13
 # w = o - mu, A d, a, b, A w, c and the compare.  K4 and K5 need a box test
 # for every chunk of every ray and for each group of a chunk the ray's own
 # test admits, a pre-test for every Gaussian of the groups it admits, and
-# a full pair test (PAIR_TEST_FLOPS) for each pair the ray crosses.  K1
-# needs a pre-test of every row in each sweep (every bounce evaluation's
-# extension ray, and the shadow ray of each one that scatters) and a pair
-# test for each pair those rays cross; K7 a pre-test of every entry of the
-# solved cell and a pair test of each entry its ray crosses.
+# a full pair test (PAIR_TEST_FLOPS) for each pair the ray crosses.  K1's
+# rays (every bounce evaluation's extension ray, and the shadow-ray segment
+# of each one that scatters) need the same over 32-row groups of its
+# table in Morton order (megatrace.group_boxes; K1 itself pre-tests every
+# row, bound_ms_pretest); K7 a pre-test of every entry of the solved cell
+# and a pair test of each entry its ray crosses.
 BOX_TEST_FLOPS = 19
 PRE_TEST_FLOPS = 56
 SOLVER_ITERS, GRID_SOLVER_ITERS = 12, 6     # the RenderConfig defaults
@@ -359,12 +355,12 @@ def run(dev):
         p_ms, want = cuda_ms(lambda: megatrace.mega_reference(*args), 1,
                              warmup=spp == 4)
         times[f"mega_spp{spp}"] = (k_ms, p_ms)
-        res = chunk_res[spp] = testing.mega_agreement(got, want, spp)
+        res = chunk_res[spp] = testing.chunk_agreement(got, want, spp)
         log("5 timing", f"K1 chunk {MEDIUM_CHUNK} ({len(chunk)} px, rows "
             f"{MEDIUM_CHUNK * 64}-{MEDIUM_CHUNK * 64 + 63}) spp {spp}: "
             f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
             f"({time.perf_counter() - t0:.1f} s); kernel vs plain "
-            f"{json.dumps(res)} (bars {json.dumps(CHUNK_BARS)})")
+            f"{json.dumps(res)} (bars {json.dumps(testing.CHUNK_BARS)})")
         phases = torch.zeros((len(megatrace.MEGA_PHASES), 3),
                              dtype=torch.int64, device=dev)
         megatrace.mega_call(*args, phases=phases)
@@ -376,38 +372,47 @@ def run(dev):
             + f"; {per_sm} blocks resident per SM, {sms} SMs; counters "
             f"{phases.tolist()}")
     # the work chunk 9's paths need at spp 64, counted by the plain version
-    work = {}
-    megatrace.mega_reference(*args, counts=work)
+    # on every COUNT_STRIDE-th pixel and scaled
+    sample = {}
+    cfg = RenderConfig(width=MAIN_SIZE, height=MAIN_SIZE, spp=MAIN_SPP)
+    megatrace.mega_reference(*mega_args(sc250, cam1k, cfg,
+                                        chunk[::COUNT_STRIDE]), counts=sample)
+    work = {k: v if k == "groups" else v * COUNT_STRIDE
+            for k, v in sample.items()}
     rows = table250.shape[0]
+    rays = work["evals"] + work["scattered"]
+    # a pair test and a tau-pass evaluation of each pair the rays cross,
+    # and each crossed pair of a ray that scatters in the Newton steps and
+    # the albedo pass
+    pair_flops = ((PAIR_TEST_FLOPS + CROSSED_EVAL_FLOPS)
+                  * (work["ext_pairs"] + work["nee_pairs"])
+                  + CROSSED_EVAL_FLOPS * (SOLVER_ITERS + 1)
+                  * work["solve_pairs"])
     mega_bytes = table250.numel() * 4 + RAYS * (4 + 12 + 4)
     bounds = {
         "rng": bound(RNG_OPS_PER_KEY * RAYS, 12 * 4 * RAYS),
         "bounce": bound(2 * RAYS * table250.shape[0] * PAIR_TEST_FLOPS,
                         table250.numel() * 4 + RAYS * (3 + 3 + 5 + 8) * 4),
-        # a pre-test of every row for each evaluation's extension ray and
-        # each scattering one's shadow ray, a pair test and a tau-pass
-        # evaluation of each pair they cross, and each crossed pair of a
-        # ray that scatters in the Newton steps and the albedo pass
+        # each ray's box test of every group, a pre-test of each row of
+        # the groups it meets, and the crossed pairs' work
         f"mega_spp{MAIN_SPP}": bound(
-            PRE_TEST_FLOPS * rows * (work["evals"] + work["scattered"])
-            + (PAIR_TEST_FLOPS + CROSSED_EVAL_FLOPS)
-            * (work["ext_pairs"] + work["nee_pairs"])
-            + CROSSED_EVAL_FLOPS * (SOLVER_ITERS + 1) * work["solve_pairs"],
+            BOX_TEST_FLOPS * rays * work["groups"] + PRE_TEST_FLOPS
+            * (work["ext_rows"] + work["nee_rows"]) + pair_flops,
             mega_bytes),
-        # the count without the pre-test: a pair test of every row in both
-        # sweeps
-        "mega_sweep": bound(
-            (work["evals"] + work["scattered"]) * rows * PAIR_TEST_FLOPS,
-            mega_bytes),
+        # K1's own walk: a pre-test of every row of the table in each sweep
+        "mega_pretest": bound(PRE_TEST_FLOPS * rows * rays + pair_flops,
+                              mega_bytes),
+        # a pair test of every row in both sweeps
+        "mega_sweep": bound(rays * rows * PAIR_TEST_FLOPS, mega_bytes),
     }
     log("5 timing", f"K1 chunk {MEDIUM_CHUNK} spp {MAIN_SPP} work (plain "
-        f"count): {json.dumps(work)}; bound "
-        f"{bounds[f'mega_spp{MAIN_SPP}'][0]:.4f} ms "
-        f"({bounds[f'mega_spp{MAIN_SPP}'][1]}), of a full sweep "
+        f"count of every {COUNT_STRIDE}th pixel, x {COUNT_STRIDE}): "
+        f"{json.dumps(work)}; bound {bounds[f'mega_spp{MAIN_SPP}'][0]:.4f} "
+        f"ms ({bounds[f'mega_spp{MAIN_SPP}'][1]}), with K1's pre-test of "
+        f"every row {bounds['mega_pretest'][0]:.4f} ms, of a full sweep "
         f"{bounds['mega_sweep'][0]:.4f} ms")
     for spp, res in chunk_res.items():
-        if not (res["finite"]
-                and all(res[k] <= CHUNK_BARS[k] for k in CHUNK_BARS)):
+        if not res["ok"]:
             raise AssertionError(f"K1 at the main path's shape, spp {spp}, "
                                  f"misses its bars: {res}")
     log("5 timing", f"K3 [9, {RAYS}]: kernel {times['rng'][0]:.4f} ms, plain "
@@ -824,6 +829,7 @@ def run(dev):
         k["bound_ms_sweep"] = bounds[k["name"] + "_sweep"][0]
         k["bound_ms_sweep_bounce1"] = bounds[k["name"] + "_sweep_bounce1"][0]
     kernels[0]["ms_spp4"], kernels[0]["plain_ms_spp4"] = times["mega_spp4"]
+    kernels[0]["bound_ms_pretest"] = bounds["mega_pretest"][0]
     kernels[0]["bound_ms_sweep"] = bounds["mega_sweep"][0]
     kernels[4]["bound_ms_sweep"] = bounds["grid_solve_sweep"][0]
     print(smi)

@@ -45,6 +45,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from gvr_tpu_torch.cameras import PinholeCamera, camera_rays
 from gvr_tpu_torch.integrators.common import ids_to_pixels
@@ -52,8 +53,11 @@ from gvr_tpu_torch.kernels import _build
 from gvr_tpu_torch.kernels.pathtrace import (_coeffs, _interval, _nee_ray,
                                              bounce_core_reference,
                                              check_lights, check_table)
+from gvr_tpu_torch.kernels.pathtrace_big import (GROUP, _union_boxes,
+                                                 chunk_box_hits_reference)
 from gvr_tpu_torch.kernels.rng import JITTER_TAG, seed_words
 from gvr_tpu_torch.ops.sampling import dir_from_xi, path_uniforms
+from gvr_tpu_torch.scene.gaussians import R_CUT, morton_order
 
 INV_4PI = 1.0 / (4.0 * math.pi)
 MEGA_BLOCK = 128            # threads of a K1 block (csrc/kernels.cu)
@@ -126,8 +130,34 @@ def phase_split(phases: torch.Tensor) -> dict:
             for k, name in enumerate(MEGA_PHASES)}
 
 
-def _count_pairs(counts, table, o, d, xi, alive, scattered, t_sc, lights):
-    """Adds one bounce's work to ``counts`` (see ``mega_reference``)."""
+def group_boxes(table) -> tuple:
+    """(boxes [K, 8], rows [K]) of a ``pack_table`` table's valid rows in
+    the Morton order of their means, GROUP rows a group: each box the
+    union of its rows' R_CUT ellipsoid boxes (half-extent R_CUT
+    sqrt(inv(A)_ii)), widened as ``pathtrace_big.chunk_boxes`` widens its
+    boxes.  K1 does not cull; these are what a sweep culled by 32-row
+    group boxes over a Morton-sorted table, as K4's is, would test
+    (``mega_reference``'s counts)."""
+    tab = table[table[:, 12] > 0].double()
+    tab = tab[torch.from_numpy(morton_order(tab[:, 13:16].cpu().numpy()))
+              .to(tab.device)]
+    ic = tab[:, :6]                         # ic00 ic11 ic22 ic01 ic02 ic12
+    a = torch.stack([ic[:, [0, 3, 4]], ic[:, [3, 1, 5]], ic[:, [4, 5, 2]]],
+                    dim=1)
+    half = R_CUT * torch.linalg.inv(a).diagonal(dim1=1, dim2=2).clamp(
+        min=0.0).sqrt()
+    pad = (0, 0, 0, -tab.shape[0] % GROUP)
+    lo = F.pad((tab[:, 13:16] - half).float(), pad, value=math.inf)
+    hi = F.pad((tab[:, 13:16] + half).float(), pad, value=-math.inf)
+    first = torch.arange(0, tab.shape[0], GROUP, device=tab.device)
+    return (_union_boxes(lo, hi, GROUP),
+            torch.clamp(tab.shape[0] - first, max=GROUP))
+
+
+def _count_pairs(counts, table, boxes, o, d, xi, alive, scattered, t_sc,
+                 lights):
+    """Adds one bounce's work to ``counts`` (see ``mega_reference``);
+    ``boxes`` is ``group_boxes(table)``."""
     col = lambda f: table[:, f:f + 1]
     ray = [v[:, k][None, :] for v in (o, d) for k in range(3)]
     crossed = _interval(col, *ray, *_coeffs(col, *ray))[-1].sum(0)
@@ -136,11 +166,20 @@ def _count_pairs(counts, table, o, d, xi, alive, scattered, t_sc, lights):
                               lights)
     t0, t1, _, ok = _interval(col, *p, *w, *_coeffs(col, *p, *w))
     nee = (ok & (torch.minimum(t1, tmax) > t0)).sum(0)
+    box, rows = boxes
+    ext_adm = chunk_box_hits_reference(box, o, d)
+    nee_adm = chunk_box_hits_reference(box, torch.cat(p).T, torch.cat(w).T,
+                                       tmax[0])
     sc = alive & scattered
+    counts["groups"] = box.shape[0]
     for key, v in (("evals", alive), ("scattered", sc),
                    ("ext_pairs", torch.where(alive, crossed, 0)),
                    ("solve_pairs", torch.where(sc, crossed, 0)),
-                   ("nee_pairs", torch.where(sc, nee, 0))):
+                   ("nee_pairs", torch.where(sc, nee, 0)),
+                   ("ext_groups", ext_adm.sum(1) * alive),
+                   ("ext_rows", (ext_adm * rows).sum(1) * alive),
+                   ("nee_groups", nee_adm.sum(1) * sc),
+                   ("nee_rows", (nee_adm * rows).sum(1) * sc)):
         counts[key] = counts.get(key, 0) + int(v.sum())
 
 
@@ -153,7 +192,9 @@ def mega_reference(cam_vec, table, ids, cfg, lights, env, pinhole: bool,
     'scattered' those that scatter (each sweeps a shadow ray and solves),
     'ext_pairs' the pairs their extension rays cross, 'solve_pairs' those
     of the rays that scatter, 'nee_pairs' the pairs the shadow rays'
-    segments cross."""
+    segments cross; 'groups' the table's ``group_boxes``, 'ext_groups' and
+    'nee_groups' those the extension rays and the shadow rays' segments
+    meet, 'ext_rows' and 'nee_rows' the valid rows of those groups."""
     mega_reference.launches += 1
     dev = ids.device
     b = ids.shape[0]
@@ -172,6 +213,7 @@ def mega_reference(cam_vec, table, ids, cfg, lights, env, pinhole: bool,
     sample = torch.zeros(b, dtype=torch.int64, device=dev)
     bounce = torch.zeros(b, dtype=torch.int64, device=dev)
     evals = torch.zeros(b, dtype=torch.int32, device=dev)
+    boxes = None if counts is None else group_boxes(table)
     while bool((alive | (sample < spp)).any()):
         regen = ~alive & (sample < spp)
         s_new = torch.where(regen, sample, 0)
@@ -195,8 +237,8 @@ def mega_reference(cam_vec, table, ids, cfg, lights, env, pinhole: bool,
             cfg.solver_finisher)
         evals += alive.to(torch.int32)
         if counts is not None:
-            _count_pairs(counts, table, o, d, xi, alive, scattered, t_sc,
-                         lights)
+            _count_pairs(counts, table, boxes, o, d, xi, alive, scattered,
+                         t_sc, lights)
 
         acc = acc + torch.where((alive & ~scattered)[:, None], thr * env3,
                                 0.0)

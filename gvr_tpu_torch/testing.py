@@ -69,6 +69,29 @@ def mega_agreement(outs, refs, spp: int) -> dict:
                 finite=bool(torch.isfinite(outs[0]).all()))
 
 
+# K1 at the main path's shape (the headline's 65,536-pixel chunks), two
+# results per pixel (mean radiance; mega_agreement).  Rounding differences
+# grow along a path, and a path whose scatter or RR test sits within them
+# of its threshold takes the other branch and moves its pixel by its whole
+# radiance / spp.  So the bars bound that radiance (max_path_diff), the
+# share of pixels beyond OFF_ATOL/OFF_RTOL (off_frac), the mean |diff| over
+# the chunk and the evaluation total.  On an NVIDIA H100 80GB HBM3 at
+# 700.00 W the headline's chunk 9, kernel vs plain, measured max_path_diff
+# 2.67 (spp 4) and 4.29 (spp 64), off_frac 1.2e-3 and 3.7e-3, mean_diff
+# 2.3e-5 and 1.8e-5, evals_rel 8.7e-6 and 1.1e-6 (chip_smoke phase 5).
+CHUNK_BARS = dict(max_path_diff=8.0, off_frac=1e-2, mean_diff=1e-4,
+                  evals_rel=1e-4)
+
+
+def chunk_agreement(outs, refs, spp: int) -> dict:
+    """mega_agreement of two K1 results and 'ok', whether the radiance is
+    finite and meets CHUNK_BARS."""
+    res = mega_agreement(outs, refs, spp)
+    res["ok"] = res["finite"] and all(res[k] <= CHUNK_BARS[k]
+                                      for k in CHUNK_BARS)
+    return res
+
+
 # K6, kernel vs plain, per (ray, crossing) slot: the bounce bars' tau
 # tolerance, plus the float32 resolution of the form both versions share
 # with the TPU kernel, tau_i = pref * (erf(z1) - erf(z0)) with z = sa * t +

@@ -15,8 +15,10 @@ from fixed seeds, so every tree gets the same inputs.  Sections:
   tile order, 65,536 pixels through the medium) at spp 4 and 64, its
   phase split where the tree's ``mega_call`` takes ``phases`` (a second,
   instrumented launch), its blocks resident per SM where the tree has
-  ``resident_blocks``, and the headline render (1024^2 spp 64, host
-  clock, two renders after a warm-up);
+  ``resident_blocks``, the headline render (1024^2 spp 64, host clock,
+  two renders after a warm-up), and the RR-tail case of the card tests
+  (16 Gaussians, seed 9, orthographic camera, 8^2 spp 4, max_bounces 10,
+  RR from bounce 1, the tail cap from bounce 3);
 - k2: K2 on chip_smoke phase 3's 65,536 random rays at N = 250, finisher
   off and on;
 - k7: K6 and K7 at one grid iteration's shapes (chip_smoke phase 10: the
@@ -26,9 +28,9 @@ from fixed seeds, so every tree gets the same inputs.  Sections:
   scene at 256^2 spp 16 with engine dense.
 The main process prints each worker's times and compares each tree's
 outputs with the first tree's: K1's evaluation counts pixel for pixel and
-its radiance at chip_smoke's CHUNK_BARS (the order of its sums changes
-from run to run), every other output bit for bit; ``--out`` also writes
-them as JSON.  A tree whose ``kernels/pathtrace_big`` has no
+its radiance at this checkout's ``testing.CHUNK_BARS`` (the order of its
+sums changes from run to run), every other output bit for bit; ``--out``
+also writes them as JSON.  A tree whose ``kernels/pathtrace_big`` has no
 ``chunk_boxes`` is called without boxes.
 
 Needs a CUDA card; imports neither JAX nor the JAX package.
@@ -45,9 +47,7 @@ import tempfile
 import time
 
 SECTIONS = ("k1", "k2", "k7", "big")
-# chip_smoke.CHUNK_BARS, for K1's radiance of two trees
-CHUNK_BARS = dict(max_path_diff=8.0, off_frac=1e-2, mean_diff=1e-4,
-                  evals_rel=1e-4)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _timed(fn, reps):
@@ -67,7 +67,7 @@ def _timed(fn, reps):
 def _k1(dev, res, tensors):
     import torch
 
-    from gvr_tpu_torch.cameras import PinholeCamera
+    from gvr_tpu_torch.cameras import OrthographicCamera, PinholeCamera
     from gvr_tpu_torch.config import RenderConfig
     from gvr_tpu_torch.integrators.multiscatter import (render_multiscatter,
                                                         tile_order)
@@ -75,6 +75,19 @@ def _k1(dev, res, tensors):
     from gvr_tpu_torch.scene.generators import random_gaussian_scene
     from gvr_tpu_torch.scene.scene import parse_gmm
 
+    def args_of(sc, cam, cfg, ids):
+        return (megatrace.camera_vector(cam), pathtrace.pack_table(sc.medium),
+                ids, cfg, sc.lights(), sc.env_color,
+                isinstance(cam, PinholeCamera))
+
+    tail = parse_gmm(random_gaussian_scene(16, seed=9, diameter=(0.3, 0.8),
+                                           density=(1.0, 3.0)), device=dev)
+    cfg = RenderConfig(width=8, height=8, spp=4, max_bounces=10,
+                       min_scatter=1, rr_tail_after=3, rr_cap_tail=0.4)
+    rad, count = megatrace.mega_call(*args_of(
+        tail, OrthographicCamera.create([0, 1, 6], [0, 1, 0], device=dev),
+        cfg, torch.arange(64, dtype=torch.int32, device=dev)))
+    tensors["K1 ortho RR tail"] = (rad.cpu(), count.cpu(), cfg.spp)
     sc = parse_gmm(random_gaussian_scene(250, seed=0), device=dev)
     cam = PinholeCamera.create([0, 1, 6], [0, 1, 0], math.radians(45.0),
                                device=dev)
@@ -84,12 +97,10 @@ def _k1(dev, res, tensors):
         megatrace.mega_call).parameters
     for spp, reps in ((4, 10), (64, 4)):
         cfg = RenderConfig(width=1024, height=1024, spp=spp)
-        args = (megatrace.camera_vector(cam), pathtrace.pack_table(sc.medium),
-                chunk, cfg, sc.lights(), sc.env_color, True)
+        args = args_of(sc, cam, cfg, chunk)
         ms, (rad, count) = _timed(lambda: megatrace.mega_call(*args), reps)
         res["times"][f"k1_spp{spp}_ms"] = ms
-        tensors[f"K1 spp {spp} radiance"] = rad.cpu()
-        tensors[f"K1 spp {spp} counts"] = count.cpu()
+        tensors[f"K1 chunk 9 spp {spp}"] = (rad.cpu(), count.cpu(), spp)
         if takes_phases:
             ph = torch.zeros((4, 3), dtype=torch.int64, device=dev)
             megatrace.mega_call(*args, phases=ph)
@@ -260,24 +271,20 @@ def _worker(tree: str, out: str, render: bool, only) -> None:
 
 def _compare(tensors, ref):
     """{output: True/False (None where the first tree lacks it)}: K1's
-    counts and every other output bit for bit, K1's radiance at
-    CHUNK_BARS."""
+    evaluation counts and every other output bit for bit, K1's radiance at
+    CHUNK_BARS (with its measures)."""
     import torch
+
+    from gvr_tpu_torch.testing import chunk_agreement
     eq = {}
     for name, t in tensors.items():
         if name not in ref:
             eq[name] = None
-        elif name.startswith("K1") and name.endswith("radiance"):
-            spp = int(name.split()[2])
-            counts = name.replace("radiance", "counts")
-            diff = ((t - ref[name]) / spp).abs()
-            off = (diff > 1e-4 + 1e-3 * (ref[name] / spp).abs()).any(-1)
-            n_t, n_r = int(tensors[counts].sum()), int(ref[counts].sum())
-            got = dict(max_path_diff=float(diff.max()) * spp,
-                       off_frac=float(off.float().mean()),
-                       mean_diff=float(diff.mean()),
-                       evals_rel=abs(n_t - n_r) / max(n_r, 1))
-            eq[name] = all(got[k] <= CHUNK_BARS[k] for k in CHUNK_BARS)
+        elif name.startswith("K1"):
+            (rad, count, spp), (rad_r, count_r, _) = t, ref[name]
+            eq[name + " counts"] = bool(torch.equal(count, count_r))
+            got = chunk_agreement((rad, count), (rad_r, count_r), spp)
+            eq[name + " radiance"] = got.pop("ok")
             eq[name + " measures"] = got
         else:
             eq[name] = bool(torch.equal(t, ref[name]))
@@ -300,6 +307,7 @@ def main(argv=None):
     if args.worker:
         return _worker(args.trees[0], args.save, args.render, only)
 
+    sys.path.insert(0, ROOT)          # this checkout's testing module
     import torch
     order = list(args.trees) + list(reversed(args.trees))
     runs, first = [], {}
@@ -322,8 +330,11 @@ def main(argv=None):
               f"every other output bit for bit, K1 radiance at CHUNK_BARS): "
               f"{json.dumps(eq)}", flush=True)
         for name, t in first[tree].items():
-            if eq[name] is False and not name.endswith("radiance"):
-                diff = (t.double() - ref[name].double()).abs()
+            want = ref.get(name)
+            if name.startswith("K1"):          # (radiance, counts, spp)
+                name, t, want = name + " counts", t[1], want and want[1]
+            if eq.get(name) is False:
+                diff = (t.double() - want.double()).abs()
                 print(f"  {name}: {int((diff > 0).sum())} of {diff.numel()} "
                       f"values differ, max |diff| {diff.max().item():.3e}",
                       flush=True)

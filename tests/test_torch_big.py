@@ -33,6 +33,7 @@ from gvr_tpu_torch.config import RenderConfig
 from gvr_tpu_torch.integrators.multiscatter import (engine_for,
                                                     render_multiscatter,
                                                     wavefront_pixels_big)
+from gvr_tpu_torch.kernels import megatrace as tmt
 from gvr_tpu_torch.kernels import pathtrace as tpt
 from gvr_tpu_torch.kernels import pathtrace_big as tpb
 from gvr_tpu_torch.scene.gaussians import GaussianMixture, morton_order
@@ -353,6 +354,30 @@ def test_pre_test_passes_every_ok_pair(n):
     assert ok.any() and not (ok & ~passed).any()
     if n != 2300:        # the Gaussians' rows, not the padding's
         assert passed[:n].float().mean() < 0.05
+
+
+@pytest.mark.parametrize("kind", ["camera", "inside", "nee", "axis"])
+@pytest.mark.parametrize("n", [250, 2048])
+def test_group_boxes_are_conservative(n, kind):
+    """``megatrace.group_boxes`` (the 32-row groups of K1's table in Morton
+    order, over which chip_smoke counts K1's bound): they hold each valid
+    row once, and every group that holds a pair a ray crosses by
+    ``_interval`` (for a NEE segment: one that starts before tmax) meets
+    the ray, so the count charges every pair the kernel must find; and a
+    ray meets few of them."""
+    medium = parse_gmm(random_gaussian_scene(n, **PRE_SCENES[n])).medium
+    table = tpt.pack_table(medium)
+    boxes, rows = tmt.group_boxes(table)
+    assert rows.tolist() == [tpb.GROUP] * (n // tpb.GROUP) + (
+        [n % tpb.GROUP] if n % tpb.GROUP else [])
+    o, d, tmax = _box_rays(medium, kind, n=512)
+    ok = _crossed(table, o, d, tmax)[:n][torch.from_numpy(
+        morton_order(table[:n, 13:16].numpy()))]
+    hit = torch.nn.functional.pad(ok, (0, 0, 0, -n % tpb.GROUP)).view(
+        -1, tpb.GROUP, ok.shape[1]).any(1).T
+    admitted = tpb.chunk_box_hits_reference(boxes, o, d, tmax)
+    assert hit.any() and not (hit & ~admitted).any()
+    assert admitted.float().mean() < 0.5
 
 
 def test_big_dense_bars_admit_float32_rounding():

@@ -152,7 +152,9 @@ def test_mega_reference_counts_the_work():
     """``mega_reference``'s optional counts (chip_smoke's bound of K1):
     the evaluations equal the returned ones, the rays that scatter are
     fewer, every pair of a ray that scatters is a pair of an extension
-    ray, and the image is the same with and without counting."""
+    ray, each extension ray and shadow-ray segment meets at most every
+    group box and is charged that group's rows, and the image is the same
+    with and without counting."""
     sc, cam, kw = _mega_config()
     args, _ = _port_mega(sc, cam, kw)
     counts = {}
@@ -161,5 +163,10 @@ def test_mega_reference_counts_the_work():
     assert 0 < counts["scattered"] < counts["evals"]
     assert 0 < counts["solve_pairs"] <= counts["ext_pairs"]
     assert counts["nee_pairs"] > 0
+    assert counts["groups"] == 1                 # 24 Gaussians, one group
+    assert 0 < counts["ext_groups"] <= counts["evals"]
+    assert 0 < counts["nee_groups"] <= counts["scattered"]
+    assert counts["ext_rows"] == 24 * counts["ext_groups"]
+    assert counts["nee_rows"] == 24 * counts["nee_groups"]
     again = tmt.mega_reference(*args)
     assert torch.equal(again[0], sums) and torch.equal(again[1], evals)
