@@ -11,15 +11,21 @@ CLI.  One line per phase; any failure raises, so the exit code is non-zero.
   0 card     nvidia-smi name and power limit, torch and nvcc versions
   1 build    nvcc seconds and ptxas register/spill lines
   2 K3 rng   kernel == plain (torch.equal), [9, 512, 128] draws, bounce
-             array and the jitter tag
+             array and the jitter tag; the wavefronts' launcher
+             (wave_uniforms, [2 + 9, 65,535]: jitter pair and bounce draws)
   3 K2 bounce  kernel vs plain, 250 Gaussians, 65,536 random rays,
              finisher off and on: the bars of testing.BOUNCE_BARS
   4 K1 mega  kernel vs plain at atol 1e-4 on 24 Gaussians 16^2 spp 9
              max_bounces 6, with 3 point lights and without, and on an ortho
              scene whose paths reach RR's tail cap; 250 Gaussians 64^2
              spp 16, image means within 1 % and per-pixel mean |diff| < 1e-3
-  5 timing   each kernel and its plain version (CUDA events) at the main
-             path's shapes: K3 [9, 65536], K2 65,536 rays at N = 250, K1 the
+  5 timing   each kernel's device time (torch.profiler, by kernel name;
+             gvr_tpu_torch/kernels/timing.py) and the call's dispatch (its
+             CUDA-events time less the device time), and its plain
+             version's time (CUDA events), at the main path's shapes: K3
+             as the wavefronts launch it ([2 + 9, 65536]; also the two
+             launches it replaces and [9, 65536]), K2 65,536 rays at
+             N = 250, K1 the
              headline's 65,536-pixel chunk through the medium at spp 4 and
              spp 64, there also held against the plain version
              (testing.CHUNK_BARS); K1's phase split at both (an instrumented launch:
@@ -43,17 +49,20 @@ CLI.  One line per phase; any failure raises, so the exit code is non-zero.
   9 grid vs dense  render_multiscatter of random_gaussian_scene(120, 3,
              diameter 0.05-0.9) at 64^2 spp 16, engine='grid' against the
              megakernel: image means within 1 %
- 10 grid timing  K6 and K7 kernel and plain ms (CUDA events) at one
+ 10 grid timing  K6 and K7 device time, dispatch and plain ms at one
              iteration of the grid main path: K6 over the crossings of
              32,768 camera rays of the 512^2 image (tile-order chunk 4)
              and their 32,768 NEE rays, K7 over the scattered ones; both
              held there against their plain results at K6_BARS and
-             K7_BARS; the entries K7 solves and those its rays cross, and
-             K7's bound with its pre-test and of a walk of whole cells
+             K7_BARS; the entries K6 pre-tests and those its slots cross
+             (gridtrace.span_work), the entries K7 solves and those its
+             rays cross, and each bound with the pre-test and of a walk
+             of whole cells
  11 grid main  `gvr_tpu_torch.cli render` of random_gaussian_scene(10000, 0)
              at 512^2 spp 16, engine auto: grid build seconds, render
              seconds, Mpaths/s, iterations, extension rays/s; image finite
-             and not constant, K6/K7 launched, no plain version called
+             and not constant, K6/K7 launched, K3 launched once an
+             iteration, no plain version called
  12 K4/K5 vs plain  random_gaussian_scene(10000, 0) (Morton-sorted, 40
              chunks): 8,192 tile-order camera rays of the 512^2 image
              through the medium and 8,192 rays from inside it, with the
@@ -66,7 +75,8 @@ CLI.  One line per phase; any failure raises, so the exit code is non-zero.
              chunks and groups the plain tests do, ray for ray.  The share
              of rays over MAX_HITS, the chunks and groups admitted per ray
              and per warp
- 13 big timing  K4 and K5 kernel (CUDA events, 10 launches) and plain (2)
+ 13 big timing  K4 and K5 device time and dispatch (10 launches) and plain
+             ms (CUDA events, 2)
              at one iteration of the big main path: the 65,536 lanes of
              chunk 2 of the 512^2 image, primary rays and after one
              bounce; the chunks and groups admitted per ray and per warp
@@ -80,20 +90,23 @@ CLI.  One line per phase; any failure raises, so the exit code is non-zero.
              engine dense (K3, K4, K5): render seconds, Mpaths/s,
              iterations, chunks; image finite, not constant, its mean
              within 1 % of phase 11's grid image of the same scene,
-             camera, size, spp and seed; no plain version called
+             camera, size, spp and seed; K3 launched once an iteration,
+             no plain version called
  15 auto fallback  the fallback scene, whose grid exceeds S_CAP_MAX,
              through the CLI at 128^2 spp 4 with engine auto: dense with
              the big kernel, K4/K5 launched, host grid-build seconds,
              render seconds and Mpaths/s
 
 The last three lines: the nvidia-smi line, the kernels JSON (each kernel
-with its launches on its main path, its kernel and plain times, and its
-bound: the larger of its operations over 67 TFLOP/s and its bytes, each
-input read and each output written once, over 3.35 TB/s; K1, K4, K5 and
-K7 also with ``bound_ms_sweep``, the bound of the same work with a pair
-test of every pair instead of the culling, the pre-test and the
-crossed-pair lists; K1 also with ``bound_ms_pretest``, its own walk: a
-pre-test of every row instead of the group boxes), and the result JSON.  Without a CUDA card, or without the package beside
+with its launches on its main path, its device time (``ms``), its call's
+CUDA-events time and dispatch (``events_ms``, ``dispatch_us``), its plain
+version's time, and its bound: the larger of its operations over 67
+TFLOP/s and its bytes, each input read and each output written once,
+over 3.35 TB/s; K1, K4, K5, K6 and K7 also with ``bound_ms_sweep``, the
+bound of the same work with a pair test of every pair instead of the
+culling, the pre-test and the crossed-pair lists; K1 also with
+``bound_ms_pretest``, its own walk: a pre-test of every row instead of
+the group boxes), and the result JSON.  Without a CUDA card, or without the package beside
 it, the script exits non-zero before printing any result.
 """
 
@@ -153,9 +166,12 @@ CROSSED_EVAL_FLOPS = 13
 BOX_TEST_FLOPS = 19
 PRE_TEST_FLOPS = 56
 SOLVER_ITERS, GRID_SOLVER_ITERS = 12, 6     # the RenderConfig defaults
-# K3: integer operations a uniform (the splitmix32 chain of
-# csrc/rng.cuh: ~40 a (pixel, sample, bounce) key, ~14 a draw, of 9).
+# K3: integer operations (the splitmix32 chain of csrc/rng.cuh): ~40 a
+# (pixel, sample, bounce) key, ~20 of them its bounce half, ~14 a draw.
+# planes_uniforms keys an element once and draws 9; the wavefronts'
+# wave_uniforms keys a path once, two bounces, and draws 2 + 9.
 RNG_OPS_PER_KEY = 40 + 9 * 14
+RNG_OPS_PER_LANE = 40 + 20 + 11 * 14
 
 
 def log(phase, msg):
@@ -186,6 +202,15 @@ def bound(ops, nbytes):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def fmt_ms(t):
+    """A ``kernel_ms`` result as text: device time, the call's dispatch, its
+    CUDA-events time and the share of its launches the profiler
+    recorded."""
+    return (f"{t['ms']:.4f} ms (dispatch {t['dispatch_us']:.1f} us, events "
+            f"{t['events_ms']:.4f} ms, {t['recorded']:.0%} of the launches "
+            f"recorded)")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -210,6 +235,7 @@ def run(dev):
     from gvr_tpu_torch.io.ppm import read_ppm
     from gvr_tpu_torch.kernels import (_build, gridtrace, megatrace,
                                        pathtrace, pathtrace_big, rng)
+    from gvr_tpu_torch.kernels.timing import kernel_ms
     from gvr_tpu_torch.ops.sampling import dir_from_xi
     from gvr_tpu_torch.scene.generators import random_gaussian_scene
     from gvr_tpu_torch.scene.scene import parse_gmm
@@ -255,8 +281,15 @@ def run(dev):
             raise AssertionError(
                 f"K3: kernel != plain, max |diff| "
                 f"{(got - want).abs().max().item()}")
-    log("2 K3 rng", "kernel == plain (torch.equal) on [9, 512, 128], "
-        "bounce array and jitter tag")
+    lanes = RAYS - 1                   # not a multiple of the block
+    flat = [t.reshape(-1)[:lanes] for t in (pid, smp, bnc)]
+    got = rng.wave_uniforms(*flat, 0)
+    want = rng.wave_uniforms_reference(*flat, 0)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("K3 wave_uniforms: kernel != plain")
+    log("2 K3 rng", f"kernel == plain (torch.equal) on [9, 512, 128], "
+        f"bounce array and jitter tag; wave_uniforms [11, {lanes}]")
 
     # ---- 3: K2, the bounce kernel ----
     text250 = random_gaussian_scene(250, seed=0)
@@ -330,15 +363,30 @@ def run(dev):
         raise AssertionError("K1 250-Gaussian config misses its bars")
 
     # ---- 5: timing at the main path's shapes, K1 checked there too ----
+    # times[key] = (kernel_ms's dict, plain ms by CUDA events)
     times = {}
     ids1 = torch.arange(RAYS, dtype=torch.int32, device=dev)
+    buf = torch.empty((11, RAYS), dtype=torch.float32, device=dev)
     times["rng"] = (
-        cuda_ms(lambda: rng.planes_uniforms(ids1, ids1, ids1, 9, 0), 50)[0],
+        kernel_ms(lambda: rng.wave_uniforms(ids1, ids1, ids1, 0, out=buf),
+                  "wave_uniforms_kernel", 50)[0],
+        cuda_ms(lambda: rng.wave_uniforms_reference(ids1, ids1, ids1, 0),
+                10)[0])
+    # what one wavefront iteration launched before: the jitter pair and the
+    # bounce's draws in two launches
+    times["rng_two"] = (kernel_ms(lambda: (
+        rng.planes_uniforms(ids1, ids1, rng.JITTER_TAG, 2, 0),
+        rng.planes_uniforms(ids1, ids1, ids1, 9, 0)), "uniforms_kernel",
+        50, per_call=2)[0], None)
+    times["rng_planes"] = (
+        kernel_ms(lambda: rng.planes_uniforms(ids1, ids1, ids1, 9, 0),
+                  "uniforms_kernel", 50)[0],
         cuda_ms(lambda: rng.planes_uniforms_reference(ids1, ids1, ids1, 9,
                                                       0), 10)[0])
     args = (table250, o, d, xi, lights, env, 12, False)
     times["bounce"] = (
-        cuda_ms(lambda: pathtrace.bounce_step(*args), 10)[0],
+        kernel_ms(lambda: pathtrace.bounce_step(*args), "bounce_kernel",
+                  10)[0],
         cuda_ms(lambda: pathtrace.bounce_core_reference(*args), 3)[0])
     order = tile_order(MAIN_SIZE, MAIN_SIZE)
     chunk = torch.from_numpy(
@@ -350,15 +398,16 @@ def run(dev):
     for spp in (4, MAIN_SPP):
         cfg = RenderConfig(width=MAIN_SIZE, height=MAIN_SIZE, spp=spp)
         args = mega_args(sc250, cam1k, cfg, chunk)
-        k_ms, got = cuda_ms(lambda: megatrace.mega_call(*args), 3)
+        k_t, got = kernel_ms(lambda: megatrace.mega_call(*args),
+                             "mega_kernel", 3)
         t0 = time.perf_counter()
         p_ms, want = cuda_ms(lambda: megatrace.mega_reference(*args), 1,
                              warmup=spp == 4)
-        times[f"mega_spp{spp}"] = (k_ms, p_ms)
+        times[f"mega_spp{spp}"] = (k_t, p_ms)
         res = chunk_res[spp] = testing.chunk_agreement(got, want, spp)
         log("5 timing", f"K1 chunk {MEDIUM_CHUNK} ({len(chunk)} px, rows "
             f"{MEDIUM_CHUNK * 64}-{MEDIUM_CHUNK * 64 + 63}) spp {spp}: "
-            f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
+            f"kernel {fmt_ms(k_t)}, plain {p_ms:.3f} ms "
             f"({time.perf_counter() - t0:.1f} s); kernel vs plain "
             f"{json.dumps(res)} (bars {json.dumps(testing.CHUNK_BARS)})")
         phases = torch.zeros((len(megatrace.MEGA_PHASES), 3),
@@ -390,7 +439,9 @@ def run(dev):
                   * work["solve_pairs"])
     mega_bytes = table250.numel() * 4 + RAYS * (4 + 12 + 4)
     bounds = {
-        "rng": bound(RNG_OPS_PER_KEY * RAYS, 12 * 4 * RAYS),
+        # wave_uniforms: pid, sample, bounce in, 2 + 9 planes out
+        "rng": bound(RNG_OPS_PER_LANE * RAYS, (3 + 11) * 4 * RAYS),
+        "rng_planes": bound(RNG_OPS_PER_KEY * RAYS, (3 + 9) * 4 * RAYS),
         "bounce": bound(2 * RAYS * table250.shape[0] * PAIR_TEST_FLOPS,
                         table250.numel() * 4 + RAYS * (3 + 3 + 5 + 8) * 4),
         # each ray's box test of every group, a pre-test of each row of
@@ -415,13 +466,19 @@ def run(dev):
         if not res["ok"]:
             raise AssertionError(f"K1 at the main path's shape, spp {spp}, "
                                  f"misses its bars: {res}")
-    log("5 timing", f"K3 [9, {RAYS}]: kernel {times['rng'][0]:.4f} ms, plain "
-        f"{times['rng'][1]:.4f} ms; K2 {RAYS} rays N=250: kernel "
-        f"{times['bounce'][0]:.3f} ms, plain {times['bounce'][1]:.3f} ms "
+    log("5 timing", f"K3 wave_uniforms [11, {RAYS}]: kernel "
+        f"{fmt_ms(times['rng'][0])}, plain {times['rng'][1]:.4f} ms, bound "
+        f"{bounds['rng'][0]:.5f} ms; the two launches it replaces (planes "
+        f"[2] + [9]): {fmt_ms(times['rng_two'][0])}; planes_uniforms "
+        f"[9, {RAYS}]: kernel {fmt_ms(times['rng_planes'][0])}, plain "
+        f"{times['rng_planes'][1]:.4f} ms, bound "
+        f"{bounds['rng_planes'][0]:.5f} ms; K2 {RAYS} rays N=250: kernel "
+        f"{fmt_ms(times['bounce'][0])}, plain {times['bounce'][1]:.3f} ms "
         f"({smi})")
 
     # ---- 6: the main path through the CLI ----
     counters = (rng.planes_uniforms, rng.planes_uniforms_reference,
+                rng.wave_uniforms, rng.wave_uniforms_reference,
                 pathtrace.bounce_step, pathtrace.bounce_core_reference,
                 megatrace.mega_call, megatrace.mega_reference,
                 gridtrace.span_tau_pass, gridtrace.span_tau_reference,
@@ -456,6 +513,12 @@ def run(dev):
         missing = [k for k in kernels if launches[k] == 0]
         if missing:
             raise AssertionError(f"main path never launched {missing}")
+        if "wave_uniforms" in kernels and (
+                launches["wave_uniforms"] != stats["iterations"]
+                or launches["planes_uniforms"]):
+            raise AssertionError(f"K3 launched {launches['wave_uniforms']} "
+                                 f"+ {launches['planes_uniforms']} times in "
+                                 f"{stats['iterations']} iterations")
         plain = {k: v for k, v in launches.items()
                  if k.endswith("_reference") and v}
         if plain:
@@ -551,36 +614,46 @@ def run(dev):
     tmax2 = torch.cat([torch.full((n_ext,), 1e8, device=dev),
                        torch.where(scattered, tmax_n, 0.0)])
     cells2, _, t_out2 = dda_crossings(grid, o2, d2, tmax2)
-    k6_ms, got = cuda_ms(
-        lambda: gridtrace.span_tau_pass(grid, o2, d2, tmax2, cells2), 20)
+    k6_t, got = kernel_ms(
+        lambda: gridtrace.span_tau_pass(grid, o2, d2, tmax2, cells2),
+        "span_tau_kernel", 20)
     p_ms, want = cuda_ms(
         lambda: gridtrace.span_tau_reference(grid, o2, d2, tmax2, cells2), 2)
-    times["span_tau"] = (k6_ms, p_ms)
+    times["span_tau"] = (k6_t, p_ms)
     k6_main = testing.span_tau_agreement(got, want, grid, cells2, t_out2)
     k6_err = max(k6_err, k6_main["max_err"])
     dda_ms = cuda_ms(lambda: dda_crossings(grid, o2, d2, tmax2), 10)[0]
     args = (grid, o_e, d_e, tin_c, tout_c, resid, cell_c, 6)
-    k7_ms, got = cuda_ms(lambda: gridtrace.solve_pass(*args), 20)
+    k7_t, got = kernel_ms(lambda: gridtrace.solve_pass(*args),
+                          "grid_solve_kernel", 20)
     p_ms, want = cuda_ms(lambda: gridtrace.solve_reference(*args), 2)
-    times["grid_solve"] = (k7_ms, p_ms)
+    times["grid_solve"] = (k7_t, p_ms)
     k7_main = testing.solve_agreement(got, want, cell_c)
     log("10 grid timing", f"K6 over {int((cells2 >= 0).sum())} crossings of "
         f"{2 * n_ext} rays (chunk {GRID_CHUNK_INDEX} of {GRID_SIZE}^2 and "
-        f"its NEE rays): kernel {times['span_tau'][0]:.3f} ms, plain "
+        f"its NEE rays): kernel {fmt_ms(times['span_tau'][0])}, plain "
         f"{times['span_tau'][1]:.3f} ms, kernel vs plain "
         f"{json.dumps(k6_main)}; DDA (plain torch) {dda_ms:.3f} ms; "
         f"K7 over {int(scattered.sum())} scattered of {n_ext} rays: kernel "
-        f"{times['grid_solve'][0]:.3f} ms, plain "
+        f"{fmt_ms(times['grid_solve'][0])}, plain "
         f"{times['grid_solve'][1]:.3f} ms, kernel vs plain "
         f"{json.dumps(k7_main)} ({smi})")
     crossings = grid.cell_count[cells2[cells2 >= 0].long()].sum().item()
     solved = grid.cell_count[cell_c[cell_c >= 0].long()].sum().item()
     crossed7 = gridtrace.crossed_entries(grid, o_e, d_e, tin_c, tout_c,
                                          cell_c).sum().item()
+    visited6, crossed6 = (int(x.sum()) for x in gridtrace.span_work(
+        grid, o2, d2, tmax2, cells2))
     cell_bytes = grid.table.numel() * 4 + grid.n_cells * 8
-    bounds["span_tau"] = bound(crossings * PAIR_TEST_FLOPS,
-                               cell_bytes + o2.shape[0] * 7 * 4
-                               + cells2.numel() * 8)
+    k6_bytes = cell_bytes + o2.shape[0] * 7 * 4 + cells2.numel() * 8
+    # K6: a pre-test of each entry of each slot's cell where the slot's
+    # clip is not empty, a pair test and an evaluation of each entry that
+    # the ray crosses inside it; the sweep bound a pair test of every
+    # entry of every crossed cell instead
+    bounds["span_tau"] = bound(
+        visited6 * PRE_TEST_FLOPS
+        + crossed6 * (PAIR_TEST_FLOPS + CROSSED_EVAL_FLOPS), k6_bytes)
+    bounds["span_tau_sweep"] = bound(crossings * PAIR_TEST_FLOPS, k6_bytes)
     # K7: a pre-test for each entry of the solved cells and a pair test for
     # each entry the ray crosses, then the crossed entries in the tau pass,
     # the Newton steps and the albedo pass; the sweep bound a pair test of
@@ -592,8 +665,10 @@ def run(dev):
     bounds["grid_solve_sweep"] = bound(solved * PAIR_TEST_FLOPS
                                        + crossed_evals,
                                        cell_bytes + n_ext * 12 * 4)
-    log("10 grid timing", f"K6 {crossings} cell-entry visits, bound "
-        f"{bounds['span_tau'][0]:.4f} ms; K7 {solved} entries of solved "
+    log("10 grid timing", f"K6 {crossings} entries of crossed cells, "
+        f"{visited6} pre-tested (clip not empty), {crossed6} crossed, bound "
+        f"{bounds['span_tau'][0]:.4f} ms (walking whole cells "
+        f"{bounds['span_tau_sweep'][0]:.4f} ms); K7 {solved} entries of solved "
         f"cells, {crossed7} crossed, bound {bounds['grid_solve'][0]:.4f} ms "
         f"(walking whole cells {bounds['grid_solve_sweep'][0]:.4f} ms)")
     if not (k6_main["ok"] and k7_main["ok"]):
@@ -604,7 +679,7 @@ def run(dev):
     # ---- 11: the grid main path through the CLI ----
     stats, wall, launches_g, img_grid = cli_render(
         text10k, GRID_SIZE, GRID_SPP,
-        ["span_tau_pass", "solve_pass", "planes_uniforms"])
+        ["span_tau_pass", "solve_pass", "wave_uniforms"])
     if stats["engine"] != "grid":
         raise AssertionError(f"engine auto took {stats['engine']}")
     log("11 grid main", f"cli render {GRID_N} Gaussians {GRID_SIZE}^2 spp "
@@ -690,11 +765,12 @@ def run(dev):
     for label, o_, d_, x_ in (("primary", o13, d13, xi13[0]),
                               ("after one bounce", o13b, d13b, xi13[1])):
         args = (table10k, o_, d_, x_, lights10k)
-        k4_ms, s1 = cuda_ms(lambda: pb.big_stage1(*args, boxes=boxes10k),
-                            10)
+        k4_t, s1 = kernel_ms(lambda: pb.big_stage1(*args, boxes=boxes10k),
+                             "big_stage1_kernel", 10)
         p4_ms, s1_plain = cuda_ms(lambda: pb.big_stage1_reference(*args), 2)
-        k5_ms, li = cuda_ms(lambda: pb.big_nee(table10k, s1, env10k,
-                                               boxes10k), 10)
+        k5_t, li = kernel_ms(lambda: pb.big_nee(table10k, s1, env10k,
+                                                boxes10k), "big_nee_kernel",
+                             10)
         p5_ms, li_plain = cuda_ms(
             lambda: pb.big_nee_reference(table10k, s1, env10k), 2)
         res = testing.big_agreement(
@@ -706,8 +782,8 @@ def run(dev):
                                s1[10])
         crossed = st4["crossed"]
         key = "" if label == "primary" else "_bounce1"
-        times["big_stage1" + key] = (k4_ms, p4_ms)
-        times["big_nee" + key] = (k5_ms, p5_ms)
+        times["big_stage1" + key] = (k4_t, p4_ms)
+        times["big_nee" + key] = (k5_t, p5_ms)
         # K4: a box test for each (ray, chunk) and for each group of the
         # chunks the ray's box test admits, a pre-test for each pair of
         # the groups it admits and a pair test for each pair it crosses,
@@ -733,8 +809,8 @@ def run(dev):
                                                  k4_bytes)
         bounds["big_nee_sweep" + key] = bound(sweep_flops, k5_bytes)
         log("13 big timing", f"{label}, {RAYS} lanes of chunk "
-            f"{BIG_CHUNK_INDEX} of {GRID_SIZE}^2: K4 kernel {k4_ms:.3f} ms, "
-            f"plain {p4_ms:.3f} ms; K5 kernel {k5_ms:.3f} ms, plain "
+            f"{BIG_CHUNK_INDEX} of {GRID_SIZE}^2: K4 kernel {fmt_ms(k4_t)}, "
+            f"plain {p4_ms:.3f} ms; K5 kernel {fmt_ms(k5_t)}, plain "
             f"{p5_ms:.3f} ms; K4 chunks admitted per ray "
             f"{mean(st4['admitted']):.2f} and per warp "
             f"{mean(st4['warp']):.2f}, holding a crossed pair "
@@ -762,7 +838,7 @@ def run(dev):
     # ---- 14: the big-N main path through the CLI, against phase 11 ----
     stats, wall, launches_b, img_big = cli_render(
         text10k, GRID_SIZE, GRID_SPP,
-        ["big_stage1", "big_nee", "planes_uniforms"], engine="dense")
+        ["big_stage1", "big_nee", "wave_uniforms"], engine="dense")
     m_big, m_grid = float(img_big.mean()), float(img_grid.mean())
     log("14 big main", f"cli render {GRID_N} Gaussians {GRID_SIZE}^2 spp "
         f"{GRID_SPP} --engine dense ({stats['kernel']} kernel): render "
@@ -792,12 +868,15 @@ def run(dev):
                              f"({stats['kernel']}), not the big-N fallback")
 
     def entry(name, replaces, key, path_launches, launches_key, err):
+        t = times[key][0]
         return {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
                 "replaces": replaces,
                 "launches": path_launches[launches_key],
-                "max_abs_err": err, "ms": times[key][0],
-                "plain_ms": times[key][1], "bound_ms": bounds[key][0],
-                "bound_by": bounds[key][1], "library_ms": None}
+                "max_abs_err": err, "ms": t["ms"], "events_ms": t["events_ms"],
+                "dispatch_us": t["dispatch_us"], "recorded": t["recorded"],
+                "plain_ms": times[key][1],
+                "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+                "library_ms": None}
 
     kernels = [
         entry("mega", "gvr_tpu/kernels/megatrace.py:501",
@@ -806,7 +885,7 @@ def run(dev):
         entry("bounce", "gvr_tpu/kernels/pathtrace.py:465", "bounce",
               launches, "bounce_step", k2_err),
         entry("rng", "gvr_tpu/kernels/rng.py:86", "rng", launches_g,
-              "planes_uniforms", 0.0),
+              "wave_uniforms", 0.0),
         entry("span_tau", "gvr_tpu/kernels/gridtrace.py:217", "span_tau",
               launches_g, "span_tau_pass", k6_err),
         entry("grid_solve", "gvr_tpu/kernels/gridtrace.py:425",
@@ -818,19 +897,27 @@ def run(dev):
     ]
     # K2 runs on the dense main path as a device function inside the
     # megakernel, so its own launcher's count there is 0 by design; K3 too,
-    # and the grid main path launches it directly (its count is that run's).
+    # and the grid main path launches it directly, once an iteration, as
+    # wave_uniforms (its count is that run's; the big-N run's in
+    # launches_big)
     kernels[1]["inside"] = kernels[2]["inside"] = "mega"
+    kernels[2]["launches_big"] = launches_b["wave_uniforms"]
+    kernels[2]["ms_planes"] = times["rng_planes"][0]["ms"]
+    kernels[2]["bound_ms_planes"] = bounds["rng_planes"][0]
     for k in kernels[2:5]:
         k["path"] = "grid"
     for k in kernels[5:]:
         k["path"] = "big"
-        k["ms_bounce1"], k["plain_ms_bounce1"] = times[k["name"] + "_bounce1"]
+        t, k["plain_ms_bounce1"] = times[k["name"] + "_bounce1"]
+        k["ms_bounce1"] = t["ms"]
         k["bound_ms_bounce1"] = bounds[k["name"] + "_bounce1"][0]
         k["bound_ms_sweep"] = bounds[k["name"] + "_sweep"][0]
         k["bound_ms_sweep_bounce1"] = bounds[k["name"] + "_sweep_bounce1"][0]
-    kernels[0]["ms_spp4"], kernels[0]["plain_ms_spp4"] = times["mega_spp4"]
+    kernels[0]["ms_spp4"] = times["mega_spp4"][0]["ms"]
+    kernels[0]["plain_ms_spp4"] = times["mega_spp4"][1]
     kernels[0]["bound_ms_pretest"] = bounds["mega_pretest"][0]
     kernels[0]["bound_ms_sweep"] = bounds["mega_sweep"][0]
+    kernels[3]["bound_ms_sweep"] = bounds["span_tau_sweep"][0]
     kernels[4]["bound_ms_sweep"] = bounds["grid_solve_sweep"][0]
     print(smi)
     print(json.dumps({"kernels": kernels}))

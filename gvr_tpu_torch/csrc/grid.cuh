@@ -9,13 +9,16 @@
 // (interval + pair_over of bounce.cuh) with its interval clipped to the
 // cell crossing, so erf_lo is taken at the clipped lower end, as the TPU
 // kernels' _quants does; the TPU kernel's nine [s_cap*32, 128] VMEM
-// arrays have no counterpart in a thread's registers.  K6 walks the cell
-// once.  K7 walks it once for the cell's tau and bracket, behind the
-// division-free pre-test (may_cross), and keeps the offsets of the entries
+// arrays have no counterpart in a thread's registers.  Both walks run the
+// division-free pre-test (may_cross) ahead of interval(): a cell of the
+// 10k grid holds ~120 entries and a ray crosses ~2 of them (PERF.md).  One
+// thread walks a cell for a slot (K6) or a ray (K7), and the threads of a
+// warp take neighbouring rays, which mostly share the cell: a row load is
+// then one broadcast to the warp.  K6 walks the cell once.  K7 walks it
+// once for the cell's tau and bracket and keeps the offsets of the entries
 // its ray crosses; its solver_iters Newton passes, the finisher and the
-// albedo pass recompute only those (a solved cell holds ~120 entries on
-// the 10k grid, a ray crosses ~2; PERF.md), and a ray that crosses more
-// than MAX_HITS walks the whole cell in every pass, as before.
+// albedo pass recompute only those, and a ray that crosses more than
+// MAX_HITS walks the whole cell in every pass.
 #pragma once
 
 #include "bounce.cuh"
@@ -31,27 +34,10 @@ struct GridGeom {
   float cell[3];
 };
 
-// Calls f(pair) for every entry of the cell whose 3-sigma interval meets
-// [t_in, t_out], with the interval clipped to it.
-template <class F>
-__device__ __forceinline__ void for_each_cell_pair(
-    const float4* __restrict__ tab, int first, int count, const Ray& r,
-    float t_in, float t_out, F&& f) {
-  for (int g = first; g < first + count; ++g) {
-    float a_s, b, t0, t1, m2, dens_norm;
-    Pair p;
-    if (!interval(tab, g, r, a_s, b, t0, t1, m2, dens_norm, p.albedo))
-      continue;
-    const float lo = fmaxf(t0, t_in), hi = fminf(t1, t_out);
-    if (!(hi > lo)) continue;
-    pair_over(a_s, b, m2, dens_norm, lo, hi, p);
-    f(p);
-  }
-}
-
-// K7's walk: for_each_cell_pair over the entries first + hits[k], k <
-// n_hits, and behind the pre-test where `pretest` (the first pass).  The
-// same statements as for_each_cell_pair, so the same arithmetic.
+// K7's walk: calls f(pair, offset) for the entries first + hits[k], k <
+// n_hits (first + k where hits is null) whose 3-sigma interval meets
+// [t_in, t_out], with the interval clipped to it, behind the pre-test
+// where `pretest` (the first pass).
 template <class F>
 __device__ __forceinline__ void for_each_listed_pair(
     const float4* __restrict__ tab, int first, const uint16_t* hits,
@@ -76,19 +62,20 @@ __device__ __forceinline__ float safe_inv(float v) {
   return 1.0f / (fabsf(v) > eps ? v : (v >= 0.0f ? eps : -eps));
 }
 
-// K6 for one slot: the optical depth of the cell's entries over
-// ray ∩ cell box ∩ [0, tmax], the box recomputed from the cell id in the
-// float32 steps of gridtrace.py:176-198.
-__device__ __forceinline__ float cell_span_tau(
-    const float4* __restrict__ tab, int first, int count,
-    const GridGeom& g, int cell, const Ray& r, float tmax) {
+// ray ∩ cell box ∩ [0, tmax] as [t_lo, t_hi] (empty where !(t_hi > t_lo)),
+// the box recomputed from the cell id in the float32 steps of
+// gridtrace.py:176-198.
+__device__ __forceinline__ void cell_clip(const GridGeom& g, int cell,
+                                          const Ray& r, float tmax,
+                                          float& t_lo, float& t_hi) {
   const int iz = cell % g.sz;
   const int iy = (cell / g.sz) % g.sy;
   const int ix = cell / (g.sy * g.sz);
   const float ix_f[3] = {static_cast<float>(ix), static_cast<float>(iy),
                          static_cast<float>(iz)};
   const float o[3] = {r.ox, r.oy, r.oz}, d[3] = {r.dx, r.dy, r.dz};
-  float t_lo = -BIG, t_hi = BIG;
+  t_lo = -BIG;
+  t_hi = BIG;
   for (int ax = 0; ax < 3; ++ax) {
     const float inv = safe_inv(d[ax]);
     const float b0 = g.lo[ax] + ix_f[ax] * g.cell[ax];
@@ -99,10 +86,44 @@ __device__ __forceinline__ float cell_span_tau(
   }
   t_lo = fmaxf(t_lo, 0.0f);
   t_hi = fminf(t_hi, tmax);
+}
+
+// Rows a K6 thread pre-tests before it computes any pair of them: their
+// loads go out together, so a walk waits on one round trip for them.
+constexpr int K6_UNROLL = 2;
+
+// K6 for one slot: the optical depth of the cell's entries [first, first
+// + count) over ray ∩ cell box ∩ [0, tmax], behind the pre-test.  The
+// pairs and their sum are those of a plain walk of every entry (tau +=
+// pref * (erf_hi - erf_lo), which the compiler contracts to one FMA), in
+// entry order, so the pre-test, which passes every pair that interval()
+// finds ok, changes no bit.
+__device__ __forceinline__ float cell_span_tau(
+    const float4* __restrict__ tab, int first, int count,
+    const GridGeom& g, int cell, const Ray& r, float tmax) {
+  float t_lo, t_hi;
+  cell_clip(g, cell, r, tmax, t_lo, t_hi);
   float tau = 0.0f;
   if (!(t_hi > t_lo)) return tau;
-  for_each_cell_pair(tab, first, count, r, t_lo, t_hi,
-                     [&](const Pair& p) { tau += p.tau_i; });
+  const int end = first + count;
+  for (int e0 = first; e0 < end; e0 += K6_UNROLL) {
+    bool pass[K6_UNROLL];
+#pragma unroll
+    for (int u = 0; u < K6_UNROLL; ++u)
+      pass[u] = may_cross(tab, min(e0 + u, end - 1), r) && e0 + u < end;
+#pragma unroll
+    for (int u = 0; u < K6_UNROLL; ++u) {
+      float a_s, b, t0, t1, m2, dens_norm;
+      Pair p;
+      if (!pass[u] || !interval(tab, e0 + u, r, a_s, b, t0, t1, m2,
+                                dens_norm, p.albedo))
+        continue;
+      const float lo = fmaxf(t0, t_lo), hi = fminf(t1, t_hi);
+      if (!(hi > lo)) continue;
+      pair_over(a_s, b, m2, dens_norm, lo, hi, p);
+      tau += p.tau_i;
+    }
+  }
   return tau;
 }
 

@@ -4,6 +4,7 @@
 // cudaGetLastError() so a refused launch is reported.
 //
 //   gvr_uniforms    K3  counter-hash RNG     (gvr_tpu/kernels/rng.py:86)
+//   gvr_wave_uniforms   K3 for a wavefront iteration: jitter pair + bounce
 //   gvr_bounce      K2  one fused bounce     (gvr_tpu/kernels/pathtrace.py:465)
 //   gvr_mega        K1  pooled path loop     (gvr_tpu/kernels/megatrace.py:501)
 //   gvr_mega_resident   K1's blocks per SM and the SM count
@@ -34,6 +35,28 @@ __global__ void uniforms_kernel(const int* __restrict__ pid,
                seed_mix, seed_raw),
       b);
   for (int j = 0; j < n; ++j) out[static_cast<size_t>(j) * count + i] = draw(k, j);
+}
+
+// K3 for a wavefront iteration: one thread a lane computes its path key
+// once and writes the jitter pair (bounce tag JITTER_TAG) to planes 0-1 and
+// n draws of its bounce to planes 2 .. n + 1.  out [2 + n, count].
+__global__ void wave_uniforms_kernel(const int* __restrict__ pid,
+                                     const int* __restrict__ sample,
+                                     const int* __restrict__ bounce,
+                                     int count, int n, uint32_t seed_mix,
+                                     uint32_t seed_raw,
+                                     float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  const PathKey pk =
+      path_key(static_cast<uint32_t>(pid[i]),
+               static_cast<uint32_t>(sample[i]), seed_mix, seed_raw);
+  const BounceKey kj = bounce_key(pk, JITTER_TAG);
+  out[i] = draw(kj, 0);
+  out[count + i] = draw(kj, 1);
+  const BounceKey kb = bounce_key(pk, static_cast<uint32_t>(bounce[i]));
+  for (int j = 0; j < n; ++j)
+    out[static_cast<size_t>(j + 2) * count + i] = draw(kb, j);
 }
 
 __device__ __forceinline__ Lights make_lights(const float* rows, int n,
@@ -384,35 +407,58 @@ __global__ void __launch_bounds__(MEGA_BLOCK, 6)
   }
 }
 
-// K6: one thread per (ray, crossing) slot of cells [n_rays, c_max].
-// Consecutive threads take consecutive rays at one crossing index, so a
-// warp of coherent rays tends to share cells and rows.  out [n_rays, c_max].
-__global__ void span_tau_kernel(const float4* __restrict__ tab,
-                                const int* __restrict__ cell_first,
-                                const int* __restrict__ cell_count,
-                                GridGeom geom, const float* __restrict__ o,
-                                const float* __restrict__ d,
-                                const float* __restrict__ tmax,
-                                const int* __restrict__ cells, int n_rays,
-                                int c_max, float* __restrict__ out) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (i >= static_cast<int64_t>(n_rays) * c_max) return;
-  const int k = static_cast<int>(i / n_rays);
-  const int ray = static_cast<int>(i - static_cast<int64_t>(k) * n_rays);
-  const int64_t slot = static_cast<int64_t>(ray) * c_max + k;
-  const int cell = cells[slot];
-  float tau = 0.0f;
-  if (cell >= 0) {
-    const int count = cell_count[cell];
-    if (count > 0) {
-      const Ray r = {o[3 * ray], o[3 * ray + 1], o[3 * ray + 2],
-                     d[3 * ray], d[3 * ray + 1], d[3 * ray + 2]};
-      tau = cell_span_tau(tab, cell_first[cell], count, geom, cell, r,
-                          tmax[ray]);
-    }
+// K6: a block takes K6_BLOCK consecutive (ray, crossing) items of cells
+// [n_rays, c_max], item i being crossing k = i / n_rays of ray i % n_rays,
+// so neighbouring threads take neighbouring rays, which mostly share a
+// cell.  An item whose cell is -1 or empty writes 0; the block lists the
+// others in item order in shared memory, and its first threads walk them,
+// one a thread (cell_span_tau), so the lanes of a walking warp hold no
+// empty slot (about half of a wavefront iteration's).  out [n_rays, c_max].
+constexpr int K6_BLOCK = 128;
+
+__global__ void __launch_bounds__(K6_BLOCK)
+    span_tau_kernel(const float4* __restrict__ tab,
+                    const int* __restrict__ cell_first,
+                    const int* __restrict__ cell_count, GridGeom geom,
+                    const float* __restrict__ o, const float* __restrict__ d,
+                    const float* __restrict__ tmax,
+                    const int* __restrict__ cells, int n_rays, int c_max,
+                    float* __restrict__ out) {
+  __shared__ int live_item[K6_BLOCK];
+  __shared__ int warp_live[K6_BLOCK / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * K6_BLOCK;
+  const auto slot_of = [&](int64_t i) {
+    const int k = static_cast<int>(i / n_rays);
+    const int ray = static_cast<int>(i - static_cast<int64_t>(k) * n_rays);
+    return static_cast<int64_t>(ray) * c_max + k;
+  };
+  bool live = false;
+  if (base + threadIdx.x < static_cast<int64_t>(n_rays) * c_max) {
+    const int64_t slot = slot_of(base + threadIdx.x);
+    const int cell = cells[slot];
+    live = cell >= 0 && cell_count[cell] > 0;
+    if (!live) out[slot] = 0.0f;
   }
-  out[slot] = tau;
+  const unsigned vote = __ballot_sync(FULL_WARP, live);
+  if (lane == 0) warp_live[warp] = __popc(vote);
+  __syncthreads();
+  int at = __popc(vote & ((1u << lane) - 1u)), n_live = 0;
+  for (int w = 0; w < K6_BLOCK / 32; ++w) {
+    at += w < warp ? warp_live[w] : 0;
+    n_live += warp_live[w];
+  }
+  if (live) live_item[at] = threadIdx.x;
+  __syncthreads();
+  if (threadIdx.x < n_live) {
+    const int64_t slot = slot_of(base + live_item[threadIdx.x]);
+    const int ray = static_cast<int>(slot / c_max);
+    const int cell = cells[slot];
+    const Ray r = {o[3 * ray], o[3 * ray + 1], o[3 * ray + 2],
+                   d[3 * ray], d[3 * ray + 1], d[3 * ray + 2]};
+    out[slot] = cell_span_tau(tab, cell_first[cell], cell_count[cell], geom,
+                              cell, r, tmax[ray]);
+  }
 }
 
 // K7: one thread per ray; rays without a live cell (cell -1 or an empty
@@ -460,6 +506,18 @@ int gvr_uniforms(const int* pid, const int* sample, const int* bounce,
     gvr::uniforms_kernel<<<(count + threads - 1) / threads, threads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
         pid, sample, bounce, static_bounce, count, n, seed_mix, seed_raw, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int gvr_wave_uniforms(const int* pid, const int* sample, const int* bounce,
+                      int count, int n, uint32_t seed_mix, uint32_t seed_raw,
+                      float* out, void* stream) {
+  if (count > 0) {
+    const int threads = 256;
+    gvr::wave_uniforms_kernel<<<(count + threads - 1) / threads, threads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+        pid, sample, bounce, count, n, seed_mix, seed_raw, out);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -539,7 +597,7 @@ int gvr_span_tau(const float* tab, const int* cell_first,
   const gvr::GridGeom geom = {sx, sy, sz, {lox, loy, loz}, {clx, cly, clz}};
   const int64_t total = static_cast<int64_t>(n_rays) * c_max;
   if (total > 0) {
-    const int threads = 128;
+    const int threads = gvr::K6_BLOCK;
     gvr::span_tau_kernel<<<static_cast<unsigned>((total + threads - 1) /
                                                   threads),
                            threads, 0, static_cast<cudaStream_t>(stream)>>>(

@@ -32,7 +32,7 @@ from gvr_tpu_torch.config import RenderConfig
 from gvr_tpu_torch.kernels.gridtrace import solve_pass, span_tau_pass
 from gvr_tpu_torch.kernels.megatrace import INV_4PI, strat_n, strat_uv
 from gvr_tpu_torch.kernels.pathtrace import FOUR_PI
-from gvr_tpu_torch.kernels.rng import JITTER_TAG, planes_uniforms
+from gvr_tpu_torch.kernels.rng import BOUNCE_DRAWS, wave_uniforms
 from gvr_tpu_torch.ops.sampling import dir_from_xi
 from gvr_tpu_torch.scene.scene import Scene
 
@@ -145,11 +145,6 @@ def wavefront_pixels_grid_pooled(scene: Scene, grid: GridIndex, camera,
     cap = spp * cfg.max_bounces + cfg.max_bounces + 1
     f32 = dict(dtype=torch.float32, device=dev)
 
-    def make_ray(px, smp):
-        jit = planes_uniforms(px, smp, JITTER_TAG, 2, cfg.seed)
-        u, v = strat_uv(px % w, px // w, smp, n_strat, w, h, jit[0], jit[1])
-        return camera.sample_ray(torch.stack([u, v], dim=-1))
-
     o = torch.zeros((b, 3), **f32)
     d = torch.ones((b, 3), **f32)
     thr = torch.ones((b, 3), **f32)
@@ -165,6 +160,7 @@ def wavefront_pixels_grid_pooled(scene: Scene, grid: GridIndex, camera,
     p_val = torch.zeros((b, 3), **f32)
     p_g = torch.full((b,), pool_n, dtype=torch.int64, device=dev)
     ext_rays = torch.zeros((), dtype=torch.int64, device=dev)
+    planes = torch.empty((2 + BOUNCE_DRAWS, b), **f32)   # K3's, reused
     next_g, it = 0, 0
     while it < cap:
         # the one host read of the iteration: live lanes, pending NEE
@@ -183,14 +179,17 @@ def wavefront_pixels_grid_pooled(scene: Scene, grid: GridIndex, camera,
         smp = torch.where(regen, (g_new % spp).to(torch.int32), smp)
         next_g = min(next_g + b - n_alive, pool_n)
 
-        o_n, d_n = make_ray(px, torch.where(regen, smp, 0))
+        bounce = torch.where(regen, 0, bounce)
+        # one K3 launch: the jitter pair (used where regen), then xi [9, B]
+        jit, xi = wave_uniforms(px, smp, bounce, cfg.seed,
+                                out=planes).split([2, BOUNCE_DRAWS])
+        u, v = strat_uv(px % w, px // w, smp, n_strat, w, h, jit[0], jit[1])
+        o_n, d_n = camera.sample_ray(torch.stack([u, v], dim=-1))
         o = torch.where(regen[:, None], o_n, o)
         d = torch.where(regen[:, None], d_n, d)
         thr = torch.where(regen[:, None], 1.0, thr)
-        bounce = torch.where(regen, 0, bounce)
         alive = alive | regen
         ext_rays += alive.sum()
-        xi = planes_uniforms(px, smp, bounce, 9, cfg.seed)       # [9, B]
 
         # one DDA and K6 pass over [extension rays ; pending NEE rays]
         tau2, cells2, tin2, tout2 = grid_tau_crossings(

@@ -38,7 +38,7 @@ from gvr_tpu_torch.kernels.pathtrace import MEGA_MAX_GAUSSIANS, pack_table
 from gvr_tpu_torch.kernels.pathtrace_big import (bounce_step_big,
                                                  chunk_boxes, n_chunks_for,
                                                  pack_rows, plan)
-from gvr_tpu_torch.kernels.rng import JITTER_TAG, planes_uniforms
+from gvr_tpu_torch.kernels.rng import BOUNCE_DRAWS, wave_uniforms
 from gvr_tpu_torch.ops.sampling import dir_from_xi
 from gvr_tpu_torch.scene.scene import Scene
 
@@ -138,6 +138,7 @@ def wavefront_pixels_big(scene: Scene, camera, cfg: RenderConfig,
     alive = torch.zeros(b, dtype=torch.bool, device=dev)
     sample = torch.zeros(b, dtype=torch.int32, device=dev)
     bounce = torch.zeros(b, dtype=torch.int32, device=dev)
+    planes = torch.empty((2 + BOUNCE_DRAWS, b), **f32)   # K3's, reused
     evals = 0
     it, cap = 0, spp * cfg.max_bounces + cfg.max_bounces
     while it < cap:
@@ -147,21 +148,22 @@ def wavefront_pixels_big(scene: Scene, camera, cfg: RenderConfig,
         if live.numel() == 0:
             break
         regen = ~alive & (sample < spp)
-        s_new = torch.where(regen, sample, 0)
-        jit = planes_uniforms(ids, s_new, JITTER_TAG, 2, cfg.seed)
-        u, v = strat_uv(ids % w, ids // w, s_new, n_strat, w, h, jit[0],
+        bounce = torch.where(regen, 0, bounce)
+        sample = torch.where(regen, sample + 1, sample)
+        # one K3 launch keyed by each lane's current sample (the new one
+        # where regen): the jitter pair, used where regen, then xi [9, B]
+        s_cur = torch.clamp(sample, min=1) - 1
+        jit, xi = wave_uniforms(ids, s_cur, bounce, cfg.seed,
+                                out=planes).split([2, BOUNCE_DRAWS])
+        u, v = strat_uv(ids % w, ids // w, s_cur, n_strat, w, h, jit[0],
                         jit[1])
         o_n, d_n = camera.sample_ray(torch.stack([u, v], dim=-1))
         o = torch.where(regen[:, None], o_n, o)
         d = torch.where(regen[:, None], d_n, d)
         thr = torch.where(regen[:, None], 1.0, thr)
-        bounce = torch.where(regen, 0, bounce)
-        sample = torch.where(regen, sample + 1, sample)
         alive = alive | regen
         evals += live.numel()
 
-        xi = planes_uniforms(ids, torch.clamp(sample, min=1) - 1, bounce, 9,
-                             cfg.seed)                          # [9, B]
         # K4/K5 trace the live lanes only, in lane order; the others' results
         # are masked below, as in JAX, where every lane is traced
         res = bounce_step_big(table, o[live], d[live], xi[:5, live].T,

@@ -38,6 +38,7 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, \
 # launches nothing and takes none)
 SIGNATURES = {
     "gvr_uniforms": [_P, _P, _P, _U, _I, _I, _U, _U, _P, _P],
+    "gvr_wave_uniforms": [_P, _P, _P, _I, _I, _U, _U, _P, _P],
     "gvr_bounce": [_P, _I, _P, _P, _P, _I, _P, _I, _P, _I, _I, _P, _P],
     "gvr_mega": [_P, _P, _I, _P, _I, _P, _I, _P, _F, _I, _I, _I, _I, _U,
                  _U, _I, _I, _I, _F, _I, _F, _I, _I, _I, _P, _P, _P, _P],

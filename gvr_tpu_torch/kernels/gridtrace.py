@@ -22,16 +22,21 @@ kernels' math on [slots, max cell count] gathers of the table, chunked so
 that a 65,536-ray batch fits in device memory.
 
 Kernels (``csrc/grid.cuh`` device functions, ``csrc/kernels.cu``
-launchers ``gvr_span_tau`` and ``gvr_grid_solve``): one thread per slot
-(K6) or per ray (K7), looping over its cell's entries
-[cell_first, cell_first + cell_count) and recomputing each pair from its
-64-byte row in every pass, as K2 does.  The TPU work lists (cell sorts,
-dummy items, the un-sort) are gone: they avoided per-item gathers, which
-are cheap on the GPU.  Both kernels are bound by the special-function
-units (erf/exp per pair per pass) and by how evenly a warp's threads
-share cells: K6 maps consecutive threads to consecutive rays at one
-crossing index.  K7 takes rays in the caller's order; sorting them by
-cell first cost more than it saved on the H100 (PERF.md).
+launchers ``gvr_span_tau`` and ``gvr_grid_solve``): one thread walks a
+cell's entries [cell_first, cell_first + cell_count), 64-byte rows, for a
+slot (K6) or a ray (K7), behind the division-free pre-test ``may_cross``:
+a ray crosses ~2 of a cell's ~120 entries on the 10k grid, so the
+pre-test of every entry is most of the work (``span_work`` counts it for
+K6's bound).  Neighbouring threads take neighbouring rays, which mostly
+share the cell, so a row load is one broadcast to the warp.  K6's block
+lists its non-empty slots in shared memory before the walk, so empty
+slots (about half of an iteration's) hold no lane of a walking warp.  K7
+lists the entries its ray crosses for its later passes.  The TPU work
+lists (cell sorts, dummy items, the un-sort) are gone: they avoided
+per-item gathers, which are cheap on the GPU.  K7 takes rays in the
+caller's order; sorting them by cell first cost more than it saved on the
+H100, and so did K6 teams of lanes that pre-test neighbouring rows of one
+slot's cell (PERF.md).
 """
 
 from __future__ import annotations
@@ -232,6 +237,31 @@ def crossed_entries(grid: GridIndex, o, d, t_in, t_out, cells):
         n[i] = _quants(col, ray, t_in[i][:, None], t_out[i][:, None],
                        mask)[-1].sum(dim=1)
     return n
+
+
+def span_work(grid: GridIndex, o, d, tmax, cells):
+    """The work K6 needs for each slot of ``span_tau_reference``'s
+    arguments: (visited, crossed), int64 [R,C].  visited: the entries of
+    the slot's cell where ray ∩ cell box ∩ [0, tmax] is not empty (K6
+    pre-tests each), 0 for an empty slot, cell or clip; crossed: those
+    whose interval meets that clip (a pair test and an evaluation each),
+    for measurements."""
+    r, c = cells.shape
+    flat = cells.reshape(-1).long()
+    visited = torch.zeros(r * c, dtype=torch.int64, device=o.device)
+    crossed = torch.zeros_like(visited)
+    slot = torch.nonzero(flat >= 0).squeeze(1)
+    slot = slot[grid.cell_count[flat[slot]] > 0]
+    for part, k in _chunks(grid, flat[slot], slot.shape[0]):
+        s = slot[part]
+        cell, ray_i = flat[s], s // c
+        ray = [v[ray_i][:, None] for v in (*o.T, *d.T)]
+        t_in, t_out = _cell_box_clip(grid, cell, ray, tmax[ray_i][:, None])
+        col, mask = _cell_rows(grid, cell, k)
+        visited[s] = torch.where(t_out[:, 0] > t_in[:, 0],
+                                 grid.cell_count[cell].long(), 0)
+        crossed[s] = _quants(col, ray, t_in, t_out, mask)[-1].sum(dim=1)
+    return visited.reshape(r, c), crossed.reshape(r, c)
 
 
 def check_grid(grid: GridIndex, dev) -> None:

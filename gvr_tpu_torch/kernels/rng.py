@@ -10,11 +10,15 @@ chain runs on int64 masked to 32 bits.  A product of two 32-bit values
 overflows int64, so every multiply is split into 16-bit halves
 (``_mul32``) and every intermediate stays below 2^49.
 
-Kernel (``csrc/rng.cuh`` device function, ``csrc/kernels.cu:gvr_uniforms``
-launcher): one thread per (r, l) element, native uint32 arithmetic.  About
-60 integer ops per draw and 4 bytes written per draw, so it is bound by the
-output writes; the device function is what the megakernel (K1) inlines, and
-the standalone launcher exists for tests and for chip_smoke.py.
+Kernels (``csrc/rng.cuh`` device functions): one thread a lane, native
+uint32 arithmetic, ~40 integer ops a (pixel, sample, bounce) key and ~14 a
+draw, 4 bytes written a draw, so bound by the output writes.  The
+megakernel (K1) inlines them.  The grid and big-N wavefronts launch
+``wave_uniforms`` (``kernels.cu:gvr_wave_uniforms``) once an iteration: it
+keys a lane's path once and writes the jitter pair and the bounce's draws
+in one launch, where two launches paid their host dispatch twice.
+``planes_uniforms`` (``kernels.cu:gvr_uniforms``, one key an element)
+stays for the tests and chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -124,3 +128,53 @@ def planes_uniforms(pid, sample, bounce, n: int, seed: int = 0):
 
 
 planes_uniforms.launches = 0
+
+
+# Draws of a bounce that the wavefronts' K3 launch writes after the jitter
+# pair: the bounce's xi[0..8] (free flight, NEE choice and direction, RR,
+# the scattered direction)
+BOUNCE_DRAWS = 9
+
+
+def wave_uniforms_reference(pid, sample, bounce, seed: int = 0):
+    """Plain version of the wavefront's K3 launch: [2 + BOUNCE_DRAWS,
+    *pid.shape] float32, the jitter pair (bounce tag JITTER_TAG) of each
+    (pid, sample) and then the draws of its bounce."""
+    wave_uniforms_reference.launches += 1
+    return torch.stack(
+        uniform_cols(pid, sample, JITTER_TAG, 2, seed)
+        + uniform_cols(pid, sample, bounce, BOUNCE_DRAWS, seed), dim=0)
+
+
+wave_uniforms_reference.launches = 0
+
+
+def wave_uniforms(pid, sample, bounce, seed: int = 0, out=None):
+    """One wavefront iteration's uniforms, [2 + BOUNCE_DRAWS, B] float32:
+    planes 0-1 the jitter pair of (pid, sample), the others the draws of
+    (pid, sample, bounce), each bit-exact with path_uniforms.  pid, sample,
+    bounce: int32 [B].  ``out``, if given, is the float32 output buffer to
+    write (a loop allocates it once).  A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises."""
+    if pid.device.type == "cpu":
+        res = wave_uniforms_reference(pid, sample, bounce, seed)
+        return res if out is None else out.copy_(res)
+    dev = pid.device
+    b = pid.shape[0]
+    for name, t in (("pid", pid), ("sample", sample), ("bounce", bounce)):
+        _build.check(t, name, torch.int32, (b,), dev)
+    if out is None:
+        out = torch.empty((2 + BOUNCE_DRAWS, b), dtype=torch.float32,
+                          device=dev)
+    _build.check(out, "out", torch.float32, (2 + BOUNCE_DRAWS, b), dev)
+    seed_mix, seed_raw = seed_words(seed)
+    _build.launch(
+        "gvr_wave_uniforms", _build.ptr(pid), _build.ptr(sample),
+        _build.ptr(bounce), ctypes.c_int(b), ctypes.c_int(BOUNCE_DRAWS),
+        ctypes.c_uint32(seed_mix), ctypes.c_uint32(seed_raw),
+        _build.ptr(out), device=dev)
+    wave_uniforms.launches += 1
+    return out
+
+
+wave_uniforms.launches = 0

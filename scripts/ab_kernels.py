@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """A/B of the CUDA kernels of several checkouts on one card.
 
-    python scripts/ab_kernels.py TREE [TREE ...] [--only k1,k2,k7,big]
-                                 [--out FILE]
+    python scripts/ab_kernels.py TREE [TREE ...]
+        [--only k1,k2,k3,grid,big,renders] [--out FILE]
 
 Each TREE is a directory that holds a ``gvr_tpu_torch`` package: a
 checkout of this repository (for example an older commit unpacked with
 ``git archive``) or a copy of the package with an edited kernel.  One
 worker process a tree, in turns: the trees in order, then in reverse
 (A B B A for two).  Each worker builds its tree's kernels and times them
-(CUDA events, mean of several launches after a warm-up) on inputs made
-from fixed seeds, so every tree gets the same inputs.  Sections:
+on inputs made from fixed seeds, so every tree gets the same inputs: each
+kernel's device time by torch.profiler and its call's dispatch (CUDA
+events less device time; ``gvr_tpu_torch/kernels/timing.py`` of this
+checkout, loaded by path, so older trees are timed alike).  Sections:
 - k1: K1 on the headline's chunk 9 (random_gaussian_scene(250, 0), 1024^2
   tile order, 65,536 pixels through the medium) at spp 4 and 64, its
   phase split where the tree's ``mega_call`` takes ``phases`` (a second,
@@ -21,11 +23,19 @@ from fixed seeds, so every tree gets the same inputs.  Sections:
   RR from bounce 1, the tail cap from bounce 3);
 - k2: K2 on chip_smoke phase 3's 65,536 random rays at N = 250, finisher
   off and on;
-- k7: K6 and K7 at one grid iteration's shapes (chip_smoke phase 10: the
-  10k scene's grid, 32,768 camera rays of tile-order chunk 4 of 512^2);
+- k3: K3 as a wavefront iteration launches it, on 65,536 lanes: one
+  ``wave_uniforms`` launch where the tree has it, else the two
+  ``planes_uniforms`` launches (the jitter pair, the bounce's nine draws)
+  it replaces; the [2 + 9, B] planes;
+- grid: K6 and K7 at one grid iteration's shapes, built as chip_smoke
+  phase 10 builds them (the 10k scene's grid, 32,768 camera rays of
+  tile-order chunk 4 of 512^2 and their 32,768 NEE rays; u and the NEE
+  draws from seed 10);
 - big: K4 and K5 on chip_smoke phases 12 and 13's rays of the 10k scene
-  and on the S_CAP_MAX fallback scene's rays, and (first turn) the 10k
-  scene at 256^2 spp 16 with engine dense.
+  and on the S_CAP_MAX fallback scene's rays;
+- renders (first turn of each tree): the 10k scene at 512^2 spp 16 with
+  engine auto (the grid) and with engine dense (the big-N engine), the
+  images and render seconds.
 The main process prints each worker's times and compares each tree's
 outputs with the first tree's: K1's evaluation counts pixel for pixel and
 its radiance at this checkout's ``testing.CHUNK_BARS`` (the order of its
@@ -37,6 +47,7 @@ Needs a CUDA card; imports neither JAX nor the JAX package.
 """
 
 import argparse
+import importlib.util
 import inspect
 import json
 import math
@@ -44,24 +55,31 @@ import os
 import subprocess
 import sys
 import tempfile
-import time
 
-SECTIONS = ("k1", "k2", "k7", "big")
+SECTIONS = ("k1", "k2", "k3", "grid", "big", "renders")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _timed(fn, reps):
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        res = fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps, res
+def _kernel_ms():
+    """This checkout's timing.kernel_ms, loaded by path: the worker's
+    ``gvr_tpu_torch`` is the tree's, which may predate it."""
+    spec = importlib.util.spec_from_file_location(
+        "_ab_timing", os.path.join(ROOT, "gvr_tpu_torch", "kernels",
+                                   "timing.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.kernel_ms
+
+
+def _timed(res, key, fn, kernel, reps, per_call=1):
+    """fn's result; res['times'][key] gets the device ms of ``kernel`` a
+    call, res['dispatch_us'][key] the call's dispatch, res['recorded'][key]
+    the share of the launches the profiler recorded."""
+    t, out = _kernel_ms()(fn, kernel, reps, per_call)
+    res["times"][key] = t["ms"]
+    res["dispatch_us"][key] = t["dispatch_us"]
+    res["recorded"][key] = t["recorded"]
+    return out
 
 
 def _k1(dev, res, tensors):
@@ -98,8 +116,9 @@ def _k1(dev, res, tensors):
     for spp, reps in ((4, 10), (64, 4)):
         cfg = RenderConfig(width=1024, height=1024, spp=spp)
         args = args_of(sc, cam, cfg, chunk)
-        ms, (rad, count) = _timed(lambda: megatrace.mega_call(*args), reps)
-        res["times"][f"k1_spp{spp}_ms"] = ms
+        rad, count = _timed(res, f"k1_spp{spp}_ms",
+                            lambda: megatrace.mega_call(*args), "mega_kernel",
+                            reps)
         tensors[f"K1 chunk 9 spp {spp}"] = (rad.cpu(), count.cpu(), spp)
         if takes_phases:
             ph = torch.zeros((4, 3), dtype=torch.int64, device=dev)
@@ -137,18 +156,41 @@ def _k2(dev, res, tensors):
                 for a in (o, d, xi))
     table = pathtrace.pack_table(sc.medium)
     for fin in (False, True):
-        ms, out = _timed(lambda: pathtrace.bounce_step(
-            table, o, d, xi, sc.lights(), sc.env_color, 12, fin), 10)
-        res["times"][f"k2_finisher{int(fin)}_ms"] = ms
+        out = _timed(res, f"k2_finisher{int(fin)}_ms",
+                     lambda: pathtrace.bounce_step(
+                         table, o, d, xi, sc.lights(), sc.env_color, 12,
+                         fin), "bounce_kernel", 10)
         for k, t in enumerate(out):
             tensors[f"K2 finisher {fin} output {k}"] = t.cpu()
 
 
-def _k7(dev, res, tensors):
+def _k3(dev, res, tensors):
     import numpy as np
     import torch
 
-    from gvr_tpu_torch.accel.grid import build_grid
+    from gvr_tpu_torch.kernels import rng
+
+    r = np.random.default_rng(3)
+    pid, smp, bnc = (torch.from_numpy(r.integers(0, hi, 65536)
+                                      .astype(np.int32)).to(dev)
+                     for hi in (2**31 - 1, 1 << 20, 64))
+    if hasattr(rng, "wave_uniforms"):
+        buf = torch.empty((11, 65536), dtype=torch.float32, device=dev)
+        planes = _timed(res, "k3_ms", lambda: rng.wave_uniforms(
+            pid, smp, bnc, 0, out=buf), "wave_uniforms_kernel", 50)
+    else:
+        planes = torch.cat(_timed(res, "k3_ms", lambda: (
+            rng.planes_uniforms(pid, smp, rng.JITTER_TAG, 2, 0),
+            rng.planes_uniforms(pid, smp, bnc, 9, 0)), "uniforms_kernel",
+            50, per_call=2))
+    tensors["K3 planes [2 + 9, 65536]"] = planes.cpu()
+
+
+def _grid(dev, res, tensors):
+    import numpy as np
+    import torch
+
+    from gvr_tpu_torch.accel.grid import build_grid, dda_crossings
     from gvr_tpu_torch.cameras import PinholeCamera
     from gvr_tpu_torch.integrators import gridscatter
     from gvr_tpu_torch.integrators.multiscatter import tile_order
@@ -160,35 +202,46 @@ def _k7(dev, res, tensors):
     grid = build_grid(sc.medium)
     cam = PinholeCamera.create([0, 1, 6], [0, 1, 0], math.radians(45.0),
                                device=dev)
-    px = torch.from_numpy(tile_order(512, 512)[4 * 32768:5 * 32768]).to(dev)
+    n = 32768
+    px = torch.from_numpy(tile_order(512, 512)[4 * n:5 * n]).to(dev)
     uv = torch.stack([(px % 512 + 0.5) / 512, (px // 512 + 0.5) / 512],
                      dim=-1).float()
     o, d = cam.sample_ray(uv)
-    u = torch.tensor(np.random.default_rng(10).uniform(size=32768),
-                     dtype=torch.float32, device=dev)
-    tau, cells, t_in, t_out = gridscatter.grid_tau_crossings(grid, o, d)
-    tensors["K6 tau"] = tau.cpu()
-    _, _, cell_c, tin_c, tout_c, resid = gridscatter.critical_crossing(
-        grid, tau, cells, t_in, t_out, u)
-    tmax = torch.full((32768,), 1e8, device=dev)
-    ms6, _ = _timed(lambda: gridtrace.span_tau_pass(grid, o, d, tmax,
-                                                    cells), 20)
+    xi = torch.tensor(np.random.default_rng(10).uniform(size=(n, 5)),
+                      dtype=torch.float32, device=dev)
+    # the kernels' inputs from the plain versions, the same in every tree
+    cells, t_in, t_out = dda_crossings(grid, o, d)
+    tau = gridtrace.span_tau_reference(grid, o, d, torch.full(
+        (n,), 1e8, device=dev), cells)
+    scattered, _, cell_c, tin_c, tout_c, resid = \
+        gridscatter.critical_crossing(grid, tau, cells, t_in, t_out, xi[:, 0])
     args = (grid, o, d, tin_c, tout_c, resid, cell_c, 6)
-    ms7, (t_sc, albedo) = _timed(lambda: gridtrace.solve_pass(*args), 20)
-    res["times"].update(k6_ms=ms6, k7_ms=ms7)
+    t_sc, albedo = _timed(res, "k7_ms", lambda: gridtrace.solve_pass(*args),
+                          "grid_solve_kernel", 20)
     tensors["K7 t_sc"] = t_sc.cpu()
     tensors["K7 albedo"] = albedo.cpu()
+    # K6 over the camera rays and their NEE rays, as chip_smoke phase 10
+    t_sc = gridtrace.solve_reference(*args)[0]
+    pos = o + torch.clamp(t_sc, min=0.0)[:, None] * d
+    wi, tmax_n, _, _ = gridscatter._nee_select(sc, pos, xi[:, 1], xi[:, 2],
+                                               xi[:, 3:5])
+    o2, d2 = torch.cat([o, pos]), torch.cat([d, wi])
+    tmax2 = torch.cat([torch.full((n,), 1e8, device=dev),
+                       torch.where(scattered, tmax_n, 0.0)])
+    cells2 = dda_crossings(grid, o2, d2, tmax2)[0]
+    tensors["K6 tau"] = _timed(
+        res, "k6_ms", lambda: gridtrace.span_tau_pass(grid, o2, d2, tmax2,
+                                                      cells2),
+        "span_tau_kernel", 20).cpu()
 
 
-def _big(dev, res, tensors, render):
+def _big(dev, res, tensors):
     import numpy as np
     import torch
 
     from gvr_tpu_torch import testing
     from gvr_tpu_torch.cameras import PinholeCamera
-    from gvr_tpu_torch.config import RenderConfig
-    from gvr_tpu_torch.integrators.multiscatter import (render_multiscatter,
-                                                        tile_order)
+    from gvr_tpu_torch.integrators.multiscatter import tile_order
     from gvr_tpu_torch.kernels import pathtrace_big as pb
     from gvr_tpu_torch.ops.sampling import dir_from_xi
     from gvr_tpu_torch.scene.generators import random_gaussian_scene
@@ -233,18 +286,35 @@ def _big(dev, res, tensors, render):
         table = pb.pack_rows(sc.medium)
         k4, k5 = kernels(table, None if boxes_of is None
                          else boxes_of(sc.medium))
-        k4_ms, s1 = _timed(lambda: k4(o, d, xi, sc.lights()), 10)
-        k5_ms, li = _timed(lambda: k5(s1, sc.env_color), 10)
-        res["times"][name] = {"k4_ms": k4_ms, "k5_ms": k5_ms}
+        s1 = _timed(res, name + " k4_ms", lambda: k4(o, d, xi, sc.lights()),
+                    "big_stage1_kernel", 10)
+        li = _timed(res, name + " k5_ms", lambda: k5(s1, sc.env_color),
+                    "big_nee_kernel", 10)
         tensors[name + " K4"] = s1.cpu()
         tensors[name + " K5"] = li.cpu()
-    if render:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        img = render_multiscatter(sc10k, cam, RenderConfig(
-            width=256, height=256, spp=16, engine="dense"), device=dev)
-        res["render_256_seconds"] = time.perf_counter() - t0
-        tensors["big render 256^2 spp 16"] = torch.from_numpy(img)
+
+
+def _renders(dev, res, tensors):
+    import torch
+
+    from gvr_tpu_torch.cameras import PinholeCamera
+    from gvr_tpu_torch.config import RenderConfig
+    from gvr_tpu_torch.integrators.multiscatter import render_multiscatter
+    from gvr_tpu_torch.scene.generators import random_gaussian_scene
+    from gvr_tpu_torch.scene.scene import parse_gmm
+
+    cam = PinholeCamera.create([0, 1, 6], [0, 1, 0], math.radians(45.0),
+                               device=dev)
+    sc = parse_gmm(random_gaussian_scene(10_000, seed=0), device=dev)
+    for engine in ("auto", "dense"):
+        st = {}
+        img = render_multiscatter(sc, cam, RenderConfig(
+            width=512, height=512, spp=16, engine=engine), device=dev,
+            stats=st)
+        res[f"render_512_{engine}"] = {k: st[k] for k in (
+            "engine", "kernel", "seconds", "iterations")}
+        tensors[f"render 512^2 spp 16 engine {engine} ({st['engine']})"] = \
+            torch.from_numpy(img)
 
 
 def _worker(tree: str, out: str, render: bool, only) -> None:
@@ -259,13 +329,14 @@ def _worker(tree: str, out: str, render: bool, only) -> None:
     build = _build.build()
     _build.library()
     res = {"tree": tree, "build_seconds": build["seconds"],
-           "device": torch.cuda.get_device_name(0), "times": {}}
+           "device": torch.cuda.get_device_name(0), "times": {},
+           "dispatch_us": {}, "recorded": {}}
     tensors = {}
+    sections = {"k1": _k1, "k2": _k2, "k3": _k3, "grid": _grid, "big": _big,
+                "renders": _renders}
     for name in only:
-        if name == "big":
-            _big(dev, res, tensors, render)
-        else:
-            {"k1": _k1, "k2": _k2, "k7": _k7}[name](dev, res, tensors)
+        if name != "renders" or render:
+            sections[name](dev, res, tensors)
     torch.save({"res": res, "tensors": tensors}, out)
 
 

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_common import port_camera, port_scene, random_rays
+from _torch_common import box_rays, port_camera, port_scene, random_rays
 from gvr_tpu.cameras import PinholeCamera as JPinhole
 from gvr_tpu.config import RenderConfig as JConfig
 from gvr_tpu.integrators.multiscatter import wavefront_pixels as jax_wavefront
@@ -252,40 +252,6 @@ def test_empty_chunk_box_is_missed():
 BOX_SCENES = {2100: dict(seed=0), 2300: dict(seed=0, diameter=(2.0, 4.0))}
 
 
-def _box_rays(medium, kind: str, n: int = 768, seed: int = 0):
-    """(o, d, tmax or None) of one kind: camera rays over the whole 512^2
-    image; rays from inside the box of the means; NEE segments from inside
-    points to the generator's 3 lights (tmax their distance) or in random
-    directions (tmax 0.02-1.5); rays along an axis or in an axis plane."""
-    r = np.random.default_rng(seed)
-    mean = medium.mean.numpy()
-    inside = r.uniform(mean.min(0), mean.max(0), (n, 3))
-    dirs = r.normal(size=(n, 3))
-    tmax = None
-    if kind == "camera":
-        cam = PinholeCamera.create([0, 1, 6], [0, 1, 0], math.radians(45.0))
-        o, d = cam.sample_ray(torch.tensor(r.uniform(size=(n, 2)),
-                                           dtype=torch.float32))
-        return o, d.contiguous(), None
-    if kind == "nee":
-        lights = np.array([[0.0, 5.0, 0.1], [-3.0, 3.0, 0.3],
-                           [3.0, 3.0, -0.2]])
-        to = lights[r.integers(0, 3, n)] - inside
-        dist = np.linalg.norm(to, axis=1)
-        env = r.uniform(size=n) < 0.5
-        dirs = np.where(env[:, None], dirs, to)
-        tmax = np.where(env, r.uniform(0.02, 1.5, n), dist)
-    if kind == "axis":
-        dirs = np.zeros((n, 3))
-        dirs[np.arange(n), r.integers(0, 3, n)] = r.choice([-1.0, 1.0], n)
-        half = n // 2
-        dirs[half:] = r.normal(size=(n - half, 3))
-        dirs[np.arange(half, n), r.integers(0, 3, n - half)] = 0.0
-    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
-    f32 = lambda a: torch.tensor(a, dtype=torch.float32)
-    return f32(inside), f32(dirs), None if tmax is None else f32(tmax)
-
-
 def _crossed(table, o, d, tmax=None):
     """[N, B] bool: the pairs a ray crosses by ``_interval`` (a NEE
     segment: those that start before tmax), over chunks of 256 rays."""
@@ -311,7 +277,7 @@ def test_box_test_is_conservative(n, kind):
     0; and on the small Gaussians the tests cull."""
     medium = parse_gmm(random_gaussian_scene(n, **BOX_SCENES[n])).medium
     table, boxes = tpb.pack_rows(medium), tpb.chunk_boxes(medium)
-    o, d, tmax = _box_rays(medium, kind)
+    o, d, tmax = box_rays(medium, kind)
     ok = _crossed(table, o, d, tmax)
     n_c = table.shape[0] // tpb.G
     hit_groups = ok.reshape(n_c, 8, tpb.GROUP, -1).any(2).permute(2, 0, 1)
@@ -343,7 +309,7 @@ def test_pre_test_passes_every_ok_pair(n):
     table = tpb.pack_rows(medium)
     o, d = [], []
     for kind in ("camera", "inside", "nee"):
-        oo, dd, _ = _box_rays(medium, kind, n=512)
+        oo, dd, _ = box_rays(medium, kind, n=512)
         o += [oo, oo * 20.0] if kind == "camera" else [oo]
         d += [dd, dd] if kind == "camera" else [dd]
     o, d = torch.cat(o), torch.cat(d)
@@ -370,7 +336,7 @@ def test_group_boxes_are_conservative(n, kind):
     boxes, rows = tmt.group_boxes(table)
     assert rows.tolist() == [tpb.GROUP] * (n // tpb.GROUP) + (
         [n % tpb.GROUP] if n % tpb.GROUP else [])
-    o, d, tmax = _box_rays(medium, kind, n=512)
+    o, d, tmax = box_rays(medium, kind, n=512)
     ok = _crossed(table, o, d, tmax)[:n][torch.from_numpy(
         morton_order(table[:n, 13:16].numpy()))]
     hit = torch.nn.functional.pad(ok, (0, 0, 0, -n % tpb.GROUP)).view(

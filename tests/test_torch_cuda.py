@@ -65,6 +65,27 @@ def test_uniforms_kernel_matches_plain(cuda_device):
         assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("lanes", [70_001, 255, 1])
+def test_wave_uniforms_kernel_matches_plain(cuda_device, lanes):
+    """The wavefronts' one K3 launch (jitter pair + nine bounce draws) at
+    lane counts that are not a multiple of its 256-thread block, into a
+    fresh output and into a given buffer."""
+    r = np.random.default_rng(6)
+    pid, s, b = (torch.from_numpy(r.integers(0, hi, lanes)
+                                  .astype(np.int32)).to(cuda_device)
+                 for hi in (2**31 - 1, 1 << 20, 64))
+    want = trng.wave_uniforms_reference(pid, s, b, 2**31 + 5)
+    got = trng.wave_uniforms(pid, s, b, 2**31 + 5)
+    buf = torch.full((11, lanes), -1.0, device=cuda_device)
+    assert trng.wave_uniforms(pid, s, b, 2**31 + 5, out=buf) is buf
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(buf, want)
+    with pytest.raises(ValueError, match="out"):
+        trng.wave_uniforms(pid, s, b, 0, out=buf[:10])
+    with pytest.raises(ValueError, match="bounce"):
+        trng.wave_uniforms(pid, s, b.long(), 0)
+
+
 @pytest.mark.parametrize("finisher", [False, True])
 @pytest.mark.parametrize("n_lights", [0, 3])
 def test_bounce_kernel_matches_plain(cuda_device, finisher, n_lights):
@@ -247,6 +268,56 @@ def test_span_tau_kernel_matches_plain(cuda_device, with_tmax):
     torch.cuda.synchronize()
     res = span_tau_agreement(got, want, grid, cells, t_out)
     assert res["slots"] > 1000 and res["ok"], res
+
+
+@pytest.mark.parametrize("case", ["empty cells", "clipped spans",
+                                  "crowded cells"])
+def test_span_tau_kernel_slot_edges(cuda_device, case):
+    """K6 against its plain version on a 2,000-Gaussian grid, whose live
+    slots have cells of up to ~200 entries, beside empty slots (cell -1)
+    that its blocks drop before the walk: with a third of the occupied
+    cells emptied (count 0), or with the cells of the whole line and a
+    tmax of 0.3-3 that leaves many later slots' spans empty.  Those slots
+    give exactly 0, the others meet K6_BARS.  And on 600 Gaussians of
+    diameter 1-2 on a 3^3 grid, where a ray crosses most entries of its
+    cells, so a walk that strays past a cell's last entry (its rows are
+    pre-tested K6_UNROLL at a time) adds a pair of the next cell."""
+    import dataclasses
+    text = (random_gaussian_scene(600, seed=0, diameter=(1.0, 2.0))
+            if case == "crowded cells" else
+            random_gaussian_scene(2000, seed=1))
+    sc = parse_gmm(text, device=cuda_device)
+    grid = build_grid(sc.medium)
+    o, d = _grid_rays(cuda_device)
+    n = o.shape[0]
+    if case == "crowded cells":
+        tmax = torch.full((n,), 1e8, device=cuda_device)
+    elif case == "empty cells":
+        drop = torch.arange(grid.n_cells, device=cuda_device) % 3 == 0
+        grid = dataclasses.replace(grid, cell_count=torch.where(
+            drop, 0, grid.cell_count).to(torch.int32).contiguous())
+        tmax = torch.full((n,), 1e8, device=cuda_device)
+    else:
+        tmax = torch.linspace(0.3, 3.0, n, device=cuda_device)
+    cells, t_in, t_out = dda_crossings(grid, o, d)
+    got = tgt.span_tau_pass(grid, o, d, tmax, cells)
+    want = tgt.span_tau_reference(grid, o, d, tmax, cells)
+    torch.cuda.synchronize()
+    res = span_tau_agreement(got, want, grid, cells, t_out)
+    assert res["slots"] > 1000 and res["ok"], res
+    counts = grid.cell_count[cells.clamp(min=0).long()]
+    # empty slots, empty cells, and cells the segment reaches only past
+    # tmax (by a margin over the rounding of the two clips)
+    empty = (cells < 0) | (counts == 0) | (t_in > tmax[:, None] + 1e-4)
+    assert bool((cells < 0).any()) and not bool(got[empty].any())
+    visited, crossed = tgt.span_work(grid, o, d, tmax, cells)
+    assert int((got > 0).sum()) > 500
+    if case == "crowded cells":
+        assert int(crossed.sum()) > 0.5 * int(visited.sum())
+        assert bool((counts[visited > 0] % 2 == 1).any())
+    else:
+        assert int(((cells >= 0) & empty).sum()) > 100
+        assert bool((counts[visited > 0] > 32).any())
 
 
 @pytest.mark.parametrize("n", [120, 2000])

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_common import port_camera, port_scene
+from _torch_common import box_rays, port_camera, port_scene
 from gvr_tpu.accel.grid import build_grid as jax_build_grid
 from gvr_tpu.accel.grid import dda_crossings as jax_dda
 from gvr_tpu.cameras import PinholeCamera as JPinhole
@@ -34,6 +34,7 @@ from gvr_tpu_torch.integrators import gridscatter as tgs
 from gvr_tpu_torch.integrators.multiscatter import (GRID_MIN_N, engine_for,
                                                     render_multiscatter)
 from gvr_tpu_torch.kernels import gridtrace as tgt
+from gvr_tpu_torch.kernels.pathtrace import may_cross_reference
 from gvr_tpu_torch.scene.convert import GRID_FIELDS, grid_from_numpy
 from gvr_tpu_torch.scene.gaussians import GaussianMixture
 from gvr_tpu_torch.scene.scene import parse_gmm
@@ -347,6 +348,82 @@ def test_engine_for_s_cap_fallback(mixture2500, monkeypatch):
     assert engine_for(RenderConfig(), mixture2500) == "dense"
     with pytest.raises(ValueError, match="S_CAP_MAX"):
         engine_for(RenderConfig(engine="grid"), mixture2500)
+
+
+# K6's ray kinds: "nee past tmax" lists the cells of the whole line, so
+# the slots beyond a segment's tmax have an empty clip
+K6_KINDS = ["camera", "inside", "nee", "nee past tmax"]
+
+
+def _k6_slots(grid, medium, kind):
+    """K6's inputs for 48 rays of one kind (tests/_torch_common.box_rays;
+    NEE segments with their tmax) on ``grid``: (o, d, tmax, cells)."""
+    o, d, tmax = box_rays(medium, kind.split()[0], n=48, seed=5)
+    if tmax is None:
+        tmax = torch.full((o.shape[0],), 1e8)
+    cells, _, _ = tgrid.dda_crossings(
+        grid, o, d, None if kind == "nee past tmax" else tmax)
+    return o, d, tmax, cells
+
+
+def _slot_pairs(grid, o, d, tmax, cells):
+    """Yield (ray, cell rows [count, 16], clip (t_in, t_out) [1, 1], ok
+    [count]) for every slot with a non-empty cell, one slot at a time:
+    the plain _quants over the cell's whole entry range."""
+    for r, k in torch.nonzero(cells >= 0).tolist():
+        cell = cells[r, k:k + 1].long()
+        first, count = int(grid.cell_first[cell]), int(grid.cell_count[cell])
+        if count == 0:
+            continue
+        rows = grid.table[first:first + count]
+        ray = [v[r].reshape(1, 1) for v in (*o.T, *d.T)]
+        t_in, t_out = tgt._cell_box_clip(grid, cell, ray,
+                                         tmax[r].reshape(1, 1))
+        ok = tgt._quants(lambda f: rows[None, :, f], ray, t_in, t_out,
+                         torch.ones((1, count), dtype=torch.bool))[-1][0]
+        yield r, k, rows, (t_in, t_out), ok
+
+
+@pytest.mark.parametrize("kind", K6_KINDS)
+def test_span_work_counts_each_slot(mixture2500, kind):
+    """gridtrace.span_work, which K6's bound counts, against a slot by slot
+    count from the plain _quants on a grid above GRID_MIN_N: visited is
+    the cell's entries where the slot's clip is not empty (0 for an empty
+    slot, cell or clip), crossed its ok pairs."""
+    grid = tgs.grid_for(mixture2500)
+    o, d, tmax, cells = _k6_slots(grid, mixture2500, kind)
+    visited, crossed = tgt.span_work(grid, o, d, tmax, cells)
+    want_v = torch.zeros_like(visited)
+    want_c = torch.zeros_like(crossed)
+    for r, k, rows, (t_in, t_out), ok in _slot_pairs(grid, o, d, tmax,
+                                                     cells):
+        want_v[r, k] = rows.shape[0] if float(t_out) > float(t_in) else 0
+        want_c[r, k] = int(ok.sum())
+    assert torch.equal(visited, want_v) and torch.equal(crossed, want_c)
+    assert int(crossed.sum()) > 0
+    if kind == "nee past tmax":
+        live = cells >= 0
+        assert bool((visited[live] == 0).any())
+    assert int(crossed.sum()) < 0.2 * int(visited.sum())
+
+
+@pytest.mark.parametrize("kind", K6_KINDS)
+def test_k6_pretest_passes_every_ok_pair(mixture2500, kind):
+    """K6 runs the division-free pre-test (may_cross) ahead of interval():
+    every pair the plain walk finds ok on a slot's clipped span passes
+    may_cross_reference, for camera rays, rays from inside the medium and
+    NEE segments with their tmax, on a grid above GRID_MIN_N; so the rows
+    the pre-test skips add exactly 0."""
+    grid = tgs.grid_for(mixture2500)
+    o, d, tmax, cells = _k6_slots(grid, mixture2500, kind)
+    n_ok = n_rows = n_passed = 0
+    for r, _, rows, _, ok in _slot_pairs(grid, o, d, tmax, cells):
+        passed = may_cross_reference(rows, o[r:r + 1], d[r:r + 1])[:, 0]
+        assert not (ok & ~passed).any()
+        n_ok += int(ok.sum())
+        n_rows += rows.shape[0]
+        n_passed += int(passed.sum())
+    assert n_ok > 0 and n_passed < 0.2 * n_rows
 
 
 def test_config_grid_defaults_match_jax():

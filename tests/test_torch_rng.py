@@ -65,3 +65,40 @@ def test_mix32_py_matches_jax_kernel_helper():
     from gvr_tpu.kernels.rng import _mix32_py
     for x in (0, 1, 2**31, 2**32 - 1, 0xDEADBEEF):
         assert trng.mix32_py(x) == _mix32_py(x)
+
+
+@pytest.mark.parametrize("bounce", ["array", "static"])
+@pytest.mark.parametrize("seed", [0, 2**31 + 77])
+def test_wave_uniforms_plain_is_both_launches(bounce, seed):
+    """The wavefronts' one K3 launch (plain version on the CPU): planes 0-1
+    are the jitter pair and planes 2-10 the bounce's nine draws, each bit
+    for bit the separate planes_uniforms_reference call it replaces and
+    JAX's path_uniforms, with a bounce array and with one bounce for
+    every lane (a static bounce on the old side)."""
+    pid, sample, b = _triples(seed & 0xFFFF)
+    pid, sample, b = pid[:5000], sample[:5000], b[:5000]
+    b_old = b if bounce == "array" else 5
+    b_new = b if bounce == "array" else np.full_like(b, 5)
+    t = lambda a: torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+    before = (trng.wave_uniforms_reference.launches,
+              trng.wave_uniforms.launches)
+    got = trng.wave_uniforms(t(pid), t(sample), t(b_new), seed)
+    assert (trng.wave_uniforms_reference.launches,
+            trng.wave_uniforms.launches) == (before[0] + 1, before[1])
+    assert got.dtype == torch.float32 and got.shape == (11, 5000)
+    jit = trng.planes_uniforms_reference(t(pid), t(sample), trng.JITTER_TAG,
+                                         2, seed)
+    xi = trng.planes_uniforms_reference(t(pid), t(sample), t(b_old), 9, seed)
+    assert torch.equal(got[:2], jit) and torch.equal(got[2:], xi)
+    j = lambda a: jnp.asarray(a) if isinstance(a, np.ndarray) else a
+    s = jnp.asarray(np.uint32(seed))
+    want_jit = np.asarray(jax_path_uniforms(j(pid), j(sample),
+                                            trng.JITTER_TAG, 2, s))
+    want_xi = np.asarray(jax_path_uniforms(j(pid), j(sample), j(b_old), 9,
+                                           s))
+    assert np.array_equal(got[:2].numpy().T, want_jit)
+    assert np.array_equal(got[2:].numpy().T, want_xi)
+    out = torch.empty((11, 5000))
+    assert trng.wave_uniforms(t(pid), t(sample), t(b_new), seed,
+                              out=out) is out
+    assert torch.equal(out, got)
