@@ -5,8 +5,10 @@
 
 Builds the CUDA kernels from gvr_tpu_torch/csrc (nvcc, at first use), holds
 each kernel against its plain PyTorch version on the card, times both at
-the main path's shapes, and renders the headline configuration through the
-CLI.  One line per phase; any failure raises, so the exit code is non-zero.
+the main path's shapes, and renders the headline configuration and the
+other forward paths (the dense XLA engine, single scatter, the ray
+marchers, the hit mask) through the CLI.  One line per phase; any failure
+raises, so the exit code is non-zero.
 
   0 card     nvidia-smi name and power limit, torch and nvcc versions
   1 build    nvcc seconds and ptxas register/spill lines
@@ -96,6 +98,31 @@ CLI.  One line per phase; any failure raises, so the exit code is non-zero.
              through the CLI at 128^2 spp 4 with engine auto: dense with
              the big kernel, K4/K5 launched, host grid-build seconds,
              render seconds and Mpaths/s
+ 16 xla engine  the solvers the kernels do not implement take the dense
+             XLA engine (plain PyTorch over [rays, N] arrays) through the
+             CLI: random_gaussian_scene(250, 0) at 512^2 spp 16 with
+             --solver bisection, analytic_bisection and uniform, each image
+             finite and not constant, the first two (the exact solvers)
+             with their means within 1 % of the megakernel's
+             analytic_newton image at the same size and seed (UNIFORM is
+             biased by design; its mean is reported); K3 launched
+             once an iteration, K1 and every plain version not called;
+             render seconds, Mpaths/s, iterations.  Then the 10k scene at
+             128^2 spp 4 with --solver bisection: engine auto takes the XLA
+             engine, its chunk within the 2^25-element budget
+ 17 card vs cpu  the XLA engine (bisection and uniform, spp 4), single
+             scatter (spp 4), both ray marchers (a coarser step, fewer
+             environment samples) and the hit mask at 32^2 through the
+             CLI on the card
+             and with --device cpu: testing.CARD_CPU_BARS (image means
+             within 0.5 %, per-pixel mean |diff| below 1e-3; the hit mask
+             equal on 99.9 % of the pixels), K3 launched as each path
+             draws (once an iteration, twice a chunk and sample, once a
+             march step), no plain version called on the card
+ 18 at size  single scatter 512^2 spp 16, the analytic marcher at the
+             CLI's step and environment samples at 256^2, the pure
+             marcher at step 0.05 at 128^2, the hit mask at 1024^2:
+             render seconds, chunk, steps, K3 launches
 
 The last three lines: the nvidia-smi line, the kernels JSON (each kernel
 with its launches on its main path, its device time (``ms``), its call's
@@ -134,6 +161,41 @@ GRID_CHUNK_INDEX = 4       # rows 256-319 of the 512^2 image, the centre
 BIG_RAYS = 8192            # phase 12: camera rays, and as many inside
 BIG_CHUNK_INDEX = 2        # rows 256-383 of the 512^2 image, 65,536 lanes
 FALLBACK = dict(n=8000, seed=0, diameter=(2.0, 4.0))   # S_CAP_MAX refuses
+# The dense XLA engine (phase 16): the headline scene at 512^2 spp 16 with
+# each solver the kernels do not implement, and the 10k scene at 128^2
+# spp 4 with bisection, which engine auto sends there too.
+XLA_SIZE, XLA_SPP = 512, 16
+XLA_SOLVERS = ("bisection", "analytic_bisection", "uniform")
+XLA_BIG = (GRID_N, 128, 4)
+# Phase 17: each new path at 32^2 on the card and on the CPU (the
+# marchers at a coarser step and fewer environment samples than the
+# CLI's, so the CPU's render stays short): (label, CLI arguments, spp,
+# kernels it must launch on the card)
+CARD_CPU_SIZE = 32
+SLICE_PATHS = (
+    ("multiscatter xla", ["--solver", "bisection"], 4, ["wave_uniforms"]),
+    ("multiscatter xla uniform", ["--solver", "uniform"], 4,
+     ["wave_uniforms"]),
+    ("singlescatter", ["--integrator", "singlescatter"], 4,
+     ["planes_uniforms"]),
+    ("raymarch", ["--integrator", "raymarch", "--step-size", "0.02",
+                  "--env-samples", "8"], 1, ["planes_uniforms"]),
+    ("pureraymarch", ["--integrator", "pureraymarch", "--step-size", "0.1",
+                      "--env-samples", "4"], 1, ["planes_uniforms"]),
+    ("hitmask", ["--integrator", "hitmask"], 1, []),
+)
+# Phase 18: the integrators at size: (label, size, spp, CLI arguments,
+# kernels).  The analytic marcher at the CLI's step (0.01) and environment
+# samples (20) at 256^2, the pure marcher at step 0.05 and 128^2, both cut
+# from the CLI's 512^2 so the phase stays within about a minute.
+AT_SIZE = (
+    ("singlescatter", 512, 16, ["--integrator", "singlescatter"],
+     ["planes_uniforms"]),
+    ("raymarch", 256, 1, ["--integrator", "raymarch"], ["planes_uniforms"]),
+    ("pureraymarch", 128, 1, ["--integrator", "pureraymarch",
+                              "--step-size", "0.05"], ["planes_uniforms"]),
+    ("hitmask", 1024, 1, ["--integrator", "hitmask"], []),
+)
 # The card's peaks (NVIDIA H100 SXM data sheet): float32 outside the
 # tensor cores and HBM bandwidth.  A kernel's bound is the larger of its
 # operations over the first and its bytes over the second.
@@ -486,11 +548,10 @@ def run(dev):
                 pathtrace_big.big_stage1, pathtrace_big.big_stage1_reference,
                 pathtrace_big.big_nee, pathtrace_big.big_nee_reference)
 
-    def cli_render(text, size, spp, kernels, engine="auto"):
-        """Render ``text`` through the CLI with every count set to 0 just
-        before; returns (stats, wall seconds, launches, image) after
-        checking the image, that each of ``kernels`` was launched and that
-        no plain version was called."""
+    def cli_image(text, size, spp, device, args=()):
+        """(stats, wall seconds, launches, image) of ``text`` rendered
+        through the CLI on ``device`` with ``args``, every count set to 0
+        just before."""
         with tempfile.TemporaryDirectory() as tmp:
             scene_path = os.path.join(tmp, "scene.txt")
             out_path = os.path.join(tmp, "out.ppm")
@@ -502,10 +563,18 @@ def run(dev):
             stats = cli.main(["render", scene_path, "-o", out_path,
                               "--width", str(size), "--height", str(size),
                               "--spp", str(spp), "--stats", "--device",
-                              str(dev), "--engine", engine])
+                              str(device)] + list(args))
             wall = time.perf_counter() - t0
             launches = {fn.__name__: fn.launches for fn in counters}
-            img = read_ppm(out_path)
+            return stats, wall, launches, read_ppm(out_path)
+
+    def cli_render(text, size, spp, kernels, engine="auto", args=()):
+        """Render ``text`` through the CLI on the card with every count set
+        to 0 just before; returns (stats, wall seconds, launches, image)
+        after checking the image, that each of ``kernels`` was launched
+        and that no plain version was called."""
+        stats, wall, launches, img = cli_image(
+            text, size, spp, dev, ["--engine", engine] + list(args))
         if img.shape != (size, size, 3) or not np.isfinite(img).all() \
                 or img.std() == 0:
             raise AssertionError(f"main path image: shape {img.shape}, "
@@ -513,12 +582,18 @@ def run(dev):
         missing = [k for k in kernels if launches[k] == 0]
         if missing:
             raise AssertionError(f"main path never launched {missing}")
-        if "wave_uniforms" in kernels and (
-                launches["wave_uniforms"] != stats["iterations"]
-                or launches["planes_uniforms"]):
-            raise AssertionError(f"K3 launched {launches['wave_uniforms']} "
-                                 f"+ {launches['planes_uniforms']} times in "
-                                 f"{stats['iterations']} iterations")
+        # K3's launches: wave_uniforms once a wavefront iteration, or
+        # planes_uniforms as the other integrators draw (their
+        # k3_launches: twice a chunk and sample in single scatter, once a
+        # march step in the marchers)
+        for k3, other, due in (
+                ("wave_uniforms", "planes_uniforms", "iterations"),
+                ("planes_uniforms", "wave_uniforms", "k3_launches")):
+            if k3 in kernels and (launches[k3] != stats[due]
+                                  or launches[other]):
+                raise AssertionError(
+                    f"K3 launched {launches[k3]} + {launches[other]} times "
+                    f"where {stats[due]} were due")
         plain = {k: v for k, v in launches.items()
                  if k.endswith("_reference") and v}
         if plain:
@@ -867,6 +942,89 @@ def run(dev):
         raise AssertionError(f"engine auto took {stats['engine']} "
                              f"({stats['kernel']}), not the big-N fallback")
 
+    # ---- 16: the dense XLA engine, the solvers the kernels do not have ----
+    stats, wall, _, img_k1 = cli_render(text250, XLA_SIZE, XLA_SPP,
+                                        ["mega_call"])
+    m_k1 = float(img_k1.mean())
+    log("16 xla engine", f"reference: cli render 250 Gaussians {XLA_SIZE}^2 "
+        f"spp {XLA_SPP} --solver analytic_newton ({stats['kernel']} "
+        f"kernel) {stats['seconds']:.3f} s, image mean {m_k1:.6f}")
+    launches_x = {}
+    for solver in XLA_SOLVERS:
+        stats, wall, launches_p, img = cli_render(
+            text250, XLA_SIZE, XLA_SPP, ["wave_uniforms"],
+            args=["--solver", solver])
+        m = float(img.mean())
+        launches_x[solver] = launches_p["wave_uniforms"]
+        log("16 xla engine", f"cli render 250 Gaussians {XLA_SIZE}^2 spp "
+            f"{XLA_SPP} --solver {solver}: engine {stats['engine']} "
+            f"({stats['kernel']} kernel), render {stats['seconds']:.3f} s "
+            f"({wall:.3f} s with load and PPM), "
+            f"{stats['paths'] / stats['seconds'] / 1e6:.3f} Mpaths/s, "
+            f"{stats['iterations']} iterations in {stats['chunks']} chunks "
+            f"of {stats['chunk']}, {stats['bounce_evals']} bounce "
+            f"evaluations, image mean {m:.6f} vs the megakernel's "
+            f"{m_k1:.6f} (rel {abs(m - m_k1) / m_k1:.2e}, bar 1e-2), "
+            f"launches {json.dumps(launches_p)} ({smi})")
+        # UNIFORM samples the critical segment uniformly, a biased
+        # estimator (distance_solvers.h:132-137; the JAX package's
+        # test_solver_choice_does_not_change_image leaves it out), so
+        # its mean is reported, and its correctness is phase 17's
+        if (stats["engine"], stats["kernel"]) != ("dense", "xla") \
+                or launches_p["mega_call"] or (
+                    solver != "uniform" and abs(m - m_k1) > 0.01 * m_k1):
+            raise AssertionError(f"--solver {solver}: not the XLA engine, "
+                                 f"K1 launched, or the mean is off")
+    stats, wall, launches_p, img = cli_render(
+        text10k, XLA_BIG[1], XLA_BIG[2], ["wave_uniforms"],
+        args=["--solver", "bisection"])
+    launches_x["10k"] = launches_p["wave_uniforms"]
+    log("16 xla engine", f"cli render {XLA_BIG[0]} Gaussians {XLA_BIG[1]}^2 "
+        f"spp {XLA_BIG[2]} --solver bisection, engine auto: engine "
+        f"{stats['engine']} ({stats['kernel']} kernel), chunk "
+        f"{stats['chunk']} ([chunk, N] = {stats['chunk'] * XLA_BIG[0]} "
+        f"elements, budget {1 << 25}), render {stats['seconds']:.3f} s, "
+        f"{stats['paths'] / stats['seconds'] / 1e6:.4f} Mpaths/s, "
+        f"{stats['iterations']} iterations in {stats['chunks']} chunks, "
+        f"image mean {img.mean():.6f}, launches {json.dumps(launches_p)} "
+        f"({smi})")
+    if stats["kernel"] != "xla" or launches_p["mega_call"] \
+            or stats["chunk"] * XLA_BIG[0] > 1 << 25:
+        raise AssertionError("the 10k scene's bisection render did not take "
+                             "the XLA engine within the element budget")
+
+    # ---- 17: each new path on the card against the CPU ----
+    for label, args, spp, kernels in SLICE_PATHS:
+        stats, wall, launches_p, card = cli_render(
+            text250, CARD_CPU_SIZE, spp, kernels, args=args)
+        stats_cpu, wall_cpu, _, cpu = cli_image(text250, CARD_CPU_SIZE, spp,
+                                                "cpu", args)
+        res = testing.card_cpu_agreement(card, cpu,
+                                         hitmask=label == "hitmask")
+        log("17 card vs cpu", f"{label} 250 Gaussians {CARD_CPU_SIZE}^2 spp "
+            f"{spp}: card {stats['seconds']:.3f} s, cpu "
+            f"{stats_cpu['seconds']:.3f} s, {json.dumps(res)} (bars "
+            f"{json.dumps(testing.CARD_CPU_BARS)}), launches "
+            f"{json.dumps({k: v for k, v in launches_p.items() if v})}")
+        if not res["ok"]:
+            raise AssertionError(f"{label}: the card's image misses the "
+                                 f"CPU's: {res}")
+
+    # ---- 18: the integrators at size ----
+    launches_i = {}
+    for label, size, spp, args, kernels in AT_SIZE:
+        stats, wall, launches_p, img = cli_render(
+            text250, size, spp, kernels, args=args)
+        launches_i[label] = {k: v for k, v in launches_p.items() if v}
+        log("18 at size", f"{label} 250 Gaussians {size}^2 spp {spp} "
+            f"{' '.join(args[2:])}: render {stats['seconds']:.3f} s "
+            f"({wall:.3f} s with load and PPM), chunk {stats['chunk']}, "
+            + "".join(f"{k} {stats[k]}, " for k in (
+                "paths", "k3_launches", "n_steps", "steps", "shadow_steps",
+                "chunks") if k in stats)
+            + f"image mean {img.mean():.6f}, launches "
+            f"{json.dumps(launches_i[label])} ({smi})")
+
     def entry(name, replaces, key, path_launches, launches_key, err):
         t = times[key][0]
         return {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
@@ -902,6 +1060,11 @@ def run(dev):
     # launches_big)
     kernels[1]["inside"] = kernels[2]["inside"] = "mega"
     kernels[2]["launches_big"] = launches_b["wave_uniforms"]
+    # this slice's paths draw through K3 too: the XLA engine once an
+    # iteration (wave_uniforms, phase 16), single scatter twice a (chunk,
+    # sample) and the marchers once a step (planes_uniforms, phase 18)
+    kernels[2]["launches_xla"] = launches_x
+    kernels[2]["launches_integrators"] = launches_i
     kernels[2]["ms_planes"] = times["rng_planes"][0]["ms"]
     kernels[2]["bound_ms_planes"] = bounds["rng_planes"][0]
     for k in kernels[2:5]:

@@ -7,8 +7,11 @@ plain PyTorch version beside it.  It covers the multiscatter main path:
 scene text -> GaussianMixture -> camera -> ``render_multiscatter`` -> PPM,
 through the pooled megakernel up to 2,000 Gaussians, the grid engine
 (``accel/grid``, ``integrators/gridscatter``) above, and the big-N dense
-engine (``kernels/pathtrace_big``) where the JAX package takes it.  It
-never imports jax or gvr_tpu.
+engine (``kernels/pathtrace_big``) where the JAX package takes it; the
+solvers the kernels do not implement take the dense XLA engine (plain
+PyTorch, ``ops/transmittance`` and ``ops/solvers``), and the other forward
+integrators (``integrators/freeflight``, ``raymarch``, ``test_hit``) are
+plain PyTorch too.  It never imports jax or gvr_tpu.
 """
 
 from gvr_tpu_torch.cameras import OrthographicCamera, PinholeCamera

@@ -115,3 +115,14 @@ class OrthographicCamera:
         """Parallel rays along view_dir; v is y-flipped (camera.h:67)."""
         return camera_rays(self.position, self.right, self.up,
                            self.view_dir, None, uv)
+
+
+def pixel_center_uv(width: int, height: int, device="cpu") -> torch.Tensor:
+    """uv at the pixel centres, ((x + 0.5) / W, (y + 0.5) / H), as
+    [H, W, 2] float32: the deterministic integrators' sampling
+    (integrator.h:77-78)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    xs = (torch.arange(width, **f32) + 0.5) / width
+    ys = (torch.arange(height, **f32) + 0.5) / height
+    v, u = torch.meshgrid(ys, xs, indexing="ij")
+    return torch.stack([u, v], dim=-1)

@@ -1,15 +1,16 @@
-"""Command-line entry point: render a scene with the multiscatter integrator.
+"""Command-line entry point: render a Gaussian scene.
 
 Counterpart of ``gvr_tpu/cli.py render``, with the same flags and defaults
-(512x512, camera at (0,1,6) looking at (0,1,0), FOV 45 degrees, 256 spp)
-apart from the TPU-only ``--pallas``, and with ``--device`` (default cuda):
+(512x512, camera at (0,1,6) looking at (0,1,0), FOV 45 degrees, 256 spp,
+step 0.01, 20 environment samples) apart from the TPU-only ``--pallas``,
+and with ``--device`` (default cuda):
 
-    python -m gvr_tpu_torch.cli render scene.txt -o out.ppm
+    python -m gvr_tpu_torch.cli render scene.txt -o out.ppm \
+        [--integrator multiscatter|singlescatter|raymarch|pureraymarch|hitmask]
 
-Only ``--integrator multiscatter`` is ported; the others raise, as does
-``--trace``.  ``main`` returns the command's result (the ``--stats`` dict
-for render).  The animate and fit commands wait for their port (ROADMAP
-Queue 1).
+``--trace`` raises (ROADMAP Queue 1, tooling).  ``main`` returns the
+command's result (the ``--stats`` dict for render).  The animate and fit
+commands wait for their port (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -22,6 +23,21 @@ INTEGRATORS = ("multiscatter", "singlescatter", "raymarch", "pureraymarch",
                "hitmask")
 
 
+def renderer(integrator: str):
+    """The render function (scene, camera, cfg, device=, stats=) of one of
+    INTEGRATORS."""
+    from gvr_tpu_torch.integrators.freeflight import render_single_scatter
+    from gvr_tpu_torch.integrators.multiscatter import render_multiscatter
+    from gvr_tpu_torch.integrators.raymarch import (
+        render_pure_raymarch, render_raymarch_gaussians)
+    from gvr_tpu_torch.integrators.test_hit import render_hit_mask
+    return {"multiscatter": render_multiscatter,
+            "singlescatter": render_single_scatter,
+            "raymarch": render_raymarch_gaussians,
+            "pureraymarch": render_pure_raymarch,
+            "hitmask": render_hit_mask}[integrator]
+
+
 def make_camera(args, device):
     from gvr_tpu_torch.cameras import OrthographicCamera, PinholeCamera
     if args.camera == "pinhole":
@@ -32,15 +48,12 @@ def make_camera(args, device):
 
 def cmd_render(args):
     from gvr_tpu_torch.config import RenderConfig, Solver
-    from gvr_tpu_torch.integrators.multiscatter import render_multiscatter
     from gvr_tpu_torch.io.ppm import write_ppm
     from gvr_tpu_torch.scene.scene import load_scene
 
-    if args.integrator != "multiscatter":
-        raise NotImplementedError(
-            f"--integrator {args.integrator} is not ported yet (ROADMAP "
-            f"Queue 1, raymarch/freeflight/test_hit); use multiscatter")
     cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
+                       step_size=args.step_size,
+                       env_samples=args.env_samples,
                        solver=Solver(args.solver), seed=args.seed,
                        engine=args.engine)
     if args.trace:
@@ -50,14 +63,23 @@ def cmd_render(args):
     camera = make_camera(args, args.device)
     stats = {} if args.stats else None
     t0 = time.time()
-    img = render_multiscatter(scene, camera, cfg, device=args.device,
-                              progress=args.verbose, stats=stats)
+    kw = {"progress": args.verbose} if args.integrator == "multiscatter" \
+        else {}
+    img = renderer(args.integrator)(scene, camera, cfg, device=args.device,
+                                    stats=stats, **kw)
     print(f"Render time: {time.time() - t0:.3f} seconds")
-    if stats is not None:
+    if stats is not None and args.integrator != "multiscatter":
+        extra = "".join(f", {k} {stats[k]}" for k in (
+            "paths", "k3_launches", "n_steps", "steps", "shadow_steps",
+            "chunks") if k in stats)
+        print(f"[render] {args.integrator}: {stats['seconds']:.3f} s on "
+              f"{stats['device']}, chunk {stats['chunk']}{extra}")
+    elif stats is not None:
         extra = (f", {stats['iterations']} iterations"
                  if stats["kernel"] != "mega" else "")
         if stats["engine"] == "grid":
             extra += f", grid build {stats['grid_seconds']:.3f} s"
+        extra += f", chunk {stats['chunk']}"
         print(f"[render] engine {stats['engine']} ({stats['kernel']} "
               f"kernel): {stats['paths']} paths, "
               f"{stats['bounce_evals']} bounce evaluations in "
@@ -88,9 +110,7 @@ def main(argv=None):
     pr.add_argument("--integrator", default="multiscatter",
                     choices=INTEGRATORS)
     pr.add_argument("--spp", type=int, default=256)
-    # --step-size and --env-samples only steer the ray-marching
-    # integrators, which are not ported; multiscatter ignores them, as in
-    # gvr_tpu
+    # --step-size and --env-samples steer the ray marchers only
     pr.add_argument("--step-size", dest="step_size", type=float,
                     default=0.01)
     pr.add_argument("--env-samples", dest="env_samples", type=int,
@@ -104,10 +124,14 @@ def main(argv=None):
                     "grid engine above (dense where the grid refuses a scene "
                     "by S_CAP_MAX); dense: the megakernel up to 2048 "
                     "Gaussians, the big-N engine (kernels K4/K5) above, up "
-                    "to 24576")
+                    "to 24576; the solvers bisection, analytic_bisection "
+                    "and uniform take the dense XLA engine under auto and "
+                    "dense, and grid refuses them")
     pr.add_argument("--stats", action="store_true",
-                    help="print the engine and kernel, paths, bounce "
-                    "evaluations, Mpaths/s and the wavefront iterations")
+                    help="print the seconds and the chunk; for multiscatter "
+                    "the engine and kernel, paths, bounce evaluations, "
+                    "Mpaths/s and the wavefront iterations; for the marchers "
+                    "the steps")
     pr.add_argument("--trace", default=None, metavar="DIR",
                     help="profiler trace (not ported yet)")
     pr.add_argument("-v", "--verbose", action="store_true")

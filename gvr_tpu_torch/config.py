@@ -3,10 +3,8 @@
 The counterpart of ``gvr_tpu/config.py`` without its TPU layout knobs
 (``pallas``, ``wavefront``, ``block``, ``mxu_coeffs``, ``tau_bf16``,
 ``pool_regen``): the CUDA megakernel and the grid wavefront are always the
-pooled ones, and the kernels fix their own block geometry.  The ray
-marchers' ``step_size`` and ``env_samples`` come back with the marchers.  ``FitConfig`` waits for the
-inverse-rendering port.  A value that selects a path this package
-does not have yet raises ``NotImplementedError`` naming the ROADMAP item.
+pooled ones, and the kernels fix their own block geometry.  ``FitConfig``
+waits for the inverse-rendering port.
 """
 
 from __future__ import annotations
@@ -18,11 +16,10 @@ import enum
 class Solver(enum.Enum):
     """Free-flight distance solver (reference ``distance_solvers.h``).
 
-    NEWTON and ANALYTIC_NEWTON both run the fused bounce kernel (bracketed
-    Newton + Illinois, with the optional erfinv finisher), as in the JAX
-    package's kernel path (``gvr_tpu/integrators/multiscatter.py:452``).
-    The ablation solvers wait for their port (ROADMAP Queue 1, "the rest
-    of ops/solvers").
+    NEWTON and ANALYTIC_NEWTON run the kernels (bracketed Newton +
+    Illinois, with the optional erfinv finisher); the others run the
+    dense XLA engine, as in the JAX package on its accelerator
+    (``gvr_tpu/integrators/multiscatter.py:452-465``).
     """
 
     NEWTON = "newton"
@@ -37,7 +34,7 @@ KERNEL_SOLVERS = (Solver.NEWTON, Solver.ANALYTIC_NEWTON)
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    """Static knobs of the multiscatter integrator; defaults mirror the
+    """Static knobs of the integrators; defaults mirror the
     reference's ``tests/main.cpp`` and ``gvr_tpu.config.RenderConfig``."""
 
     width: int = 512
@@ -48,6 +45,8 @@ class RenderConfig:
     rr_tail_after: int = 16        # from this bounce on, RR caps at ...
     rr_cap_tail: float = 0.5       # ... this survival probability
     max_bounces: int = 64          # hard bound on a path's length
+    step_size: float = 0.01        # ray-march step (the ray marchers)
+    env_samples: int = 20          # env direction samples (ray marchers)
     solver: Solver = Solver.ANALYTIC_NEWTON
     solver_iters: int = 12         # Newton + Illinois trip count
     solver_finisher: bool = False  # analytic erfinv finisher
@@ -56,22 +55,16 @@ class RenderConfig:
     grid_solver_iters: int = 6
     ray_chunk: int = 1 << 16       # pixels per kernel launch
     seed: int = 0                  # base RNG seed
-    candidate_k: int = 0           # per-ray candidate compaction (0 = dense)
+    # per-ray candidate compaction (0 = off): the XLA engine and single
+    # scatter solve on each ray's candidate_k nearest-entering Gaussians;
+    # the kernel engines ignore it, as the JAX package's do
+    candidate_k: int = 0
     engine: str = "auto"           # 'auto' | 'dense' | 'grid'
 
     def __post_init__(self):
         if self.engine not in ("auto", "dense", "grid"):
             raise ValueError(f"engine must be 'auto'/'dense'/'grid', "
                              f"got {self.engine!r}")
-        if self.solver not in KERNEL_SOLVERS:
-            raise NotImplementedError(
-                f"solver={self.solver.name} is not ported yet (ROADMAP "
-                f"Queue 1, the rest of ops/solvers); use NEWTON or "
-                f"ANALYTIC_NEWTON")
-        if self.candidate_k != 0:
-            raise NotImplementedError(
-                "candidate_k != 0 is not ported yet (ROADMAP Queue 1, "
-                "ops/transmittance: compact_candidates)")
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)

@@ -17,6 +17,16 @@ S_CAP_MAX slices.  The dense engine runs the megakernel (one
 pixels) up to MEGA_MAX_GAUSSIANS Gaussians and the big-N wavefront
 (``wavefront_pixels_big``: K4 and K5 of ``kernels/pathtrace_big`` each
 iteration) above, up to 96 chunks of 256 Gaussians.
+
+The kernels implement the (analytic-)Newton solver only.  The other
+solvers (BISECTION, ANALYTIC_BISECTION, UNIFORM) take the dense XLA
+engine at any N, as in the JAX package on its accelerator:
+``wavefront_pixels_xla``, the same wavefront with each bounce in plain
+PyTorch (``ops/transmittance``, ``ops/solvers``, ``_nee``) over
+[rays, N] arrays, its chunk kept within the element budget.  Only it
+applies ``candidate_k``.  ``multiscatter_radiance`` is the per-path loop
+of the same bounce.  Every draw on the card comes from K3
+(``kernels/rng``).
 """
 
 from __future__ import annotations
@@ -28,23 +38,29 @@ import torch
 
 from gvr_tpu_torch.accel import grid as accel_grid
 from gvr_tpu_torch.cameras import PinholeCamera
-from gvr_tpu_torch.config import RenderConfig
-from gvr_tpu_torch.integrators.common import pick_chunk
+from gvr_tpu_torch.config import KERNEL_SOLVERS, RenderConfig, Solver
+from gvr_tpu_torch.integrators.common import ids_to_pixels, pick_chunk
 from gvr_tpu_torch.integrators.gridscatter import (
     grid_for, wavefront_pixels_grid_pooled)
 from gvr_tpu_torch.kernels.megatrace import (INV_4PI, camera_vector,
                                              mega_call, strat_n, strat_uv)
-from gvr_tpu_torch.kernels.pathtrace import MEGA_MAX_GAUSSIANS, pack_table
+from gvr_tpu_torch.kernels.pathtrace import (FOUR_PI, MEGA_MAX_GAUSSIANS,
+                                             pack_table)
 from gvr_tpu_torch.kernels.pathtrace_big import (bounce_step_big,
                                                  chunk_boxes, n_chunks_for,
                                                  pack_rows, plan)
-from gvr_tpu_torch.kernels.rng import BOUNCE_DRAWS, wave_uniforms
-from gvr_tpu_torch.ops.sampling import dir_from_xi
+from gvr_tpu_torch.kernels.rng import BOUNCE_DRAWS, JITTER_TAG, wave_uniforms
+from gvr_tpu_torch.ops.sampling import dir_from_xi, uniform_planes
+from gvr_tpu_torch.ops.solvers import sample_free_flight
+from gvr_tpu_torch.ops.transmittance import (albedo_at_from_rg,
+                                             compact_candidates, tau_coeffs,
+                                             transmittance_up_to)
 from gvr_tpu_torch.scene.scene import Scene
 
-__all__ = ["GRID_CHUNK", "GRID_MIN_N", "engine_for", "render_multiscatter",
-           "strat_n", "strat_uv", "tile_order", "wavefront_pixels",
-           "wavefront_pixels_big"]
+__all__ = ["GRID_CHUNK", "GRID_MIN_N", "engine_for", "mc_camera_rays",
+           "multiscatter_radiance", "render_multiscatter", "strat_n",
+           "strat_uv", "tile_order", "wavefront_pixels",
+           "wavefront_pixels_big", "wavefront_pixels_xla"]
 
 # The JAX package's threshold: above it engine='auto' takes the grid engine.
 GRID_MIN_N = 2000
@@ -53,14 +69,24 @@ GRID_CHUNK = 1 << 15
 
 
 def engine_for(cfg: RenderConfig, gmm) -> str:
-    """'grid' or 'dense' as the JAX package resolves it
-    (``gvr_tpu/integrators/multiscatter.py:644-689``): the grid for
-    engine='grid' and for 'auto' above GRID_MIN_N Gaussians, unless the
-    grid's densest cell spans more than S_CAP_MAX slices, which sends
+    """'grid', 'dense' or 'xla' as the JAX package resolves it on its
+    accelerator (``gvr_tpu/integrators/multiscatter.py:452-465,
+    644-689``).  A solver the kernels do not implement (not NEWTON or
+    ANALYTIC_NEWTON) takes the dense XLA engine ('xla') under 'auto' and
+    'dense' at any N, and is refused under 'grid'.  Otherwise the grid
+    for engine='grid' and for 'auto' above GRID_MIN_N Gaussians, unless
+    the grid's densest cell spans more than S_CAP_MAX slices, which sends
     'auto' to the dense engine and refuses 'grid'.  Building the grid is
     part of the decision (``grid_for`` keeps it for the render).  The
     dense engine refuses scenes above the big-N kernels' 96 chunks of 256
     Gaussians with ``plan``'s ValueError, as the JAX package does."""
+    if cfg.solver not in KERNEL_SOLVERS:
+        if cfg.engine == "grid":
+            raise ValueError(
+                f"engine='grid' implements the (analytic-)Newton solver "
+                f"only; solver={cfg.solver.name} requires engine='dense' "
+                f"or 'auto'")
+        return "xla"
     if cfg.engine == "grid" or (cfg.engine == "auto"
                                 and gmm.n > GRID_MIN_N):
         s_cap = grid_for(gmm).s_cap
@@ -99,37 +125,139 @@ def wavefront_pixels(scene: Scene, camera, cfg: RenderConfig,
     return mega_call(cam, table, ids, cfg, lights, env, pinhole)[0] / cfg.spp
 
 
-def wavefront_pixels_big(scene: Scene, camera, cfg: RenderConfig,
-                         ids: torch.Tensor, stats: dict | None = None,
-                         table: torch.Tensor | None = None,
-                         boxes: torch.Tensor | None = None) -> torch.Tensor:
+def _nee(scene: Scene, gmm, pos, xi_choice, xi_light, xi_env2):
+    """(Li [B,3], weight L+1): next-event estimation to one of the L point
+    lights or the environment, each with probability 1/(L+1)
+    (integrator.h:657-683), through one closed-form shadow-ray
+    transmittance; Li holds the env branch's 4 pi."""
+    num_lights = scene.lights_p.shape[0]
+    wi_env = dir_from_xi(xi_env2)
+    if num_lights == 0:
+        tr = transmittance_up_to(gmm, pos, wi_env, 1e8)
+        return tr[:, None] * scene.env_color * FOUR_PI, 1.0
+    is_env = xi_choice < 1.0 / (num_lights + 1)
+    lidx = torch.clamp((xi_light * num_lights).to(torch.int64), 0,
+                       num_lights - 1)
+    to_l = scene.lights_p[lidx] - pos
+    dist = torch.linalg.vector_norm(to_l, dim=-1)
+    wi_l = to_l / torch.clamp(dist, min=1e-12)[:, None]
+    wi = torch.where(is_env[:, None], wi_env, wi_l)
+    tr = transmittance_up_to(gmm, pos, wi,
+                             torch.where(is_env, 1e8, dist))
+    li_light = tr[:, None] * scene.lights_i[lidx] \
+        / torch.clamp(dist * dist, min=1e-12)[:, None]
+    li_env = tr[:, None] * scene.env_color * FOUR_PI
+    return torch.where(is_env[:, None], li_env, li_light), \
+        float(num_lights + 1)
+
+
+def _xla_bounce(scene: Scene, cfg: RenderConfig, o, d, xi):
+    """One bounce of rays [B,3] with their draws xi [9, B] in plain
+    PyTorch, as the JAX package's XLA branch
+    (``gvr_tpu/integrators/multiscatter.py:567-586``): the ray-Gaussian
+    coefficients (the candidate_k nearest-entering ones where 0 <
+    candidate_k < N), the free flight by ``cfg.solver``, the albedo at
+    the scatter point and NEE.  Returns (t_sc, scattered, albedo, li,
+    w_ne)."""
+    gmm = scene.medium
+    rg = tau_coeffs(gmm, o, d)
+    alb = gmm.albedo
+    if 0 < cfg.candidate_k < gmm.n:
+        rg, alb, _ = compact_candidates(rg, alb, cfg.candidate_k)
+    target = -torch.log(torch.clamp(1.0 - xi[0], min=1e-12))
+    t_sc, scattered = sample_free_flight(
+        rg, target, cfg.solver, cfg.solver_iters,
+        xi[8] if cfg.solver == Solver.UNIFORM else None,
+        finisher=cfg.solver_finisher)
+    albedo = albedo_at_from_rg(rg, alb, t_sc)
+    li, w_ne = _nee(scene, gmm, o + t_sc[:, None] * d, xi[1], xi[2],
+                    xi[3:5].T)
+    return t_sc, scattered, albedo, li, w_ne
+
+
+def multiscatter_radiance(scene: Scene, origin, direction, rng_ids,
+                          cfg: RenderConfig, sample=0) -> torch.Tensor:
+    """Radiance [B,3] of rays origin/direction [B,3] traced to completion
+    one bounce at a time (``gvr_tpu/integrators/multiscatter.py:80-152``),
+    each bounce's nine draws keyed by (rng_ids [B], sample, bounce)."""
+    b = origin.shape[0]
+    o, d = origin, direction
+    thr = torch.ones((b, 3), dtype=torch.float32, device=origin.device)
+    rad = torch.zeros_like(thr)
+    alive = torch.ones(b, dtype=torch.bool, device=origin.device)
+    for bounce in range(cfg.max_bounces):
+        if not bool(alive.any()):
+            break
+        xi = uniform_planes(rng_ids, sample, bounce, BOUNCE_DRAWS, cfg.seed)
+        t_sc, scattered, albedo, li, w_ne = _xla_bounce(scene, cfg, o, d, xi)
+        rad = rad + torch.where((alive & ~scattered)[:, None],
+                                thr * scene.env_color, 0.0)
+        alive_n = alive & scattered
+        pos = o + t_sc[:, None] * d
+        rad = rad + torch.where(
+            alive_n[:, None], thr * (albedo * INV_4PI * w_ne)[:, None] * li,
+            0.0)
+        thr_n, killed = _roulette(cfg, thr, albedo, bounce, xi[5])
+        alive = alive_n & ~killed
+        o = torch.where(alive[:, None], pos, o)
+        d = torch.where(alive[:, None], dir_from_xi(xi[6:8].T), d)
+        thr = torch.where(alive[:, None], thr_n, thr)
+    return rad
+
+
+def _roulette(cfg: RenderConfig, thr, albedo, bounce, xi_rr):
+    """(throughput, killed) after the albedo and Russian roulette from
+    min_scatter bounces on, survival min(max(throughput), cap), the cap
+    rr_cap_tail from rr_tail_after on (integrator.h:688-695)."""
+    thr_n = thr * albedo[:, None]
+    do_rr = torch.as_tensor(bounce >= cfg.min_scatter, device=thr.device)
+    rr_cap = torch.where(
+        torch.as_tensor(bounce >= cfg.rr_tail_after, device=thr.device),
+        cfg.rr_cap_tail, cfg.rr_cap).to(torch.float32)
+    rr = torch.minimum(thr_n.amax(dim=-1), rr_cap)
+    killed = do_rr & (xi_rr > rr)
+    thr_n = torch.where((do_rr & ~killed)[:, None],
+                        thr_n / torch.clamp(rr, min=1e-12)[:, None], thr_n)
+    return thr_n, killed
+
+
+def mc_camera_rays(scene: Scene, camera, cfg: RenderConfig, ids, sample_idx):
+    """(o, d, ids): stratified primary rays of pixel ids [B] at sample
+    ``sample_idx`` (integrator.h:557-570), jittered by the draws keyed
+    (pixel, sample, JITTER_TAG)."""
+    x, y = ids_to_pixels(ids, cfg.width)
+    s = torch.full_like(ids, sample_idx, dtype=torch.int32)
+    jit = uniform_planes(ids, s, JITTER_TAG, 2, cfg.seed)
+    u, v = strat_uv(x, y, s, strat_n(cfg.spp), cfg.width, cfg.height,
+                    jit[0], jit[1])
+    o, d = camera.sample_ray(torch.stack([u, v], dim=-1))
+    return o, d, ids
+
+
+def _wavefront(scene: Scene, camera, cfg: RenderConfig, ids: torch.Tensor,
+               bounce_fn, stats: dict | None) -> torch.Tensor:
     """Mean radiance [B,3] over the spp samples of each pixel id [B]
-    (int32), by the big-N dense wavefront
+    (int32) by the dense wavefront
     (``gvr_tpu/integrators/multiscatter.py:528-611``): one lane per pixel;
     a lane whose path ended starts its pixel's next sample, until every
     lane has traced spp samples or the loop has run spp * max_bounces +
     max_bounces iterations.  Each iteration draws the jitter and the 9
-    bounce uniforms at (pixel, sample, bounce) through K3 and traces one
-    bounce of every live lane through K4 and K5; escape adds throughput x
-    env, a scatter adds the NEE term, Russian roulette and max_bounces end
-    a path.  One host read an iteration, the live lanes, which is also
-    the loop condition.  JAX traces every lane and masks the finished
-    ones; tracing only the live lanes gives the same results, as a lane's
-    bounce does not depend on the others in its block, and took less time
-    on the card (PERF.md, the A/B of compacted and every lane).
-    ``table`` and ``boxes`` are ``pack_rows`` and ``chunk_boxes`` of the
-    scene (built here if not given).  ``stats``, if given, receives
-    'iterations' and 'bounce_evals' (live lanes traced)."""
+    bounce uniforms at (pixel, sample, bounce) through one K3 launch and
+    traces one bounce of every live lane through
+    ``bounce_fn(o, d, xi [9, live])`` -> (t_sc, scattered, albedo, li,
+    w_ne) of those lanes; escape adds throughput x env, a scatter adds the
+    NEE term, Russian roulette and max_bounces end a path.  One host read
+    an iteration, the live lanes, which is also the loop condition.  JAX
+    traces every lane and masks the finished ones; tracing only the live
+    lanes gives the same results, as a lane's bounce does not depend on
+    the others, and took less time on the card in the big-N engine
+    (PERF.md, the A/B of compacted and every lane).  ``stats``, if given,
+    receives 'iterations' and 'bounce_evals' (live lanes traced)."""
     dev = ids.device
     b = ids.shape[0]
     w, h, spp = cfg.width, cfg.height, cfg.spp
     n_strat = strat_n(spp)
-    if table is None:
-        table = pack_rows(scene.medium)
-    if boxes is None:
-        boxes = chunk_boxes(scene.medium)
-    lights, env = scene.lights(), scene.env_color
-    w_ne = float(lights.shape[0] + 1) if lights.shape[0] else 1.0
+    env = scene.env_color
     f32 = dict(dtype=torch.float32, device=dev)
     o = torch.zeros((b, 3), **f32)
     d = torch.ones((b, 3), **f32)
@@ -164,10 +292,10 @@ def wavefront_pixels_big(scene: Scene, camera, cfg: RenderConfig,
         alive = alive | regen
         evals += live.numel()
 
-        # K4/K5 trace the live lanes only, in lane order; the others' results
-        # are masked below, as in JAX, where every lane is traced
-        res = bounce_step_big(table, o[live], d[live], xi[:5, live].T,
-                              lights, env, cfg.solver_iters, boxes)
+        # the live lanes only, in lane order; the others' results are
+        # masked below, as in JAX, where every lane is traced
+        res = bounce_fn(o[live], d[live], xi[:, live])
+        w_ne = res[4]
         t_sc, scattered, albedo, li = (
             torch.zeros((b,) + r.shape[1:], dtype=r.dtype, device=dev)
             .index_copy_(0, live, r) for r in res[:4])
@@ -178,16 +306,7 @@ def wavefront_pixels_big(scene: Scene, camera, cfg: RenderConfig,
         acc = acc + torch.where(
             alive_n[:, None], thr * (albedo * INV_4PI * w_ne)[:, None] * li,
             0.0)
-
-        thr_n = thr * albedo[:, None]
-        do_rr = bounce >= cfg.min_scatter
-        rr_cap = torch.where(bounce >= cfg.rr_tail_after, cfg.rr_cap_tail,
-                             cfg.rr_cap).to(torch.float32)
-        rr = torch.minimum(thr_n.amax(dim=-1), rr_cap)
-        killed = do_rr & (xi[5] > rr)
-        thr_n = torch.where((do_rr & ~killed)[:, None],
-                            thr_n / torch.clamp(rr, min=1e-12)[:, None],
-                            thr_n)
+        thr_n, killed = _roulette(cfg, thr, albedo, bounce, xi[5])
         alive = alive_n & ~killed & (bounce + 1 < cfg.max_bounces)
         o = torch.where(alive[:, None], pos, o)
         d = torch.where(alive[:, None], dir_from_xi(xi[6:8].T), d)
@@ -199,6 +318,41 @@ def wavefront_pixels_big(scene: Scene, camera, cfg: RenderConfig,
     return acc / spp
 
 
+def wavefront_pixels_big(scene: Scene, camera, cfg: RenderConfig,
+                         ids: torch.Tensor, stats: dict | None = None,
+                         table: torch.Tensor | None = None,
+                         boxes: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean radiance [B,3] over the spp samples of each pixel id [B]
+    (int32) by the big-N dense wavefront (``_wavefront``), each bounce of
+    the live lanes through K4 and K5.  ``table`` and ``boxes`` are
+    ``pack_rows`` and ``chunk_boxes`` of the scene (built here if not
+    given)."""
+    if table is None:
+        table = pack_rows(scene.medium)
+    if boxes is None:
+        boxes = chunk_boxes(scene.medium)
+    lights, env = scene.lights(), scene.env_color
+    w_ne = float(lights.shape[0] + 1) if lights.shape[0] else 1.0
+
+    def bounce_fn(o, d, xi):
+        return bounce_step_big(table, o, d, xi[:5].T, lights, env,
+                               cfg.solver_iters, boxes)[:4] + (w_ne,)
+
+    return _wavefront(scene, camera, cfg, ids, bounce_fn, stats)
+
+
+def wavefront_pixels_xla(scene: Scene, camera, cfg: RenderConfig,
+                         ids: torch.Tensor,
+                         stats: dict | None = None) -> torch.Tensor:
+    """Mean radiance [B,3] over the spp samples of each pixel id [B]
+    (int32) by the dense XLA engine: the wavefront (``_wavefront``) with
+    each bounce of the live lanes in plain PyTorch (``_xla_bounce``), the
+    JAX package's XLA branch.  Any solver; ``candidate_k`` applies."""
+    return _wavefront(scene, camera, cfg, ids,
+                      lambda o, d, xi: _xla_bounce(scene, cfg, o, d, xi),
+                      stats)
+
+
 def render_multiscatter(scene: Scene, camera, cfg: RenderConfig,
                         device="cuda", progress: bool = False,
                         stats: dict | None = None) -> np.ndarray:
@@ -208,18 +362,21 @@ def render_multiscatter(scene: Scene, camera, cfg: RenderConfig,
     once (the megakernel's launches are asynchronous; the wavefronts read
     one value per iteration).  ``progress`` prints the pixels done after
     each chunk.  ``stats``, if given, receives the engine, the kernel
-    ('mega', 'big' or 'grid'), the render's seconds (host clock, after the
-    engine choice and grid build, ending with the copy to the host), the
+    ('mega', 'big', 'grid', or 'xla' for the dense XLA engine), the
+    render's seconds (host clock, after the engine choice and grid build,
+    ending with the copy to the host), the
     seconds of the engine choice with the grid build (``grid_seconds``; a
     cached grid costs only its content hash), paths, bounce evaluations
     (the megakernel's count; on the wavefronts the live lanes or
-    extension rays traced), chunks, wavefront iterations and
-    Gaussian count."""
+    extension rays traced), the chunk and the chunks, wavefront iterations
+    and Gaussian count."""
     t_build = time.perf_counter()
     engine = engine_for(cfg, scene.medium)
     if engine == "grid":
         kernel = "grid"
         grid = grid_for(scene.medium)
+    elif engine == "xla":
+        kernel, engine = "xla", "dense"
     else:
         kernel = "mega" if scene.medium.n <= MEGA_MAX_GAUSSIANS else "big"
     t0 = time.perf_counter()
@@ -234,7 +391,8 @@ def render_multiscatter(scene: Scene, camera, cfg: RenderConfig,
         grid = grid.to(device)
         chunk = min(cfg.ray_chunk, GRID_CHUNK)
     else:
-        chunk = pick_chunk(cfg, scene.medium.n, device)
+        chunk = pick_chunk(cfg, scene.medium.n, device,
+                           dense=kernel == "xla")
         if kernel == "mega":
             cam, table, lights, env, pinhole = _mega_inputs(scene, camera)
         else:
@@ -253,6 +411,9 @@ def render_multiscatter(scene: Scene, camera, cfg: RenderConfig,
             img[ids] = wavefront_pixels_big(scene, camera, cfg, ids, st,
                                             table, boxes)
             evals += st["bounce_evals"]
+        elif kernel == "xla":
+            img[ids] = wavefront_pixels_xla(scene, camera, cfg, ids, st)
+            evals += st["bounce_evals"]
         else:
             img[ids] = wavefront_pixels_grid_pooled(scene, grid, camera, cfg,
                                                     ids, st)
@@ -267,6 +428,6 @@ def render_multiscatter(scene: Scene, camera, cfg: RenderConfig,
                      seconds=time.perf_counter() - t0,
                      grid_seconds=t0 - t_build,
                      paths=w * h * cfg.spp, bounce_evals=int(evals),
-                     chunks=n_chunks, iterations=iterations,
+                     chunk=chunk, chunks=n_chunks, iterations=iterations,
                      n=scene.medium.n, device=str(device))
     return out

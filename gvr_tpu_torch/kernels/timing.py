@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import re
 
+PROFILE_TRIES = 3
+
 
 def kernel_ms(fn, kernel: str, reps: int, per_call: int = 1):
     """({'ms': device ms of one call's matching kernels, 'events_ms': ms
@@ -30,8 +32,8 @@ def kernel_ms(fn, kernel: str, reps: int, per_call: int = 1):
     ``kernel`` is a kernel's function name ("span_tau_kernel" matches
     "gvr::span_tau_kernel(...)", not "wave_uniforms_kernel" for
     "uniforms_kernel").  Raises where the profiler records no device time
-    for it: a call that launched no such kernel, or a profiler that sees
-    no device."""
+    for it in PROFILE_TRIES windows: a call that launched no such kernel,
+    or a profiler that sees no device."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -46,19 +48,25 @@ def kernel_ms(fn, kernel: str, reps: int, per_call: int = 1):
     end.record()
     end.synchronize()
     events_ms = start.elapsed_time(end) / reps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            out = fn()
-        torch.cuda.synchronize()
     name = re.compile(rf"\b{re.escape(kernel)}\b")
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and name.search(e.key)]
-    dev_us = sum(e.device_time_total for e in rows)
-    n = sum(e.count for e in rows)
-    if n == 0 or dev_us <= 0:
+    # late in a long process the profiler may record a fraction of the
+    # launches, or none of them, so a window that recorded none is taken
+    # again, up to PROFILE_TRIES times
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                out = fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and name.search(e.key)]
+        dev_us = sum(e.device_time_total for e in rows)
+        n = sum(e.count for e in rows)
+        if n and dev_us > 0:
+            break
+    else:
         raise RuntimeError(f"torch.profiler recorded no device time for "
-                           f"{kernel!r}")
+                           f"{kernel!r} in {PROFILE_TRIES} windows")
     ms = dev_us / 1e3 / n * per_call
     return {"ms": ms, "events_ms": events_ms,
             "dispatch_us": (events_ms - ms) * 1e3,

@@ -3,7 +3,9 @@
 ``scene_from_numpy`` takes the leaves of a ``gvr_tpu`` Scene and its
 GaussianMixture under their JAX field names; ``camera_from_numpy`` those of
 a ``gvr_tpu`` camera; ``grid_from_numpy`` those of a ``gvr_tpu``
-GridIndex.  The arrays are taken as they are (no eigh is recomputed), so
+GridIndex; ``ray_gaussians_from_numpy`` those of a ``gvr_tpu``
+RayGaussians, so both packages' solvers can run on one ray-Gaussian
+state.  The arrays are taken as they are (no eigh is recomputed), so
 both packages pack bit-identical kernel tables from one scene.  Nothing here imports JAX: the caller converts with ``np.asarray``.
 """
 
@@ -14,6 +16,7 @@ import torch
 
 from gvr_tpu_torch.accel.grid import H, GridIndex, make_grid
 from gvr_tpu_torch.cameras import OrthographicCamera, PinholeCamera
+from gvr_tpu_torch.ops.transmittance import RayGaussians
 from gvr_tpu_torch.scene.gaussians import GaussianMixture
 from gvr_tpu_torch.scene.scene import Scene
 
@@ -53,3 +56,12 @@ def grid_from_numpy(arrays: dict, device="cpu") -> GridIndex:
     rows = max(H, ((n + H - 1) // H) * H)
     table = np.asarray(arrays["table"], np.float32).reshape(-1, 16)[:rows]
     return make_grid(table, *(arrays[k] for k in GRID_FIELDS[1:]), device)
+
+
+def ray_gaussians_from_numpy(arrays: dict, device="cpu") -> RayGaussians:
+    """RayGaussians from a dict keyed by its field names (the JAX ones);
+    ``hit`` becomes bool, the others float32."""
+    return RayGaussians(*(
+        torch.tensor(np.asarray(arrays[k], bool), device=device)
+        if k == "hit" else _t(arrays[k], device)
+        for k in RayGaussians._fields))

@@ -7,8 +7,10 @@ extinction mu_t(x) = density * g(x); support truncated at R_CUT sigma.
 
 ``aabbs`` feeds the grid build (``accel/grid``); ``morton_sorted`` orders
 the Gaussians along a Z-order curve of their means, which the big-N dense
-kernels (``kernels/pathtrace_big``) rely on for chunk culling.  The
-11-parameter codec waits for a later slice.
+kernels (``kernels/pathtrace_big``) rely on for chunk culling;
+``evaluate``, ``mu_t``, ``sigma_albedo`` and ``albedo_at`` give the
+mixture at points, for the ray marchers.  The 11-parameter codec waits
+for a later slice.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import math
 
 import numpy as np
 import torch
+
+from gvr_tpu_torch.ops.gaxis import gsum
 
 # Support truncation radius in units of standard deviation (gaussian.h:36).
 R_CUT = 3.0
@@ -94,6 +98,45 @@ class GaussianMixture:
         """[N] mean^T inv_cov mean."""
         q, m = self.qvec(), self.mean
         return q[:, 0] * m[:, 0] + q[:, 1] * m[:, 1] + q[:, 2] * m[:, 2]
+
+    def evaluate(self, x: torch.Tensor) -> torch.Tensor:
+        """Densities of every Gaussian at points x [..., 3] -> [..., N]
+        (``Gaussian::evaluate``, gaussian.h:111-115): norm * exp(-d^T S^-1
+        d / 2), the form summed by explicit multiply-adds in float32."""
+        d = [x[..., None, i] - self.mean[:, i] for i in range(3)]
+        ic = self.inv_cov
+        q = None
+        for i in range(3):
+            w = d[0] * ic[:, 0, i] + d[1] * ic[:, 1, i] + d[2] * ic[:, 2, i]
+            q = w * d[i] if q is None else q + w * d[i]
+        return self.norm * torch.exp(-0.5 * q)
+
+    def mu_t(self, x: torch.Tensor) -> torch.Tensor:
+        """Extinction of every Gaussian at x: density * evaluate
+        (gaussian.h:117)."""
+        return self.density * self.evaluate(x)
+
+    def sigma_albedo(self, x: torch.Tensor, active_mask: torch.Tensor):
+        """(sigma_a, sigma_s) of the mixture at x over the Gaussians of a
+        boolean mask [..., N] (gmm.h:98-126): with mu the summed
+        extinction and a its extinction-weighted albedo, sigma_s = a mu
+        and sigma_a = (1 - a) mu."""
+        mt = self.mu_t(x) * active_mask
+        s = gsum(mt)
+        sa = gsum(mt * self.albedo)
+        amix = torch.where(s > 1e-25, sa / torch.where(s > 1e-25, s, 1.0),
+                           0.0)
+        return (1.0 - amix) * s, amix * s
+
+    def albedo_at(self, x: torch.Tensor, active_mask: torch.Tensor):
+        """The mixture's single-scattering albedo at x over the Gaussians
+        of a mask (gmm.h:128-143), clamped to [0, 1]."""
+        mt = self.mu_t(x) * active_mask
+        s = gsum(mt)
+        sa = gsum(mt * self.albedo)
+        amix = torch.where(s > 1e-25, sa / torch.where(s > 1e-25, s, 1.0),
+                           0.0)
+        return torch.clamp(amix, 0.0, 1.0)
 
     def morton_sorted(self) -> "GaussianMixture":
         """The Gaussians reordered along the Z-order curve of their means

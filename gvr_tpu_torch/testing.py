@@ -92,6 +92,49 @@ def chunk_agreement(outs, refs, spp: int) -> dict:
     return res
 
 
+def image_agreement(img, ref, spp: int) -> dict:
+    """CHUNK_BARS' image terms of two mean-radiance images (numpy,
+    [..., 3]) rendered with the same seed by two implementations: the
+    max |diff| times spp, the share of pixels off, the mean |diff|, and
+    'ok' when both are finite and within the bars."""
+    img, ref = (torch.as_tensor(np.asarray(x, np.float32)).reshape(-1, 3)
+                for x in (img, ref))
+    res = mega_agreement((img * spp, torch.zeros(1)),
+                         (ref * spp, torch.zeros(1)), spp)
+    res["ok"] = bool(res["finite"] and torch.isfinite(ref).all()
+                     and all(res[k] <= CHUNK_BARS[k]
+                             for k in ("max_path_diff", "off_frac",
+                                       "mean_diff")))
+    return res
+
+
+# An integrator's image on the card against the same render on the CPU
+# (the same code, other rounding, and on the MC paths the paths that a
+# threshold test within that rounding sends another way): the image means
+# within 0.5 %, the per-pixel mean |diff| below 1e-3; the hit mask equal
+# on 99.9 % of the pixels.
+CARD_CPU_BARS = dict(mean_rel=5e-3, mean_abs_diff=1e-3, mask_equal=0.999)
+
+
+def card_cpu_agreement(card, cpu, hitmask: bool = False) -> dict:
+    """The CARD_CPU_BARS terms of two images (numpy [H, W, 3]) and 'ok'."""
+    card, cpu = np.asarray(card, np.float64), np.asarray(cpu, np.float64)
+    m_card, m_cpu = float(card.mean()), float(cpu.mean())
+    res = dict(mean_card=m_card, mean_cpu=m_cpu,
+               mean_rel=abs(m_card - m_cpu) / max(abs(m_cpu), 1e-12),
+               mean_abs_diff=float(np.abs(card - cpu).mean()),
+               finite=bool(np.isfinite(card).all()))
+    if hitmask:
+        res["mask_equal"] = float((card == cpu).all(-1).mean())
+        res["ok"] = res["finite"] and \
+            res["mask_equal"] >= CARD_CPU_BARS["mask_equal"]
+    else:
+        res["ok"] = (res["finite"]
+                     and res["mean_rel"] <= CARD_CPU_BARS["mean_rel"]
+                     and res["mean_abs_diff"] < CARD_CPU_BARS["mean_abs_diff"])
+    return res
+
+
 # K6, kernel vs plain, per (ray, crossing) slot: the bounce bars' tau
 # tolerance, plus the float32 resolution of the form both versions share
 # with the TPU kernel, tau_i = pref * (erf(z1) - erf(z0)) with z = sa * t +

@@ -16,21 +16,28 @@ import torch
 from _torch_common import check_bounce, cuda_device, random_rays  # noqa: F401
 from gvr_tpu_torch.accel.grid import build_grid, dda_crossings
 from gvr_tpu_torch.cameras import OrthographicCamera, PinholeCamera
-from gvr_tpu_torch.config import RenderConfig
+from gvr_tpu_torch.config import RenderConfig, Solver
+from gvr_tpu_torch.integrators.freeflight import render_single_scatter
 from gvr_tpu_torch.integrators.gridscatter import (critical_crossing,
                                                    grid_tau_crossings)
 from gvr_tpu_torch.integrators.multiscatter import (render_multiscatter,
                                                     wavefront_pixels_big)
+from gvr_tpu_torch.integrators.raymarch import (render_pure_raymarch,
+                                                render_raymarch_gaussians)
+from gvr_tpu_torch.integrators.test_hit import render_hit_mask
 from gvr_tpu_torch.kernels import gridtrace as tgt
 from gvr_tpu_torch.kernels import megatrace as tmt
 from gvr_tpu_torch.kernels import pathtrace as tpt
 from gvr_tpu_torch.kernels import pathtrace_big as tpb
 from gvr_tpu_torch.kernels import rng as trng
+from gvr_tpu_torch.ops import transmittance as tto
 from gvr_tpu_torch.scene.generators import random_gaussian_scene
 from gvr_tpu_torch.scene.scene import parse_gmm
 from gvr_tpu_torch.testing import (BIG_DENSE_BARS, big_kernel_vs_plain,
-                                   big_rays, mega_agreement,
-                                   solve_agreement, span_tau_agreement)
+                                   big_rays, card_cpu_agreement,
+                                   mega_agreement, solve_agreement,
+                                   span_tau_agreement)
+from gvr_tpu_torch.utils.profiling import path_statistics
 
 pytestmark = pytest.mark.gpu
 
@@ -612,3 +619,92 @@ def test_big_wrappers_refuse_bad_boxes(cuda_device):
         with pytest.raises(ValueError, match=match):
             tpb.big_nee(table, torch.zeros((16, 64), device=cuda_device),
                         sc.env_color, bad)
+
+
+# ---- the dense XLA engine and the other integrators on the card --------
+
+def test_tau_coeffs_ignore_the_tf32_flag(cuda_device):
+    """The quadratics are elementwise multiply-adds, so a caller's TF32
+    matmul setting leaves every ray-Gaussian quantity as it is."""
+    sc = parse_gmm(random_gaussian_scene(250, seed=0), device=cuda_device)
+    o, d, _ = (torch.from_numpy(a).to(cuda_device)
+               for a in random_rays(4096, seed=3))
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.get_float32_matmul_precision())
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+        want = tto.tau_coeffs(sc.medium, o, d)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+        got = tto.tau_coeffs(sc.medium, o, d)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flags[0]
+        torch.set_float32_matmul_precision(flags[1])
+    assert bool(want.hit.any())
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("solver", ["bisection", "analytic_bisection",
+                                    "uniform"])
+def test_xla_engine_on_card_matches_cpu(cuda_device, solver):
+    """The XLA engine at 16^2 spp 9 on the card against the CPU
+    (testing.CARD_CPU_BARS), with K3 launched once an iteration and no
+    megakernel or plain version called."""
+    cfg = RenderConfig(width=16, height=16, spp=9, solver=Solver(solver),
+                       candidate_k=8 if solver == "uniform" else 0)
+    cam = _cameras("cpu")[0]
+    want = render_multiscatter(parse_gmm(SCENE24), cam, cfg, device="cpu")
+    counters = (trng.wave_uniforms, trng.wave_uniforms_reference,
+                trng.planes_uniforms, trng.planes_uniforms_reference,
+                tmt.mega_call, tmt.mega_reference)
+    for fn in counters:
+        fn.launches = 0
+    stats = {}
+    got = render_multiscatter(parse_gmm(SCENE24), cam, cfg,
+                              device=cuda_device, stats=stats)
+    assert (stats["engine"], stats["kernel"]) == ("dense", "xla")
+    assert [fn.launches for fn in counters] == [stats["iterations"], 0, 0,
+                                                0, 0, 0]
+    res = card_cpu_agreement(got, want)
+    assert res["ok"], res
+
+
+@pytest.mark.parametrize("integrator", ["singlescatter", "raymarch",
+                                        "pureraymarch", "hitmask"])
+def test_integrators_on_card_match_cpu(cuda_device, integrator):
+    """Each integrator at 16^2 on the card against the CPU
+    (testing.CARD_CPU_BARS), drawing through K3 and calling no plain
+    version."""
+    render, kw = {
+        "singlescatter": (render_single_scatter, dict(spp=4)),
+        "raymarch": (render_raymarch_gaussians,
+                     dict(step_size=0.02, env_samples=4)),
+        "pureraymarch": (render_pure_raymarch,
+                         dict(step_size=0.1, env_samples=2)),
+        "hitmask": (render_hit_mask, {})}[integrator]
+    cfg = RenderConfig(width=16, height=16, **kw)
+    for cam in _cameras("cpu"):
+        want = render(parse_gmm(SCENE24), cam, cfg, device="cpu")
+        counters = (trng.wave_uniforms, trng.planes_uniforms,
+                    trng.wave_uniforms_reference,
+                    trng.planes_uniforms_reference)
+        for fn in counters:
+            fn.launches = 0
+        stats = {}
+        got = render(parse_gmm(SCENE24), cam, cfg, device=cuda_device,
+                     stats=stats)
+        assert [fn.launches for fn in counters] == [
+            0, stats.get("k3_launches", 0), 0, 0]
+        res = card_cpu_agreement(got, want, hitmask=integrator == "hitmask")
+        assert res["ok"], (integrator, res)
+
+
+def test_path_statistics_on_card_match_cpu(cuda_device):
+    cfg = RenderConfig(width=32, height=32)
+    cam = _cameras("cpu")[0]
+    want = path_statistics(parse_gmm(SCENE24), cam, cfg, 512, device="cpu")
+    got = path_statistics(parse_gmm(SCENE24), cam, cfg, 512,
+                          device=cuda_device)
+    assert got == pytest.approx(want, rel=1e-2)

@@ -59,6 +59,14 @@ def test_cli_render_writes_ppm(tmp_path, capsys):
     img = read_ppm(str(out))
     assert img.shape == (16, 16, 3) and img.std() > 0
     assert "wrote" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError):
-        cli.main(["render", str(scene), "--integrator", "raymarch",
+    # the ray marcher renders a Gaussian scene; a sphere scene still waits
+    # for the media's port (ROADMAP Queue 1 item 6) and raises
+    cli.main(["render", str(scene), "-o", str(out), "--width", "8",
+              "--height", "8", "--integrator", "raymarch", "--step-size",
+              "0.05", "--env-samples", "2", "--device", "cpu"])
+    assert read_ppm(str(out)).shape == (8, 8, 3)
+    spheres = tmp_path / "spheres.txt"
+    spheres.write_text("s 0 1 0  1.0  0.8 0.0\n")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli.main(["render", str(spheres), "--integrator", "raymarch",
                   "--device", "cpu"])

@@ -1,6 +1,6 @@
 """Package-level guards of the port: it never imports JAX or gvr_tpu, it
-refuses the paths it does not have yet, it picks the JAX package's engine,
-and its wrappers take the plain version only for CPU tensors."""
+picks the JAX package's engine, and its wrappers take the plain version
+only for CPU tensors."""
 
 import ast
 import pathlib
@@ -46,8 +46,27 @@ def test_port_never_imports_jax(path):
     dict(solver=Solver.UNIFORM), dict(candidate_k=8)],
     ids=["bisection", "analytic_bisection", "uniform", "candidate_k"])
 def test_unported_knobs_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RenderConfig(**kw)
+    """The knobs that the port refused before the XLA engine came are
+    accepted and routed as the JAX package routes them on its
+    accelerator: a non-kernel solver takes the dense XLA engine ('xla')
+    under auto and dense at any N, and engine='grid' refuses it with the
+    JAX package's ValueError; candidate_k leaves the kernel engines'
+    choice as it is (only the XLA engine and single scatter apply it)."""
+    cfg = RenderConfig(**kw)
+    mix = parse_gmm(random_gaussian_scene(GRID_MIN_N + 1, seed=0)).medium
+    if "candidate_k" in kw:
+        assert cfg.candidate_k == 8
+        assert engine_for(cfg, mix) == "grid"
+        assert engine_for(cfg.replace(engine="dense"), mix) == "dense"
+        return
+    for engine in ("auto", "dense"):
+        for m in (mix, parse_gmm(random_gaussian_scene(4, seed=0)).medium):
+            assert engine_for(cfg.replace(engine=engine), m) == "xla"
+    with pytest.raises(ValueError, match=f"engine='grid' implements the "
+                       rf"\(analytic-\)Newton solver only; solver="
+                       f"{cfg.solver.name} requires engine='dense' or "
+                       f"'auto'"):
+        engine_for(cfg.replace(engine="grid"), mix)
 
 
 def test_kernel_solvers_and_engines_are_accepted():
@@ -76,15 +95,19 @@ def test_engine_for_keeps_the_jax_thresholds():
         engine_for(RenderConfig(engine="dense"), Mix(24577))
 
 
-@pytest.mark.parametrize("n", [1, 250, 2000])
+@pytest.mark.parametrize("n", [1, 250, 2000, 10_000])
 def test_pick_chunk_budget_only_on_cpu(n):
-    """The [chunk, N] element budget binds the plain versions on the CPU;
-    a kernel launch on the card takes cfg.ray_chunk whole."""
+    """The [chunk, N] element budget binds the plain versions on the CPU
+    and the dense paths (the XLA engine, single scatter, the marchers, the
+    hit mask) on any device; a kernel launch on the card takes
+    cfg.ray_chunk whole."""
     cfg = RenderConfig()
     assert pick_chunk(cfg, n, "cuda") == cfg.ray_chunk
     cpu = pick_chunk(cfg, n, "cpu")
     assert cpu % 256 == 0 and cpu * n <= max(1 << 25, 256 * n)
     assert cpu == min(cfg.ray_chunk, (((1 << 25) // n) // 256) * 256)
+    assert pick_chunk(cfg, n, "cuda", dense=True) == cpu
+    assert pick_chunk(cfg, n, "cpu", dense=True) == cpu
 
 
 def test_build_sources_and_checks():
@@ -113,3 +136,17 @@ def test_profile_render_summarises_a_render(capsys):
     assert len(res["by_host"]) == 5
     out = capsys.readouterr().out
     assert "--- by host time" in out and '"busy_share_of_warm"' in out
+
+
+@pytest.mark.parametrize("args,key", [
+    (["--solver", "bisection"], ("dense", "xla", "multiscatter")),
+    (["--integrator", "raymarch"], (None, None, "raymarch"))],
+    ids=["xla_engine", "raymarch"])
+def test_profile_render_profiles_the_other_paths(args, key):
+    """The profiler tool drives the dense XLA engine (an ablation solver)
+    and the other integrators on the CPU."""
+    from gvr_tpu_torch import profile_render
+    res = profile_render.main(["--gaussians", "12", "--size", "8", "--spp",
+                               "1", "--top", "3", "--device", "cpu"] + args)
+    assert (res["engine"], res["kernel"], res["integrator"]) == key
+    assert res["warm_seconds"] > 0 and res["kernel_launches"] == 0
