@@ -123,6 +123,28 @@ raises, so the exit code is non-zero.
              CLI's step and environment samples at 256^2, the pure
              marcher at step 0.05 at 128^2, the hit mask at 1024^2:
              render seconds, chunk, steps, K3 launches
+ 19 fit card vs cpu  the inverse renderer on random_gaussian_scene(10, 2,
+             diameter 0.2-0.7) at 16^2, 2 bounces, the parameters packed
+             once on the CPU: fit_loss 'l2' and 'l2_dual' (spp 2), value
+             and gradient, card against --device cpu at testing.FIT_BARS;
+             multiscatter_radiance_diff at 32^2 (4 bounces, RR from 2)
+             within testing.CARD_CPU_BARS; on the card K3 launched once
+             for each buffer and sample and no plain version called; the
+             implicit-function VJP of solve_conditional_free_flight
+             against central differences on the card
+             (testing.SOLVE_FD_BARS)
+ 20 fit main  `gvr_tpu_torch.cli render` of random_gaussian_scene(250, 0)
+             at 128^2 spp 1024 gives the target; its packed parameters
+             perturbed by N(0, 0.1) (numpy seed 7) give the initial scene,
+             written as GMM text; `gvr_tpu_torch.cli fit` runs 40
+             iterations at the CLI's settings (4,096-pixel batches, 4
+             bounces, spp 2, lr 1e-2) with snapshots every 20: losses and
+             final parameters finite, final.ppm and the snapshots written,
+             K3 launched 4 times an iteration, K1 launched, no plain
+             version; the fitted scene's 1024-spp render (final.ppm) must
+             be closer to the target (PSNR) than the initial scene's;
+             s/iteration, differentiable path-bounces/s, the dB gained
+             and peak device memory
 
 The last three lines: the nvidia-smi line, the kernels JSON (each kernel
 with its launches on its main path, its device time (``ms``), its call's
@@ -133,7 +155,8 @@ over 3.35 TB/s; K1, K4, K5, K6 and K7 also with ``bound_ms_sweep``, the
 bound of the same work with a pair test of every pair instead of the
 culling, the pre-test and the crossed-pair lists; K1 also with
 ``bound_ms_pretest``, its own walk: a pre-test of every row instead of
-the group boxes), and the result JSON.  Without a CUDA card, or without the package beside
+the group boxes; K1 and K3 also with ``launches_fit``, their launches on
+phase 20's fit), and the result JSON.  Without a CUDA card, or without the package beside
 it, the script exits non-zero before printing any result.
 """
 
@@ -196,6 +219,11 @@ AT_SIZE = (
                               "--step-size", "0.05"], ["planes_uniforms"]),
     ("hitmask", 1024, 1, ["--integrator", "hitmask"], []),
 )
+# Phase 20: `cli fit` at the CLI's settings (batch, bounces, spp of each
+# loss buffer), 40 iterations, at 128^2 with the target and the compared
+# renders at the CLI's final spp
+FIT_SIZE, FIT_ITERS, FIT_FINAL_SPP = 128, 40, 1024
+FIT_BATCH, FIT_BOUNCES, FIT_SPP = 4096, 4, 2
 # The card's peaks (NVIDIA H100 SXM data sheet): float32 outside the
 # tensor cores and HBM bandwidth.  A kernel's bound is the larger of its
 # operations over the first and its bytes over the second.
@@ -1025,6 +1053,150 @@ def run(dev):
             + f"image mean {img.mean():.6f}, launches "
             f"{json.dumps(launches_i[label])} ({smi})")
 
+    # ---- 19: the inverse renderer, card against CPU ----
+    from gvr_tpu_torch.integrators.multiscatter import \
+        multiscatter_radiance_diff
+    from gvr_tpu_torch.inverse.fit import _pixel_rays, fit_loss
+
+    k3 = (rng.planes_uniforms, rng.planes_uniforms_reference,
+          rng.wave_uniforms, rng.wave_uniforms_reference)
+    text10 = random_gaussian_scene(10, seed=2, diameter=(0.2, 0.7))
+    params10 = parse_gmm(text10).medium.pack_parameters()
+
+    def fit_inputs(device, size):
+        cam = PinholeCamera.create([0, 1, 6], [0, 1, 0], 0.25 * math.pi,
+                                   device=device)
+        return (parse_gmm(text10, device=device),) + _pixel_rays(
+            cam, size, size, torch.arange(size * size, dtype=torch.int32,
+                                          device=device))
+
+    def counted(fn):
+        """(fn(), launches of K3 and its plain versions during it)."""
+        for c in k3:
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {c.__name__: c.launches for c in k3}
+
+    for loss in ("l2", "l2_dual"):
+        res = {}
+        for device in ("cpu", dev):
+            sc10, o, d, ids = fit_inputs(device, 16)
+            p = params10.to(device, copy=True).requires_grad_(True)
+
+            def run():
+                val = fit_loss(p, sc10, o, d, ids,
+                               torch.full((256, 3), 0.4, device=device),
+                               n_bounces=2, spp=2, loss=loss, seed=5)
+                val.backward()
+                return val
+
+            t0 = time.perf_counter()
+            val, launches_l = counted(run)
+            res[str(device)] = (val, p.grad, launches_l,
+                                time.perf_counter() - t0)
+        card, cpu = res[str(dev)], res["cpu"]
+        agree = testing.fit_agreement(card[0], card[1], cpu[0], cpu[1])
+        want = {"planes_uniforms": 4 if loss == "l2_dual" else 2}
+        log("19 fit card vs cpu", f"fit_loss {loss} 10 Gaussians 16^2 2 "
+            f"bounces spp 2: card {card[3]:.3f} s, cpu {cpu[3]:.3f} s, "
+            f"{json.dumps(agree)} (bars {json.dumps(testing.FIT_BARS)}), "
+            f"launches {json.dumps(card[2])}")
+        if not agree["ok"] or {k: v for k, v in card[2].items() if v} != want:
+            raise AssertionError(f"fit_loss {loss}: the card misses the CPU "
+                                 f"or K3 launched other than {want}")
+    imgs = {}
+    for device in ("cpu", dev):
+        sc10, o, d, ids = fit_inputs(device, 32)
+        img, launches_r = counted(lambda: multiscatter_radiance_diff(
+            sc10, o, d, ids, None, n_bounces=4, sample=3, seed=9,
+            rr_after=2))
+        imgs[str(device)] = img.cpu().numpy().reshape(32, 32, 3)
+    res = testing.card_cpu_agreement(imgs[str(dev)], imgs["cpu"])
+    log("19 fit card vs cpu", f"multiscatter_radiance_diff 32^2 4 bounces "
+        f"RR from 2: {json.dumps(res)}, launches {json.dumps(launches_r)}")
+    if not res["ok"] or launches_r != {"planes_uniforms": 1,
+                                       "planes_uniforms_reference": 0,
+                                       "wave_uniforms": 0,
+                                       "wave_uniforms_reference": 0}:
+        raise AssertionError("multiscatter_radiance_diff: the card misses "
+                             "the CPU, or K3 did not draw it alone")
+    sc10, o, d, _ = fit_inputs(dev, 16)
+    res = testing.solve_fd_agreement(sc10, o, d, torch.from_numpy(
+        np.random.default_rng(1).uniform(size=256).astype(np.float32))
+        .to(dev))
+    log("19 fit card vs cpu", f"solve_conditional_free_flight VJP vs "
+        f"central differences on the card: {json.dumps(res)} (bars "
+        f"{json.dumps(testing.SOLVE_FD_BARS)})")
+    if not res["ok"]:
+        raise AssertionError("the conditional solve's VJP misses central "
+                             "differences on the card")
+
+    # ---- 20: cli fit at the CLI's settings on the 250-Gaussian scene ----
+    from gvr_tpu_torch.scene.gaussians import GaussianMixture
+    from gvr_tpu_torch.utils.image import psnr
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {k: os.path.join(tmp, k) for k in (
+            "true.txt", "init.txt", "target.ppm", "init.ppm", "fit")}
+        with open(paths["true.txt"], "w") as f:
+            f.write(text250)
+        sc_true = parse_gmm(text250)
+        p = sc_true.medium.pack_parameters().numpy()
+        p = p + np.random.default_rng(7).normal(0, 0.1, p.shape) \
+            .astype(np.float32)
+        with open(paths["init.txt"], "w") as f:
+            f.write(testing.scene_text(sc_true.with_medium(
+                GaussianMixture.from_parameters(torch.from_numpy(p)))))
+        size = str(FIT_SIZE)
+        for scene_file, out in (("true.txt", "target.ppm"),
+                                ("init.txt", "init.ppm")):
+            cli.main(["render", paths[scene_file], "-o", paths[out],
+                      "--width", size, "--height", size, "--spp",
+                      str(FIT_FINAL_SPP)])
+        for fn in counters:
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        fit = cli.main(["fit", paths["init.txt"], "--target",
+                        paths["target.ppm"], "-o", paths["fit"], "--iters",
+                        str(FIT_ITERS), "--save-every", "20", "--snapshots"])
+        launches_fit = {fn.__name__: fn.launches for fn in counters}
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        target = read_ppm(paths["target.ppm"])
+        db_init = psnr(read_ppm(paths["init.ppm"]), target)
+        db_fit = psnr(read_ppm(os.path.join(paths["fit"], "final.ppm")),
+                      target)
+        snaps = [os.path.join(paths["fit"], f"iter_{i:04d}.ppm")
+                 for i in (0, 20)]
+        written = all(os.path.exists(x) for x in snaps)
+    s_it = fit["seconds"] / FIT_ITERS
+    bounces_it = FIT_BATCH * 2 * FIT_SPP * FIT_BOUNCES
+    log("20 fit main", f"cli fit 250 Gaussians {size}^2, {FIT_ITERS} "
+        f"iterations, batch {FIT_BATCH}, {FIT_BOUNCES} bounces, spp "
+        f"{FIT_SPP}, lr 1e-2: {fit['seconds']:.3f} s, {s_it:.4f} "
+        f"s/iteration, {bounces_it / s_it / 1e6:.4f} M differentiable "
+        f"path-bounces/s, losses {json.dumps(fit['losses'])}, PSNR vs "
+        f"the target at spp {FIT_FINAL_SPP}: initial {db_init:.3f} dB, "
+        f"fitted {db_fit:.3f} dB ({db_fit - db_init:+.3f} dB), peak "
+        f"device memory {peak_gb:.3f} GiB, launches "
+        f"{json.dumps({k: v for k, v in launches_fit.items() if v})} "
+        f"({smi})")
+    plain = {k: v for k, v in launches_fit.items()
+             if k.endswith("_reference") and v}
+    if not (all(np.isfinite(v) for _, v in fit["losses"])
+            and len(fit["losses"]) == 2 and np.isfinite(fit["params"]).all()
+            and written and fit["paths"][-1].endswith("final.ppm")):
+        raise AssertionError("cli fit: a loss or parameter is not finite, "
+                             "or an image was not written")
+    if launches_fit["planes_uniforms"] != 2 * FIT_SPP * FIT_ITERS \
+            or launches_fit["wave_uniforms"] or not \
+            launches_fit["mega_call"] or plain:
+        raise AssertionError(f"cli fit launched {launches_fit}")
+    if not db_fit > db_init:
+        raise AssertionError(f"the fitted render ({db_fit:.3f} dB) is no "
+                             f"closer to the target than the initial one "
+                             f"({db_init:.3f} dB)")
+
     def entry(name, replaces, key, path_launches, launches_key, err):
         t = times[key][0]
         return {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
@@ -1065,6 +1237,11 @@ def run(dev):
     # sample) and the marchers once a step (planes_uniforms, phase 18)
     kernels[2]["launches_xla"] = launches_x
     kernels[2]["launches_integrators"] = launches_i
+    # the fit path (phase 20): K3 four times an iteration
+    # (planes_uniforms: 2 loss buffers x spp 2, every bounce's draws in
+    # one launch), K1 for the snapshots and the final render
+    kernels[0]["launches_fit"] = launches_fit["mega_call"]
+    kernels[2]["launches_fit"] = launches_fit["planes_uniforms"]
     kernels[2]["ms_planes"] = times["rng_planes"][0]["ms"]
     kernels[2]["bound_ms_planes"] = bounds["rng_planes"][0]
     for k in kernels[2:5]:

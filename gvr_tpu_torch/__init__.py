@@ -11,7 +11,11 @@ engine (``kernels/pathtrace_big``) where the JAX package takes it; the
 solvers the kernels do not implement take the dense XLA engine (plain
 PyTorch, ``ops/transmittance`` and ``ops/solvers``), and the other forward
 integrators (``integrators/freeflight``, ``raymarch``, ``test_hit``) are
-plain PyTorch too.  It never imports jax or gvr_tpu.
+plain PyTorch too.  Inverse rendering (``inverse/``: the Adam fit of the
+11-parameter codec through the differentiable estimator
+``multiscatter_radiance_diff``, attribution and SFD; ``cli fit``) runs
+under autograd, its draws from the RNG kernel and its renders through
+the megakernel.  It never imports jax or gvr_tpu.
 """
 
 from gvr_tpu_torch.cameras import OrthographicCamera, PinholeCamera

@@ -1,22 +1,29 @@
-"""Command-line entry point: render a Gaussian scene.
+"""Command-line entry point: render a Gaussian scene, or fit one to an image.
 
-Counterpart of ``gvr_tpu/cli.py render``, with the same flags and defaults
-(512x512, camera at (0,1,6) looking at (0,1,0), FOV 45 degrees, 256 spp,
-step 0.01, 20 environment samples) apart from the TPU-only ``--pallas``,
-and with ``--device`` (default cuda):
+Counterpart of ``gvr_tpu/cli.py`` render and fit, with the same flags and
+defaults (512x512, camera at (0,1,6) looking at (0,1,0), FOV 45 degrees;
+render: 256 spp, step 0.01, 20 environment samples; fit: 1000 iterations,
+lr 1e-2, 4,096-pixel batches, 4 bounces, snapshots at 16 spp, the final
+render at 1024) apart from the TPU-only ``--pallas``, and with
+``--device`` (default cuda):
 
     python -m gvr_tpu_torch.cli render scene.txt -o out.ppm \
         [--integrator multiscatter|singlescatter|raymarch|pureraymarch|hitmask]
+    python -m gvr_tpu_torch.cli fit init.txt --target target.ppm \
+        -o fit_output [--iters 1000] [--snapshots]
 
 ``--trace`` raises (ROADMAP Queue 1, tooling).  ``main`` returns the
-command's result (the ``--stats`` dict for render).  The animate and fit
-commands wait for their port (ROADMAP Queue 1).
+command's result (the ``--stats`` dict for render; for fit the
+iterations, seconds, logged (iteration, loss) pairs, written paths and
+the fitted scene's packed parameters).  The animate
+command waits for its port (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
 import argparse
 import math
+import re
 import time
 
 INTEGRATORS = ("multiscatter", "singlescatter", "raymarch", "pureraymarch",
@@ -90,22 +97,89 @@ def cmd_render(args):
     return stats
 
 
+def cmd_fit(args):
+    """Fit the scene's Gaussians to ``--target`` (inverse/fit), writing a
+    snapshot render every ``--save-every`` iterations with
+    ``--snapshots``, ckpt.npz every 100 and the final render, all into
+    ``-o``; the renders through ``render_multiscatter`` on the detached
+    parameters."""
+    import torch
+
+    from gvr_tpu_torch.config import FitConfig, RenderConfig
+    from gvr_tpu_torch.integrators.multiscatter import render_multiscatter
+    from gvr_tpu_torch.inverse.fit import fit_gaussians
+    from gvr_tpu_torch.io.ppm import read_ppm, write_ppm
+    from gvr_tpu_torch.scene.scene import load_scene
+
+    scene = load_scene(args.scene, device=args.device)
+    camera = make_camera(args, args.device)
+    target = read_ppm(args.target)
+    h, w = target.shape[:2]
+    cfg = FitConfig(max_iters=args.iters, lr=args.lr,
+                    save_every=args.save_every, out_dir=args.output,
+                    seed=args.seed)
+    if (args.width, args.height) != (512, 512):
+        print("[fit] note: --width/--height are ignored; the fit "
+              f"resolution comes from the target image ({w}x{h})")
+    losses, paths = [], []
+
+    def log(msg):
+        print(msg, flush=True)
+        m = re.match(r"\[fit\] iter (\d+) loss (\S+)", msg)
+        if m:
+            losses.append((int(m.group(1)), float(m.group(2))))
+
+    def render(sc, spp, path):
+        with torch.no_grad():
+            img = render_multiscatter(sc, camera,
+                                      RenderConfig(width=w, height=h,
+                                                   spp=spp),
+                                      device=args.device)
+        write_ppm(path, img)
+        paths.append(path)
+
+    def snapshot(it, sc):
+        render(sc, args.spp, f"{args.output}/iter_{it:04d}.ppm")
+
+    t0 = time.time()
+    fitted = fit_gaussians(scene, camera, target, cfg,
+                           batch_pixels=args.batch_pixels,
+                           n_bounces=args.bounces, log=log,
+                           save_snapshot=snapshot if args.snapshots
+                           else None)
+    seconds = time.time() - t0
+    print(f"Inverse optimization time: {seconds:.1f} seconds")
+    # the final render at high spp (inverse_integrator.h:230-233)
+    render(fitted, args.final_spp, f"{args.output}/final.ppm")
+    print(f"wrote {args.output}/final.ppm")
+    return dict(iterations=args.iters, seconds=seconds, losses=losses,
+                paths=paths,
+                params=fitted.medium.pack_parameters().cpu().numpy())
+
+
+def _add_common(p):
+    """The scene, size, camera and seed flags of every command."""
+    p.add_argument("scene", help="scene text file (GMM format)")
+    p.add_argument("--width", type=int, default=512)
+    p.add_argument("--height", type=int, default=512)
+    p.add_argument("--camera", choices=["pinhole", "orthographic"],
+                   default="pinhole")
+    p.add_argument("--pos", type=float, nargs=3, default=[0.0, 1.0, 6.0])
+    p.add_argument("--lookat", type=float, nargs=3,
+                   default=[0.0, 1.0, 0.0])
+    p.add_argument("--fov", type=float, default=45.0, help="degrees")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (cuda, cuda:N or cpu)")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="gvr_tpu_torch",
         description="Gaussian volume renderer (PyTorch/CUDA)")
     sub = ap.add_subparsers(dest="cmd", required=True)
     pr = sub.add_parser("render", help="forward render to PPM")
-    pr.add_argument("scene", help="scene text file (GMM format)")
-    pr.add_argument("--width", type=int, default=512)
-    pr.add_argument("--height", type=int, default=512)
-    pr.add_argument("--camera", choices=["pinhole", "orthographic"],
-                    default="pinhole")
-    pr.add_argument("--pos", type=float, nargs=3, default=[0.0, 1.0, 6.0])
-    pr.add_argument("--lookat", type=float, nargs=3,
-                    default=[0.0, 1.0, 0.0])
-    pr.add_argument("--fov", type=float, default=45.0, help="degrees")
-    pr.add_argument("--seed", type=int, default=0)
+    _add_common(pr)
     pr.add_argument("-o", "--output", default="output.ppm")
     pr.add_argument("--integrator", default="multiscatter",
                     choices=INTEGRATORS)
@@ -135,9 +209,24 @@ def main(argv=None):
     pr.add_argument("--trace", default=None, metavar="DIR",
                     help="profiler trace (not ported yet)")
     pr.add_argument("-v", "--verbose", action="store_true")
-    pr.add_argument("--device", default="cuda",
-                    help="torch device to render on (cuda, cuda:N or cpu)")
     pr.set_defaults(fn=cmd_render)
+
+    pf = sub.add_parser("fit", help="fit Gaussians to a target image")
+    _add_common(pf)
+    pf.add_argument("--target", required=True, help="target PPM image")
+    pf.add_argument("-o", "--output", default="./fit_output")
+    pf.add_argument("--iters", type=int, default=1000)
+    pf.add_argument("--lr", type=float, default=1e-2)
+    pf.add_argument("--save-every", dest="save_every", type=int, default=25)
+    pf.add_argument("--batch-pixels", dest="batch_pixels", type=int,
+                    default=4096)
+    pf.add_argument("--bounces", type=int, default=4)
+    pf.add_argument("--spp", type=int, default=16,
+                    help="samples per pixel of the snapshot renders")
+    pf.add_argument("--final-spp", dest="final_spp", type=int,
+                    default=1024)
+    pf.add_argument("--snapshots", action="store_true")
+    pf.set_defaults(fn=cmd_fit)
     args = ap.parse_args(argv)
     return args.fn(args)
 

@@ -4,7 +4,7 @@ The counterpart of ``gvr_tpu/config.py`` without its TPU layout knobs
 (``pallas``, ``wavefront``, ``block``, ``mxu_coeffs``, ``tau_bf16``,
 ``pool_regen``): the CUDA megakernel and the grid wavefront are always the
 pooled ones, and the kernels fix their own block geometry.  ``FitConfig``
-waits for the inverse-rendering port.
+is the JAX package's, field for field.
 """
 
 from __future__ import annotations
@@ -68,3 +68,21 @@ class RenderConfig:
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class FitConfig:
+    """Inverse-rendering configuration (reference ``SFDDConfig``,
+    ``inverse_integrator.h:52-57``; ``gvr_tpu/config.py:176-192``)."""
+
+    max_iters: int = 1000
+    save_every: int = 25
+    lr: float = 1e-2
+    # MC gradient samples per pixel per loss buffer (inverse/fit)
+    spp: int = 2
+    # Rademacher perturbations per iteration of the SFD validation mode
+    # (inverse/sfd)
+    num_stoch_samples: int = 4
+    checkpoint_every: int = 100
+    out_dir: str = "./fit_output"
+    seed: int = 0                  # minibatch and MC stream base seed

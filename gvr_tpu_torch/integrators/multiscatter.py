@@ -25,8 +25,9 @@ engine at any N, as in the JAX package on its accelerator:
 PyTorch (``ops/transmittance``, ``ops/solvers``, ``_nee``) over
 [rays, N] arrays, its chunk kept within the element budget.  Only it
 applies ``candidate_k``.  ``multiscatter_radiance`` is the per-path loop
-of the same bounce.  Every draw on the card comes from K3
-(``kernels/rng``).
+of the same bounce.  ``multiscatter_radiance_diff`` is the differentiable
+estimator of the inverse renderer (``inverse/fit``), plain PyTorch under
+autograd.  Every draw on the card comes from K3 (``kernels/rng``).
 """
 
 from __future__ import annotations
@@ -51,14 +52,16 @@ from gvr_tpu_torch.kernels.pathtrace_big import (bounce_step_big,
                                                  pack_rows, plan)
 from gvr_tpu_torch.kernels.rng import BOUNCE_DRAWS, JITTER_TAG, wave_uniforms
 from gvr_tpu_torch.ops.sampling import dir_from_xi, uniform_planes
-from gvr_tpu_torch.ops.solvers import sample_free_flight
+from gvr_tpu_torch.ops.solvers import (sample_free_flight,
+                                       solve_conditional_free_flight)
 from gvr_tpu_torch.ops.transmittance import (albedo_at_from_rg,
                                              compact_candidates, tau_coeffs,
-                                             transmittance_up_to)
+                                             tau_total, transmittance_up_to)
 from gvr_tpu_torch.scene.scene import Scene
 
-__all__ = ["GRID_CHUNK", "GRID_MIN_N", "engine_for", "mc_camera_rays",
-           "multiscatter_radiance", "render_multiscatter", "strat_n",
+__all__ = ["GRID_CHUNK", "GRID_MIN_N", "diff_uniforms", "engine_for",
+           "mc_camera_rays", "multiscatter_radiance",
+           "multiscatter_radiance_diff", "render_multiscatter", "strat_n",
            "strat_uv", "tile_order", "wavefront_pixels",
            "wavefront_pixels_big", "wavefront_pixels_xla"]
 
@@ -202,6 +205,104 @@ def multiscatter_radiance(scene: Scene, origin, direction, rng_ids,
         o = torch.where(alive[:, None], pos, o)
         d = torch.where(alive[:, None], dir_from_xi(xi[6:8].T), d)
         thr = torch.where(alive[:, None], thr_n, thr)
+    return rad
+
+
+def diff_uniforms(rng_ids: torch.Tensor, sample: int, n_bounces: int,
+                  seed: int = 0) -> torch.Tensor:
+    """The draws of ``multiscatter_radiance_diff``, [9, n_bounces, B]
+    float32: those of bounce j keyed by (rng_ids, sample, j), in one K3
+    launch (``uniform_planes``) for all the bounces."""
+    bounces = torch.arange(n_bounces, dtype=torch.int32,
+                           device=rng_ids.device)[:, None]
+    pid = torch.broadcast_to(rng_ids.to(torch.int32),
+                             (n_bounces, rng_ids.shape[0]))
+    return uniform_planes(pid, sample, bounces, BOUNCE_DRAWS, seed)
+
+
+def multiscatter_radiance_diff(scene: Scene, origin, direction, rng_ids,
+                               cfg=None, n_bounces: int = 4, sample: int = 0,
+                               seed: int = 0, candidate_k: int = 0,
+                               rr_after: int = 0, rr_cap: float = 0.9,
+                               return_overflow: bool = False, xi=None):
+    """Radiance [B,3] of rays origin/direction [B,3], differentiable in
+    the scene's medium (``gvr_tpu/integrators/multiscatter.py:155-256``;
+    ``cfg`` is unused, as there).  Against the forward estimator:
+
+    * a fixed trip of ``n_bounces`` bounces over every lane, dead lanes
+      masked, no compaction and no in-place writes;
+    * analytic escape: every bounce adds thr * exp(-tau_total) * env and
+      conditions the free flight on scattering, target =
+      -log1p(-u p_scat 0.999999), p_scat = 1 - exp(-tau_total), which
+      keeps the image smooth in the parameters;
+    * the scatter distance by ``solve_conditional_free_flight``,
+      differentiable by the implicit function theorem, and 0 on dead
+      lanes before it makes a position;
+    * ``candidate_k > 0``: the solve and albedo over each ray's
+      candidate_k nearest-entering Gaussians (``compact_candidates``);
+    * ``rr_after > 0``: Russian roulette from that bounce on, its survival
+      probability min(max(thr), rr_cap) detached, so the reweighting
+      stays unbiased.
+
+    ``xi``, the draws [9, n_bounces, B], is ``diff_uniforms(rng_ids,
+    sample, n_bounces, seed)`` unless given (``inverse/fit`` draws them
+    outside a checkpointed region, so its recompute draws nothing).
+    ``return_overflow`` also returns (live lanes whose hits exceeded
+    candidate_k, live lanes), summed over the bounces, as int32
+    tensors."""
+    gmm = scene.medium
+    b = origin.shape[0]
+    dev = origin.device
+    use_compact = 0 < candidate_k < gmm.n
+    if xi is None:
+        xi = diff_uniforms(rng_ids, sample, n_bounces, seed)
+    o, d = origin, direction
+    thr = torch.ones((b, 3), dtype=torch.float32, device=dev)
+    rad = torch.zeros((b, 3), dtype=torch.float32, device=dev)
+    alive = torch.ones(b, dtype=torch.bool, device=dev)
+    n_over = torch.zeros((), dtype=torch.int32, device=dev)
+    n_live = torch.zeros((), dtype=torch.int32, device=dev)
+    for bounce in range(n_bounces):
+        x = xi[:, bounce]
+        rg = tau_coeffs(gmm, o, d)
+        if use_compact:
+            rg, alb_k, overflow = compact_candidates(rg, gmm.albedo,
+                                                     candidate_k)
+            n_over = n_over + (overflow & alive).sum(dtype=torch.int32)
+            n_live = n_live + alive.sum(dtype=torch.int32)
+        t_esc = torch.exp(-tau_total(rg))
+        rad = rad + torch.where(alive[:, None],
+                                thr * t_esc[:, None] * scene.env_color, 0.0)
+        p_scat = 1.0 - t_esc
+        alive_n = alive & (p_scat.detach() > 1e-6)
+        thr = thr * p_scat[:, None]
+        target = -torch.log1p(-x[0] * p_scat * 0.999999)
+        t_sc = torch.where(alive_n, solve_conditional_free_flight(rg, target),
+                           0.0)
+        pos = o + t_sc[:, None] * d
+        if use_compact:
+            albedo = albedo_at_from_rg(rg, alb_k, t_sc)
+        else:
+            tsg = t_sc.detach()[:, None]
+            albedo = gmm.albedo_at(pos, rg.hit & (rg.t0 <= tsg)
+                                   & (tsg <= rg.t1))
+        li, w_ne = _nee(scene, gmm, pos, x[1], x[2], x[3:5].T)
+        rad = rad + torch.where(
+            alive_n[:, None], thr * (albedo * INV_4PI * w_ne)[:, None] * li,
+            0.0)
+        thr = thr * albedo[:, None]
+        if 0 < rr_after <= bounce:
+            surv = torch.clamp(thr.detach().amax(dim=-1), max=rr_cap)
+            killed = x[5] > surv
+            thr = torch.where((~killed)[:, None],
+                              thr / torch.clamp(surv, min=1e-12)[:, None],
+                              thr)
+            alive_n = alive_n & ~killed
+        o = torch.where(alive_n[:, None], pos, o)
+        d = torch.where(alive_n[:, None], dir_from_xi(x[6:8].T), d)
+        alive = alive_n
+    if return_overflow:
+        return rad, (n_over, n_live)
     return rad
 
 

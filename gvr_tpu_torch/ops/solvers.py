@@ -21,8 +21,9 @@ and the grid solve, and mirrored line for line by ``illinois_update`` in
 ``csrc/bounce.cuh``.  ``illinois_update_inset`` is the step the JAX
 package's big-N kernel writes out for itself
 (``gvr_tpu/kernels/pathtrace_big.py:174-198``), mirrored by
-``csrc/big.cuh``.  ``solve_conditional_free_flight`` and its implicit VJP
-wait for the inverse renderer (ROADMAP Queue 1).
+``csrc/big.cuh``.  ``solve_conditional_free_flight`` is the
+differentiable solve of the inverse renderer, its gradient by the implicit
+function theorem.
 """
 
 from __future__ import annotations
@@ -222,3 +223,52 @@ def sample_free_flight(rg: RayGaussians, target_tau, solver: Solver,
     else:
         raise ValueError(f"unknown solver {solver}")
     return torch.where(scattered, t, NO_SCATTER), scattered
+
+
+# -----------------------------------------------------------------------------
+# Differentiable free-flight sampling (implicit function theorem,
+# gvr_tpu/ops/solvers.py:273-311).  The root t(theta) of tau(t; theta) =
+# target has dt/dtheta = -(d tau / d theta at fixed t) / sigma_t(t) and
+# dt/dtarget = 1 / sigma_t(t), so gradients of the sampled scatter point
+# reach the Gaussian parameters without the solver's iterations on the
+# tape.
+# -----------------------------------------------------------------------------
+
+class _ConditionalFreeFlight(torch.autograd.Function):
+    """apply(target, *rg): RayGaussians is passed field by field, so that
+    autograd sees each tensor; the boolean ``hit`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, target, *fields):
+        rg = RayGaussians(*fields)
+        t_lo, t_hi, tau_max = _bracket(rg)
+        tgt = torch.minimum(target, tau_max * 0.999999)
+        t = _safeguarded_newton(rg, tgt, t_lo, t_hi, 24, use_newton=True)
+        ctx.save_for_backward(t, *fields)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        t, *fields = ctx.saved_tensors
+        want = ctx.needs_input_grad[1:]
+        with torch.enable_grad():
+            leaves = [f.detach().requires_grad_(w and f.is_floating_point())
+                      for f, w in zip(fields, want)]
+            rg = RayGaussians(*leaves)
+            with torch.no_grad():
+                sigma = torch.clamp(sigma_t_at(rg, t), min=1e-12)
+            wrt = [x for x in leaves if x.requires_grad]
+            grads = iter(torch.autograd.grad(
+                tau_up_to(rg, t), wrt, grad_outputs=-g / sigma,
+                allow_unused=True) if wrt else ())
+        return (g / sigma,) + tuple(next(grads) if x.requires_grad else None
+                                    for x in leaves)
+
+
+def solve_conditional_free_flight(rg: RayGaussians, target):
+    """The free-flight distance [...] for targets already conditioned to
+    scatter (target < the ray's total optical depth): 24 safeguarded
+    Newton steps without a graph, differentiable in rg's float fields and
+    in target by the implicit-function VJP (``_ConditionalFreeFlight``).
+    """
+    return _ConditionalFreeFlight.apply(target, *rg)

@@ -5,7 +5,8 @@ GaussianMixture under their JAX field names; ``camera_from_numpy`` those of
 a ``gvr_tpu`` camera; ``grid_from_numpy`` those of a ``gvr_tpu``
 GridIndex; ``ray_gaussians_from_numpy`` those of a ``gvr_tpu``
 RayGaussians, so both packages' solvers can run on one ray-Gaussian
-state.  The arrays are taken as they are (no eigh is recomputed), so
+state; ``params_from_numpy`` the flat 11-parameter vector (and the Adam
+moments) of the inverse renderer.  The arrays are taken as they are (no eigh is recomputed), so
 both packages pack bit-identical kernel tables from one scene.  Nothing here imports JAX: the caller converts with ``np.asarray``.
 """
 
@@ -37,6 +38,12 @@ def scene_from_numpy(arrays: dict, device="cpu") -> Scene:
     gmm = GaussianMixture(*(_t(arrays[k], device) for k in MIXTURE_FIELDS))
     lp, li, env = (_t(arrays[k], device) for k in SCENE_FIELDS)
     return Scene(gmm, lp.reshape(-1, 3), li.reshape(-1, 3), env.reshape(3))
+
+
+def params_from_numpy(params, device="cpu") -> torch.Tensor:
+    """A flat float32 parameter vector [N*11] from numpy (a JAX package's
+    ``pack_parameters`` or a checkpoint's array)."""
+    return _t(params, device).reshape(-1)
 
 
 def camera_from_numpy(arrays: dict, device="cpu"):

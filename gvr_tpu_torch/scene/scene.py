@@ -43,6 +43,10 @@ class Scene:
     def num_lights(self) -> int:
         return self.lights_p.shape[0]
 
+    def with_medium(self, medium: GaussianMixture) -> "Scene":
+        """This scene's lights and environment around another medium."""
+        return Scene(medium, self.lights_p, self.lights_i, self.env_color)
+
     def to(self, device) -> "Scene":
         return Scene(self.medium.to(device), self.lights_p.to(device),
                      self.lights_i.to(device), self.env_color.to(device))

@@ -135,6 +135,115 @@ def card_cpu_agreement(card, cpu, hitmask: bool = False) -> dict:
     return res
 
 
+# The inverse renderer's loss and gradient (``inverse/fit.fit_loss``) from
+# two implementations on the same parameter vector, rays and streams: the
+# port against the JAX package on the CPU, or the card against the CPU.
+# The loss within loss_rel of the other's, the gradient within grad_rel
+# in relative L2 and its cosine above cos.  On the CPU the port measured
+# 2.4e-6 to 2.7e-6 relative L2 against jax.grad on the two-Gaussian scene
+# of tests/test_inverse.py (all three losses); a lane whose p_scat or RR
+# test sits within rounding of its threshold may take the other branch in
+# one implementation, which the relative L2 absorbs.
+FIT_BARS = dict(loss_rel=1e-4, grad_rel=1e-3, cos=0.9999)
+
+
+def fit_agreement(loss, grad, loss_ref, grad_ref) -> dict:
+    """The FIT_BARS terms of two (loss, gradient) results (numbers and
+    numpy arrays or tensors) and 'ok'."""
+    host = lambda x: np.asarray(x.detach().cpu().numpy()
+                                if isinstance(x, torch.Tensor) else x,
+                                np.float64)
+    g, g_ref = host(grad), host(grad_ref)
+    loss, loss_ref = float(host(loss)), float(host(loss_ref))
+    norm = max(float(np.linalg.norm(g_ref)), 1e-30)
+    res = dict(loss=loss, loss_ref=loss_ref,
+               loss_rel=abs(loss - loss_ref) / max(abs(loss_ref), 1e-30),
+               grad_rel=float(np.linalg.norm(g - g_ref)) / norm,
+               cos=float(g @ g_ref) / max(float(np.linalg.norm(g)) * norm,
+                                          1e-30),
+               finite=bool(np.isfinite(g).all() and np.isfinite(loss)))
+    res["ok"] = bool(res["finite"] and res["loss_rel"] <= FIT_BARS["loss_rel"]
+                     and res["grad_rel"] <= FIT_BARS["grad_rel"]
+                     and res["cos"] >= FIT_BARS["cos"])
+    return res
+
+
+# The implicit-function VJP of solve_conditional_free_flight against
+# central differences of the solve itself: f(p) = sum_r w_r t_r(p), the
+# roots of the rays' conditioned targets in the mixture decoded from p,
+# along random unit directions v at step eps.  A directional derivative
+# is off when |fd - ad| exceeds rel times the larger of the two or of
+# floor (the float32 noise of the difference quotient, ~0.01 over 256
+# rays); at most ``misses`` may be off (a root that crosses a Gaussian's
+# interval end inside the step has a kink there), as in the JAX
+# package's tests/test_inverse.py finite-difference test.  On the CPU,
+# the 10-Gaussian scene's 16^2 camera rays measured at most 0.15 over
+# 18 directions, and a VJP of the wrong sign 0.6-1.2 on every one.
+SOLVE_FD_BARS = dict(eps=1e-3, rel=0.2, floor=0.1, dirs=6, misses=1)
+
+
+def solve_fd_agreement(scene, origin, direction, u, seed: int = 0) -> dict:
+    """SOLVE_FD_BARS for rays origin/direction [B,3] and uniforms u [B] on
+    the device of ``scene``: the targets are the estimator's,
+    -log1p(-u p_scat 0.999999), p_scat = 1 - exp(-tau_total), so the
+    gradient takes both the parameters' and the target's cotangents.
+    Returns the autograd and finite-difference derivatives, the relative
+    errors, and 'ok'."""
+    from gvr_tpu_torch.ops.solvers import solve_conditional_free_flight
+    from gvr_tpu_torch.ops.transmittance import tau_coeffs, tau_total
+    from gvr_tpu_torch.scene.gaussians import GaussianMixture
+    r = np.random.default_rng(seed)
+    dev = scene.medium.mean.device
+    p0 = scene.medium.pack_parameters().detach()
+    w = torch.tensor(r.normal(size=origin.shape[0]), dtype=torch.float32,
+                     device=dev)
+
+    def f(p):
+        rg = tau_coeffs(GaussianMixture.from_parameters(p), origin,
+                        direction)
+        p_scat = 1.0 - torch.exp(-tau_total(rg))
+        target = -torch.log1p(-u * p_scat * 0.999999)
+        return torch.sum(w * solve_conditional_free_flight(rg, target))
+
+    p = p0.clone().requires_grad_(True)
+    f(p).backward()
+    eps = SOLVE_FD_BARS["eps"]
+    ad, fd = [], []
+    with torch.no_grad():
+        for _ in range(SOLVE_FD_BARS["dirs"]):
+            v = r.normal(size=p0.shape[0])
+            v = torch.tensor(v / np.linalg.norm(v), dtype=torch.float32,
+                             device=dev)
+            ad.append(float(p.grad @ v))
+            fd.append((float(f(p0 + eps * v)) - float(f(p0 - eps * v)))
+                      / (2.0 * eps))
+    rel = [abs(a - b) / max(abs(a), abs(b), SOLVE_FD_BARS["floor"])
+           for a, b in zip(ad, fd)]
+    res = dict(autograd=ad, central=fd, rel=rel,
+               finite=bool(torch.isfinite(p.grad).all()))
+    res["ok"] = bool(res["finite"] and sum(
+        x > SOLVE_FD_BARS["rel"] for x in rel) <= SOLVE_FD_BARS["misses"])
+    return res
+
+
+def scene_text(scene) -> str:
+    """GMM text (scene.h:38-120) of a port Scene: its lights, then each
+    Gaussian's mean, covariance (xx xy xz yy yz zz), density and albedo,
+    every number as %.9g, so the text parses back to the same float32
+    values."""
+    f = lambda row: " ".join(f"{float(v):.9g}" for v in row)
+    lights = torch.cat([scene.lights_p, scene.lights_i], 1).cpu().numpy()
+    m = scene.medium
+    cov = m.cov.detach().cpu().numpy()
+    rows = np.concatenate([
+        m.mean.detach().cpu().numpy(),
+        cov[:, [0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2]],
+        m.density.detach().cpu().numpy()[:, None],
+        m.albedo.detach().cpu().numpy()[:, None]], 1)
+    return "".join([f"l {f(r)}\n" for r in lights]
+                   + [f"g {f(r)}\n" for r in rows])
+
+
 # K6, kernel vs plain, per (ray, crossing) slot: the bounce bars' tau
 # tolerance, plus the float32 resolution of the form both versions share
 # with the TPU kernel, tau_i = pref * (erf(z1) - erf(z0)) with z = sa * t +

@@ -20,22 +20,28 @@ from gvr_tpu_torch.config import RenderConfig, Solver
 from gvr_tpu_torch.integrators.freeflight import render_single_scatter
 from gvr_tpu_torch.integrators.gridscatter import (critical_crossing,
                                                    grid_tau_crossings)
-from gvr_tpu_torch.integrators.multiscatter import (render_multiscatter,
-                                                    wavefront_pixels_big)
+from gvr_tpu_torch import cli
+from gvr_tpu_torch.integrators.multiscatter import (
+    diff_uniforms, multiscatter_radiance_diff, render_multiscatter,
+    wavefront_pixels_big)
 from gvr_tpu_torch.integrators.raymarch import (render_pure_raymarch,
                                                 render_raymarch_gaussians)
 from gvr_tpu_torch.integrators.test_hit import render_hit_mask
+from gvr_tpu_torch.inverse import fit as tfit
+from gvr_tpu_torch.io.ppm import read_ppm, write_ppm
 from gvr_tpu_torch.kernels import gridtrace as tgt
 from gvr_tpu_torch.kernels import megatrace as tmt
 from gvr_tpu_torch.kernels import pathtrace as tpt
 from gvr_tpu_torch.kernels import pathtrace_big as tpb
 from gvr_tpu_torch.kernels import rng as trng
 from gvr_tpu_torch.ops import transmittance as tto
+from gvr_tpu_torch.scene.gaussians import GaussianMixture
 from gvr_tpu_torch.scene.generators import random_gaussian_scene
 from gvr_tpu_torch.scene.scene import parse_gmm
 from gvr_tpu_torch.testing import (BIG_DENSE_BARS, big_kernel_vs_plain,
                                    big_rays, card_cpu_agreement,
-                                   mega_agreement, solve_agreement,
+                                   fit_agreement, mega_agreement,
+                                   solve_agreement, solve_fd_agreement,
                                    span_tau_agreement)
 from gvr_tpu_torch.utils.profiling import path_statistics
 
@@ -708,3 +714,141 @@ def test_path_statistics_on_card_match_cpu(cuda_device):
     got = path_statistics(parse_gmm(SCENE24), cam, cfg, 512,
                           device=cuda_device)
     assert got == pytest.approx(want, rel=1e-2)
+
+
+# ---- the inverse renderer on the card -------------------------------------
+
+# tests/test_inverse.py's 10-Gaussian scene
+SCENE10 = random_gaussian_scene(10, seed=2, diameter=(0.2, 0.7))
+K3_COUNTERS = (trng.planes_uniforms, trng.planes_uniforms_reference,
+               trng.wave_uniforms, trng.wave_uniforms_reference)
+
+
+def _fit_rays(device, w: int = 16):
+    """(o, d, ids) through the pixel centres of a w^2 image, pinhole at
+    (0,1,6) toward (0,1,0), FOV 45 degrees."""
+    cam = PinholeCamera.create([0, 1, 6], [0, 1, 0], 0.25 * math.pi,
+                               device=device)
+    return tfit._pixel_rays(cam, w, w, torch.arange(w * w, dtype=torch.int32,
+                                                    device=device))
+
+
+def _k3_launches(fn):
+    """(fn's result, launches of planes_uniforms, its plain version,
+    wave_uniforms, its plain version)."""
+    for c in K3_COUNTERS:
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, [c.launches for c in K3_COUNTERS]
+
+
+@pytest.mark.parametrize("loss", ["l2", "l2_dual"])
+def test_fit_loss_on_card_matches_cpu(cuda_device, loss):
+    """fit_loss and its gradient (16^2, 2 bounces, spp 2) on the card
+    against the CPU at testing.FIT_BARS, the parameters packed once on
+    the CPU; on the card K3 launches once for each buffer and sample and
+    no plain version runs."""
+    params = parse_gmm(SCENE10).medium.pack_parameters()
+    out = {}
+    for dev in ("cpu", cuda_device):
+        sc = parse_gmm(SCENE10, device=dev)
+        o, d, ids = _fit_rays(dev)
+        p = params.to(dev, copy=True).requires_grad_(True)
+
+        def run():
+            val = tfit.fit_loss(p, sc, o, d, ids,
+                                torch.full((256, 3), 0.4, device=dev),
+                                n_bounces=2, spp=2, loss=loss, seed=5)
+            val.backward()
+            return val
+
+        out[str(dev)] = (*_k3_launches(run), p.grad)
+    val, launches, grad = out[str(cuda_device)]
+    assert launches == [4 if loss == "l2_dual" else 2, 0, 0, 0]
+    res = fit_agreement(val, grad, out["cpu"][0], out["cpu"][2])
+    assert res["ok"], res
+
+
+def test_radiance_diff_on_card_matches_cpu(cuda_device):
+    """multiscatter_radiance_diff at 32^2, 4 bounces, RR from bounce 2 on
+    the card against the CPU (testing.CARD_CPU_BARS): one K3 launch draws
+    every bounce, and no plain version runs."""
+    imgs = {}
+    for dev in ("cpu", cuda_device):
+        sc = parse_gmm(SCENE10, device=dev)
+        o, d, ids = _fit_rays(dev, 32)
+        img, launches = _k3_launches(lambda: multiscatter_radiance_diff(
+            sc, o, d, ids, None, n_bounces=4, sample=3, seed=9, rr_after=2))
+        imgs[str(dev)] = img.cpu().numpy().reshape(32, 32, 3)
+    assert launches == [1, 0, 0, 0]
+    res = card_cpu_agreement(imgs[str(cuda_device)], imgs["cpu"])
+    assert res["ok"], res
+
+
+def test_diff_draws_are_keyed_by_bounce(cuda_device):
+    """The estimator's draws on the card, [9, bounces, B] from one K3
+    launch, equal the plain hash keyed by (pixel, sample, bounce j) for
+    each bounce j, bit for bit."""
+    ids = torch.arange(70_001, dtype=torch.int32)
+    got = diff_uniforms(ids.to(cuda_device), 5, 4, 2**31 + 7).cpu()
+    for j in range(4):
+        want = torch.stack(trng.uniform_cols(ids, 5, j, 9, 2**31 + 7))
+        assert torch.equal(got[:, j], want), j
+
+
+def test_conditional_vjp_on_card_matches_central_differences(cuda_device):
+    """The implicit-function VJP of solve_conditional_free_flight on the
+    card against central differences of the solve
+    (testing.SOLVE_FD_BARS), on the 10-Gaussian scene's 16^2 camera
+    rays."""
+    sc = parse_gmm(SCENE10, device=cuda_device)
+    o, d, _ = _fit_rays(cuda_device)
+    u = torch.from_numpy(np.random.default_rng(1).uniform(size=256)
+                         .astype(np.float32)).to(cuda_device)
+    res = solve_fd_agreement(sc, o, d, u)
+    assert res["ok"], res
+
+
+def test_codec_ignores_the_tf32_flag(cuda_device):
+    """pack_parameters and from_parameters sum their products
+    elementwise, so a caller's TF32 matmul setting changes no bit."""
+    p = parse_gmm(random_gaussian_scene(250, seed=0)).medium \
+        .pack_parameters().to(cuda_device)
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.get_float32_matmul_precision())
+    outs = []
+    try:
+        for tf32, prec in ((False, "highest"), (True, "high")):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            torch.set_float32_matmul_precision(prec)
+            m = GaussianMixture.from_parameters(p)
+            outs.append([m.cov, m.inv_cov, m.norm, m.eigvecs,
+                         m.pack_parameters()])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flags[0]
+        torch.set_float32_matmul_precision(flags[1])
+    for g, w in zip(*outs):
+        assert torch.equal(g, w)
+
+
+def test_cli_fit_on_card(cuda_device, tmp_path):
+    """`cli fit` on the card, 3 iterations at 32^2 with snapshots: four K3
+    launches an iteration (2 buffers x spp 2), the megakernel for the
+    snapshots and the final render, no plain version; losses finite."""
+    scene = tmp_path / "scene.txt"
+    scene.write_text(SCENE10)
+    target = tmp_path / "target.ppm"
+    write_ppm(str(target), np.full((32, 32, 3), 0.5, np.float32))
+    counters = K3_COUNTERS + (tmt.mega_call, tmt.mega_reference)
+    for c in counters:
+        c.launches = 0
+    res = cli.main(["fit", str(scene), "--target", str(target), "-o",
+                    str(tmp_path / "fit"), "--iters", "3", "--save-every",
+                    "1", "--bounces", "2", "--spp", "4", "--final-spp", "16",
+                    "--snapshots"])
+    launches = [c.launches for c in counters]
+    assert launches[:4] == [12, 0, 0, 0] and launches[4] >= 4 \
+        and launches[5] == 0, launches
+    assert all(np.isfinite(v) for _, v in res["losses"])
+    assert read_ppm(res["paths"][-1]).shape == (32, 32, 3)
