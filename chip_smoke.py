@@ -146,6 +146,39 @@ raises, so the exit code is non-zero.
              s/iteration, differentiable path-bounces/s, the dB gained
              and peak device memory
 
+ 21 media card vs cpu  random_sphere_scene(16, 0) through the CLI at 32^2
+             on the card and with --device cpu (the sphere marcher, the pure
+             marcher and the hit mask at phase 17's steps and environment
+             samples); random_gaussian_scene(250, 0) baked at 64^3 on the
+             card and on the CPU (testing.BAKE_BARS), the card's bake
+             written as .npz and rendered by the CLI's pure marcher on
+             both, and its hit mask by render_hit_mask (the CLI refuses a
+             voxel hit mask, as the JAX package's does): testing.
+             CARD_CPU_BARS, K3 once a march step, no plain version
+ 22 media at size  the sphere scene by `cli render --integrator raymarch`
+             at 512^2, step 0.01, 20 environment samples; the Mitsuba scene
+             of SURVEY 4.3 (written as XML: orthographic (0,1,6)->(0,1,0),
+             512^2, the sky-blue constant emitter, a point light of 35 at
+             (0,4,0), one sphere of radius 1 at (0,1,0), sigma_t 0.8, albedo
+             0.875) by load_mitsuba + render_raymarch_spheres and its SMM
+             twin, the images within 1e-5; the 250-Gaussian scene baked at
+             128^3 (bake seconds) and its .npz by the CLI's pure marcher at
+             phase 18's 128^2 and step 0.05, its image mean beside phase
+             18's render of the Gaussians (no bar: a cell is wider than
+             those Gaussians); 40 Gaussians of diameter 0.2-0.6 and their
+             128^3 bake through the same marcher, the image means within
+             3 % (BAKE_MEAN_BAR: the bake keeps the mass beyond R_CUT that
+             the Gaussian renders drop): render seconds, steps, K3
+             launches
+ 23 animate  `cli animate --integrator multiscatter` of the 250-Gaussian
+             scene at the CLI's 512^2, spp 16, 120 frames, 30 fps (K1 once
+             a chunk and frame), and `cli animate` (the sphere marcher) of
+             the sphere scene at the CLI's step and environment samples,
+             cut to 128^2 and 30 frames: seconds, seconds a frame, GIF
+             bytes, launches; the GIF from the native encoder, GIF89a, the
+             screen size, one image a frame and the trailer (the card's
+             machine has no PIL), no plain version
+
 The last three lines: the nvidia-smi line, the kernels JSON (each kernel
 with its launches on its main path, its device time (``ms``), its call's
 CUDA-events time and dispatch (``events_ms``, ``dispatch_us``), its plain
@@ -218,6 +251,59 @@ AT_SIZE = (
     ("pureraymarch", 128, 1, ["--integrator", "pureraymarch",
                               "--step-size", "0.05"], ["planes_uniforms"]),
     ("hitmask", 1024, 1, ["--integrator", "hitmask"], []),
+)
+# Phases 21-23: media and animation.  Phase 21 renders the sphere scene
+# and a voxel bake at CARD_CPU_SIZE on the card and on the CPU (the bake
+# at VOXEL_RES_CPU, so the CPU's part stays short); phase 22 the sphere
+# scene at the CLI's 512^2, step 0.01 and 20 environment samples, the
+# Mitsuba scene of SURVEY 4.3 (512^2, its film) and its SMM twin, and the
+# bake at VOXEL_RES through the pure marcher at phase 18's 128^2 and step
+# 0.05; phase 23 `cli animate` (label, scene, arguments, frames, size):
+# multiscatter at the CLI's 512^2, spp 16 and 120 frames, and the sphere
+# marcher at the CLI's step and environment samples, cut to 128^2 and 30
+# frames (a 512^2 frame of it takes seconds, 120 of them minutes).
+MAIN_SPHERE_SIZE = 512
+VOXEL_RES_CPU, VOXEL_RES = 64, 128
+# Gaussians a 128^3 grid resolves (the 250-Gaussian scene's are 0.01-0.035
+# across, about a cell), for the bar between a medium and its bake
+FAT_SCENE = dict(n=40, seed=0, diameter=(0.2, 0.6), density=(0.5, 2.0))
+# their images' means: the bake keeps the 2.9 % of each Gaussian's mass
+# beyond R_CUT that the Gaussian renders drop (phase 22)
+BAKE_MEAN_BAR = 0.03
+MITSUBA_XML = """<scene version="3.0.0">
+  <integrator type="volpath"><integer name="max_depth" value="64"/></integrator>
+  <sensor type="orthographic">
+    <transform name="to_world">
+      <lookat origin="0, 1, 6" target="0, 1, 0" up="0, 1, 0"/>
+    </transform>
+    <film type="hdrfilm">
+      <integer name="width" value="512"/>
+      <integer name="height" value="512"/>
+    </film>
+  </sensor>
+  <emitter type="constant"><rgb name="radiance" value="0.53, 0.81, 0.92"/></emitter>
+  <emitter type="point">
+    <point name="position" x="0" y="4" z="0"/>
+    <rgb name="intensity" value="35"/>
+  </emitter>
+  <medium type="homogeneous" id="sphere_medium">
+    <rgb name="albedo" value="0.875"/>
+    <rgb name="sigma_t" value="0.8"/>
+    <float name="scale" value="1"/>
+  </medium>
+  <shape type="sphere">
+    <point name="center" x="0" y="1" z="0"/>
+    <float name="radius" value="1"/>
+    <bsdf type="null"/>
+    <ref name="interior" id="sphere_medium"/>
+  </shape>
+</scene>
+"""
+MITSUBA_TWIN = "l 0 4 0  35 35 35\ns 0 1 0  1.0 0.1 0.7\n"
+ANIMATE = (
+    ("multiscatter 250 Gaussians", "gaussians",
+     ["--integrator", "multiscatter"], 120, 512),
+    ("raymarch 16 spheres", "spheres", [], 30, 128),
 )
 # Phase 20: `cli fit` at the CLI's settings (batch, bounces, spp of each
 # loss buffer), 40 iterations, at 128^2 with the target and the compared
@@ -299,6 +385,239 @@ def fmt_ms(t):
     return (f"{t['ms']:.4f} ms (dispatch {t['dispatch_us']:.1f} us, events "
             f"{t['events_ms']:.4f} ms, {t['recorded']:.0%} of the launches "
             f"recorded)")
+
+
+def media_phases(dev, smi, text250, counters, cli_render, cli_image,
+                 pure_gaussians):
+    """Phases 21-23 (media and animation); ``cli_render`` and
+    ``cli_image`` are run()'s, ``pure_gaussians`` phase 18's pure-marcher
+    image of the 250-Gaussian scene.  Returns K3's launches on the media
+    renders and the turntables' launches."""
+    import numpy as np
+    import torch
+
+    from gvr_tpu_torch import cli, testing
+    from gvr_tpu_torch.cameras import PinholeCamera
+    from gvr_tpu_torch.config import RenderConfig
+    from gvr_tpu_torch.integrators.raymarch import render_raymarch_spheres
+    from gvr_tpu_torch.integrators.test_hit import render_hit_mask
+    from gvr_tpu_torch.io.mitsuba import load_mitsuba
+    from gvr_tpu_torch.kernels import rng
+    from gvr_tpu_torch.scene.generators import (random_gaussian_scene,
+                                                random_sphere_scene)
+    from gvr_tpu_torch.scene.scene import parse_gmm, parse_smm
+    from gvr_tpu_torch.scene.voxels import VoxelGrid
+
+    # ---- 21: media, card against CPU, through the CLI ----
+    text16 = random_sphere_scene(16, seed=0)
+    launches_m = {}
+
+    def bake(text, device, res):
+        """(scene, its Gaussians baked at res^3 on device as a VoxelGrid,
+        seconds, the card synchronised).  The scene is parsed on the CPU
+        and moved, so a bake on the card and one on the CPU start from
+        the same mixture (eigh on the card rounds apart)."""
+        sc = parse_gmm(text).to(device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vg = VoxelGrid.from_gaussians(sc.medium, res=res)
+        torch.cuda.synchronize()
+        return sc, vg, time.perf_counter() - t0
+
+    def write_npz(path, sc, vg):
+        np.savez(path, sigma_t=vg.sigma_t.cpu().numpy(),
+                 albedo=vg.albedo.cpu().numpy(), lo=vg.lo.cpu().numpy(),
+                 hi=vg.hi.cpu().numpy(), lights=sc.lights().cpu().numpy(),
+                 env_color=sc.env_color.cpu().numpy())
+
+    def card_vs_cpu(label, text, args, kernels, scene_file=None):
+        stats, wall, launches_p, card = cli_render(
+            text, CARD_CPU_SIZE, 1, kernels, args=args,
+            scene_file=scene_file)
+        stats_cpu, _, _, cpu = cli_image(text, CARD_CPU_SIZE, 1, "cpu",
+                                         args, scene_file)
+        res = testing.card_cpu_agreement(card, cpu,
+                                         hitmask="hitmask" in label)
+        launches_m[f"{label} {CARD_CPU_SIZE}"] = launches_p[
+            "planes_uniforms"]
+        log("21 media card vs cpu", f"{label} {CARD_CPU_SIZE}^2: card "
+            f"{stats['seconds']:.3f} s, cpu {stats_cpu['seconds']:.3f} s, "
+            + "".join(f"{k} {stats[k]}, " for k in (
+                "k3_launches", "n_steps", "steps", "shadow_steps")
+                if k in stats)
+            + f"{json.dumps(res)} (bars "
+            f"{json.dumps(testing.CARD_CPU_BARS)}), launches "
+            f"{json.dumps({k: v for k, v in launches_p.items() if v})}")
+        if not res["ok"]:
+            raise AssertionError(f"{label}: the card's image misses the "
+                                 f"CPU's: {res}")
+
+    # each path at phase 17's coarser steps and environment samples
+    marcher_args = {label: args for label, args, _, _ in SLICE_PATHS[3:]}
+    for integrator in ("raymarch", "pureraymarch", "hitmask"):
+        card_vs_cpu(f"spheres {integrator}", text16,
+                    marcher_args[integrator],
+                    [] if integrator == "hitmask" else ["planes_uniforms"])
+    with tempfile.TemporaryDirectory() as tmp:
+        sc_card, vg_card, _ = bake(text250, dev, VOXEL_RES_CPU)
+        _, vg_cpu, _ = bake(text250, "cpu", VOXEL_RES_CPU)
+        res = testing.bake_agreement(vg_card, vg_cpu)
+        log("21 media card vs cpu", f"bake of 250 Gaussians at "
+            f"{VOXEL_RES_CPU}^3, card vs cpu: {json.dumps(res)} (bars "
+            f"{json.dumps(testing.BAKE_BARS)})")
+        if not res["ok"]:
+            raise AssertionError(f"the card's bake misses the CPU's: {res}")
+        npz = os.path.join(tmp, "bake.npz")
+        write_npz(npz, sc_card, vg_card)
+        card_vs_cpu("voxels pureraymarch", None,
+                    marcher_args["pureraymarch"], ["planes_uniforms"], npz)
+        # the CLI refuses the hit mask of a voxel grid, as the JAX
+        # package's does: the function renders it
+        scv = sc_card.with_medium(vg_card)
+        cam32 = PinholeCamera.create([0, 1, 6], [0, 1, 0],
+                                     math.radians(45.0))
+        cfg32 = RenderConfig(width=CARD_CPU_SIZE, height=CARD_CPU_SIZE)
+        res = testing.card_cpu_agreement(
+            render_hit_mask(scv, cam32, cfg32, device=dev),
+            render_hit_mask(scv.to("cpu"), cam32, cfg32, device="cpu"),
+            hitmask=True)
+        log("21 media card vs cpu", f"voxels hitmask {CARD_CPU_SIZE}^2 "
+            f"(render_hit_mask): {json.dumps(res)}")
+        if not res["ok"]:
+            raise AssertionError(f"voxel hit mask: card misses the CPU: "
+                                 f"{res}")
+
+    # ---- 22: media at size ----
+    stats, wall, launches_p, img = cli_render(
+        text16, MAIN_SPHERE_SIZE, 1, ["planes_uniforms"],
+        args=["--integrator", "raymarch"])
+    launches_m[f"spheres raymarch {MAIN_SPHERE_SIZE}"] = launches_p[
+        "planes_uniforms"]
+    log("22 media at size", f"cli render --integrator raymarch 16 spheres "
+        f"{MAIN_SPHERE_SIZE}^2 step 0.01, 20 env samples: render "
+        f"{stats['seconds']:.3f} s ({wall:.3f} s with load and PPM), steps "
+        f"{stats['steps']} (bound {stats['n_steps']}) in {stats['chunks']} "
+        f"chunks of {stats['chunk']}, K3 launches {stats['k3_launches']}, "
+        f"image mean {img.mean():.6f} ({smi})")
+    with tempfile.TemporaryDirectory() as tmp:
+        xml = os.path.join(tmp, "one_sphere_ortho.xml")
+        with open(xml, "w") as f:
+            f.write(MITSUBA_XML)
+        sc_x, cam_x, w_x, h_x = load_mitsuba(xml, device=dev)
+        twin = parse_smm(MITSUBA_TWIN, device=dev)
+        cfg_x = RenderConfig(width=w_x, height=h_x)
+        imgs = []
+        for label, sc in (("mitsuba xml", sc_x), ("smm twin", twin)):
+            rng.planes_uniforms.launches = 0
+            st = {}
+            imgs.append(render_raymarch_spheres(sc, cam_x, cfg_x,
+                                                device=dev, stats=st))
+            launches_m[label] = rng.planes_uniforms.launches
+            log("22 media at size", f"{label} (SURVEY 4.3: ortho "
+                f"(0,1,6)->(0,1,0), one sphere r 1, sigma_t 0.8, albedo "
+                f"0.875) {w_x}x{h_x} step 0.01, 20 env samples: render "
+                f"{st['seconds']:.3f} s, steps {st['steps']}, K3 launches "
+                f"{rng.planes_uniforms.launches} (due {st['k3_launches']}), "
+                f"image mean {imgs[-1].mean():.6f}")
+            if rng.planes_uniforms.launches != st["k3_launches"] \
+                    or not np.isfinite(imgs[-1]).all():
+                raise AssertionError(f"{label}: K3 or the image is off")
+        diff = float(np.abs(imgs[0] - imgs[1]).max())
+        log("22 media at size", f"mitsuba xml vs its smm twin: max |diff| "
+            f"{diff:.3e} (bar 1e-5)")
+        if diff > 1e-5 or imgs[0].std() == 0:
+            raise AssertionError("the Mitsuba scene and its SMM twin differ")
+        sc_v, vg_v, bake_s = bake(text250, dev, VOXEL_RES)
+        npz = os.path.join(tmp, "bake128.npz")
+        write_npz(npz, sc_v, vg_v)
+        size, spp, args, kernels = AT_SIZE[2][1:]
+        stats, wall, launches_p, img = cli_render(
+            None, size, spp, kernels, args=args, scene_file=npz)
+        launches_m[f"voxels pureraymarch {size}"] = launches_p[
+            "planes_uniforms"]
+        m_v, m_g = float(img.mean()), float(pure_gaussians.mean())
+        log("22 media at size", f"bake of 250 Gaussians at {VOXEL_RES}^3 "
+            f"(sigma_t and albedo {2 * VOXEL_RES ** 3 * 4 / 2**20:.0f} MiB): "
+            f"{bake_s:.3f} s; cli render --integrator pureraymarch of the "
+            f".npz {size}^2 step 0.05: render {stats['seconds']:.3f} s "
+            f"({wall:.3f} s with load and PPM), steps {stats['steps']}, "
+            f"shadow bound {stats['shadow_steps']}, K3 launches "
+            f"{stats['k3_launches']}, image mean {m_v:.6f} vs the "
+            f"Gaussians' {m_g:.6f} (phase 18; rel {abs(m_v - m_g) / m_g:.2e}; "
+            f"no bar: Gaussians of sigma 0.005-0.018 are not resolved by a "
+            f"cell of {float((vg_v.hi - vg_v.lo).max()) / VOXEL_RES:.4f}) "
+            f"({smi})")
+        # the cross-representation bar (tests/test_voxels.py's idea) on
+        # Gaussians the grid resolves, through the same marcher, size and
+        # step: the bake sums whole Gaussians, the Gaussian renders cut
+        # each at R_CUT = 3 sigma, which drops 2.9 % of its mass, so the
+        # bake is that much denser and its image darker
+        text_fat = random_gaussian_scene(**FAT_SCENE)
+        paths = {"gaussians": os.path.join(tmp, "fat.txt"),
+                 "bake": os.path.join(tmp, "fat.npz")}
+        with open(paths["gaussians"], "w") as f:
+            f.write(text_fat)
+        write_npz(paths["bake"], *bake(text_fat, dev, VOXEL_RES)[:2])
+        imgs = []
+        for label, path in paths.items():
+            stats, wall, launches_p, img = cli_render(
+                None, size, spp, kernels, args=args, scene_file=path)
+            launches_m[f"fat {label} pureraymarch {size}"] = launches_p[
+                "planes_uniforms"]
+            imgs.append(img)
+            log("22 media at size", f"40 Gaussians of diameter 0.2-0.6 "
+                f"({label}{f' at {VOXEL_RES}^3' if label == 'bake' else ''})"
+                f" cli render --integrator pureraymarch {size}^2 step 0.05: "
+                f"render {stats['seconds']:.3f} s, steps {stats['steps']}, "
+                f"K3 launches {stats['k3_launches']}, image mean "
+                f"{img.mean():.6f}")
+        m_g, m_v = (float(x.mean()) for x in imgs)
+        log("22 media at size", f"bake vs Gaussians, image means: rel "
+            f"{abs(m_v - m_g) / m_g:.2e} (bar {BAKE_MEAN_BAR}), mean |diff| "
+            f"{float(np.abs(imgs[0] - imgs[1]).mean()):.2e}")
+        if abs(m_v - m_g) > BAKE_MEAN_BAR * m_g:
+            raise AssertionError("the bake's image mean misses the "
+                                 "Gaussians'")
+
+    # ---- 23: cli animate ----
+    launches_a = {}
+    for label, scene, args, frames, size in ANIMATE:
+        text = text250 if scene == "gaussians" else text16
+        with tempfile.TemporaryDirectory() as tmp:
+            scene_path = os.path.join(tmp, "scene.txt")
+            out_path = os.path.join(tmp, "anim.gif")
+            with open(scene_path, "w") as f:
+                f.write(text)
+            for fn in counters:
+                fn.launches = 0
+            res = cli.main(["animate", scene_path, "-o", out_path,
+                            "--frames", str(frames), "--width", str(size),
+                            "--height", str(size)] + args)
+            launches_p = {fn.__name__: fn.launches for fn in counters}
+            with open(out_path, "rb") as f:
+                structure = testing.gif_structure(f.read())
+        launches_a[label] = {k: v for k, v in launches_p.items() if v}
+        log("23 animate", f"cli animate {label} {size}^2 {' '.join(args)}, "
+            f"{frames} frames: {res['seconds']:.3f} s, "
+            f"{res['seconds'] / frames:.4f} s a frame, GIF {res['bytes']} "
+            f"bytes ({res['backend']} encoder), {json.dumps(structure)}, "
+            f"launches {json.dumps(launches_a[label])} ({smi})")
+        plain = {k: v for k, v in launches_p.items()
+                 if k.endswith("_reference") and v}
+        if structure != dict(signature=True, width=size, height=size,
+                             frames=frames, trailer=True) \
+                or res["backend"] != "native" or plain:
+            raise AssertionError(f"cli animate {label}: GIF {structure}, "
+                                 f"backend {res['backend']}, plain {plain}")
+        if "multiscatter" in args:
+            due = frames * -(-size * size // RenderConfig().ray_chunk)
+            if launches_p["mega_call"] != due:
+                raise AssertionError(f"K1 launched {launches_p['mega_call']}"
+                                     f" times, {due} due")
+        elif not launches_p["planes_uniforms"]:
+            raise AssertionError("the sphere turntable never launched K3")
+
+    return launches_m, launches_a
 
 
 def main():
@@ -576,15 +895,16 @@ def run(dev):
                 pathtrace_big.big_stage1, pathtrace_big.big_stage1_reference,
                 pathtrace_big.big_nee, pathtrace_big.big_nee_reference)
 
-    def cli_image(text, size, spp, device, args=()):
-        """(stats, wall seconds, launches, image) of ``text`` rendered
-        through the CLI on ``device`` with ``args``, every count set to 0
-        just before."""
+    def cli_image(text, size, spp, device, args=(), scene_file=None):
+        """(stats, wall seconds, launches, image) of ``text`` (or of the
+        file ``scene_file``) rendered through the CLI on ``device`` with
+        ``args``, every count set to 0 just before."""
         with tempfile.TemporaryDirectory() as tmp:
-            scene_path = os.path.join(tmp, "scene.txt")
+            scene_path = scene_file or os.path.join(tmp, "scene.txt")
             out_path = os.path.join(tmp, "out.ppm")
-            with open(scene_path, "w") as f:
-                f.write(text)
+            if scene_file is None:
+                with open(scene_path, "w") as f:
+                    f.write(text)
             for fn in counters:
                 fn.launches = 0
             t0 = time.perf_counter()
@@ -596,13 +916,15 @@ def run(dev):
             launches = {fn.__name__: fn.launches for fn in counters}
             return stats, wall, launches, read_ppm(out_path)
 
-    def cli_render(text, size, spp, kernels, engine="auto", args=()):
-        """Render ``text`` through the CLI on the card with every count set
-        to 0 just before; returns (stats, wall seconds, launches, image)
-        after checking the image, that each of ``kernels`` was launched
-        and that no plain version was called."""
+    def cli_render(text, size, spp, kernels, engine="auto", args=(),
+                   scene_file=None):
+        """Render ``text`` (or ``scene_file``) through the CLI on the card
+        with every count set to 0 just before; returns (stats, wall
+        seconds, launches, image) after checking the image, that each of
+        ``kernels`` was launched and that no plain version was called."""
         stats, wall, launches, img = cli_image(
-            text, size, spp, dev, ["--engine", engine] + list(args))
+            text, size, spp, dev, ["--engine", engine] + list(args),
+            scene_file)
         if img.shape != (size, size, 3) or not np.isfinite(img).all() \
                 or img.std() == 0:
             raise AssertionError(f"main path image: shape {img.shape}, "
@@ -1039,11 +1361,12 @@ def run(dev):
                                  f"CPU's: {res}")
 
     # ---- 18: the integrators at size ----
-    launches_i = {}
+    launches_i, images_i = {}, {}
     for label, size, spp, args, kernels in AT_SIZE:
         stats, wall, launches_p, img = cli_render(
             text250, size, spp, kernels, args=args)
         launches_i[label] = {k: v for k, v in launches_p.items() if v}
+        images_i[label] = img
         log("18 at size", f"{label} 250 Gaussians {size}^2 spp {spp} "
             f"{' '.join(args[2:])}: render {stats['seconds']:.3f} s "
             f"({wall:.3f} s with load and PPM), chunk {stats['chunk']}, "
@@ -1197,6 +1520,10 @@ def run(dev):
                              f"closer to the target than the initial one "
                              f"({db_init:.3f} dB)")
 
+    launches_m, launches_a = media_phases(
+        dev, smi, text250, counters, cli_render, cli_image,
+        images_i["pureraymarch"])
+
     def entry(name, replaces, key, path_launches, launches_key, err):
         t = times[key][0]
         return {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
@@ -1242,6 +1569,13 @@ def run(dev):
     # one launch), K1 for the snapshots and the final render
     kernels[0]["launches_fit"] = launches_fit["mega_call"]
     kernels[2]["launches_fit"] = launches_fit["planes_uniforms"]
+    # the media marchers (phases 21-22) draw once a march step
+    # (planes_uniforms), the turntables (phase 23) through K1 or K3
+    kernels[0]["launches_animate"] = {
+        k: v.get("mega_call", 0) for k, v in launches_a.items()}
+    kernels[2]["launches_media"] = launches_m
+    kernels[2]["launches_animate"] = {
+        k: v.get("planes_uniforms", 0) for k, v in launches_a.items()}
     kernels[2]["ms_planes"] = times["rng_planes"][0]["ms"]
     kernels[2]["bound_ms_planes"] = bounds["rng_planes"][0]
     for k in kernels[2:5]:

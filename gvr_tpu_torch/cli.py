@@ -1,28 +1,37 @@
-"""Command-line entry point: render a Gaussian scene, or fit one to an image.
+"""Command-line entry point: render a scene, animate a turntable, or fit
+Gaussians to an image.
 
-Counterpart of ``gvr_tpu/cli.py`` render and fit, with the same flags and
-defaults (512x512, camera at (0,1,6) looking at (0,1,0), FOV 45 degrees;
-render: 256 spp, step 0.01, 20 environment samples; fit: 1000 iterations,
-lr 1e-2, 4,096-pixel batches, 4 bounces, snapshots at 16 spp, the final
-render at 1024) apart from the TPU-only ``--pallas``, and with
-``--device`` (default cuda):
+Counterpart of ``gvr_tpu/cli.py``, with the same flags and defaults
+(512x512, camera at (0,1,6) looking at (0,1,0), FOV 45 degrees; render:
+256 spp, step 0.01, 20 environment samples; animate: the ray marcher, 120
+frames at 30 fps, radius 6, spp 16; fit: 1000 iterations, lr 1e-2,
+4,096-pixel batches, 4 bounces, snapshots at 16 spp, the final render at
+1024) apart from the TPU-only ``--pallas``, and with ``--device`` (default
+cuda):
 
     python -m gvr_tpu_torch.cli render scene.txt -o out.ppm \
         [--integrator multiscatter|singlescatter|raymarch|pureraymarch|hitmask]
+    python -m gvr_tpu_torch.cli animate scene.txt -o anim.gif \
+        [--integrator raymarch|multiscatter]
     python -m gvr_tpu_torch.cli fit init.txt --target target.ppm \
         -o fit_output [--iters 1000] [--snapshots]
 
-``--trace`` raises (ROADMAP Queue 1, tooling).  ``main`` returns the
-command's result (the ``--stats`` dict for render; for fit the
-iterations, seconds, logged (iteration, loss) pairs, written paths and
-the fitted scene's packed parameters).  The animate
-command waits for its port (ROADMAP Queue 1).
+A scene is GMM text, SMM (sphere) text or a voxel .npz.  render routes by
+medium as the JAX package does: raymarch on spheres takes the sphere
+marcher, and a voxel grid renders with the pure marcher only (raymarch
+goes there too; the other integrators are refused).  ``--trace`` raises
+(ROADMAP Queue 1, tooling).  ``main`` returns the command's result (the
+``--stats`` dict for render; for animate the frames, seconds, GIF path,
+its bytes and the GIF backend; for fit the iterations, seconds, logged
+(iteration, loss) pairs, written paths and the fitted scene's packed
+parameters).
 """
 
 from __future__ import annotations
 
 import argparse
 import math
+import os
 import re
 import time
 
@@ -30,17 +39,27 @@ INTEGRATORS = ("multiscatter", "singlescatter", "raymarch", "pureraymarch",
                "hitmask")
 
 
-def renderer(integrator: str):
+# JAX's refusal of a voxel scene's other integrators (gvr_tpu/cli.py:59-66)
+VOXEL_REFUSAL = ("voxel media render with the medium-agnostic marcher "
+                 "only; use --integrator pureraymarch (or raymarch)")
+
+
+def renderer(integrator: str, scene=None):
     """The render function (scene, camera, cfg, device=, stats=) of one of
-    INTEGRATORS."""
+    INTEGRATORS for ``scene``'s medium: raymarch takes the sphere marcher
+    on a sphere scene, as in the JAX package."""
     from gvr_tpu_torch.integrators.freeflight import render_single_scatter
     from gvr_tpu_torch.integrators.multiscatter import render_multiscatter
     from gvr_tpu_torch.integrators.raymarch import (
-        render_pure_raymarch, render_raymarch_gaussians)
+        render_pure_raymarch, render_raymarch_gaussians,
+        render_raymarch_spheres)
     from gvr_tpu_torch.integrators.test_hit import render_hit_mask
+    from gvr_tpu_torch.scene.spheres import SphereMixture
+    spheres = scene is not None and isinstance(scene.medium, SphereMixture)
     return {"multiscatter": render_multiscatter,
             "singlescatter": render_single_scatter,
-            "raymarch": render_raymarch_gaussians,
+            "raymarch": (render_raymarch_spheres if spheres
+                         else render_raymarch_gaussians),
             "pureraymarch": render_pure_raymarch,
             "hitmask": render_hit_mask}[integrator]
 
@@ -66,14 +85,22 @@ def cmd_render(args):
     if args.trace:
         raise NotImplementedError(
             "--trace is not ported yet (ROADMAP Queue 1, utils/profiling)")
+    from gvr_tpu_torch.scene.voxels import VoxelGrid
+
     scene = load_scene(args.scene, device=args.device)
+    if isinstance(scene.medium, VoxelGrid):
+        # a voxel grid has no analytic transmittance: the pure marcher
+        if args.integrator not in ("raymarch", "pureraymarch"):
+            raise SystemExit(VOXEL_REFUSAL)
+        args.integrator = "pureraymarch"
     camera = make_camera(args, args.device)
     stats = {} if args.stats else None
     t0 = time.time()
     kw = {"progress": args.verbose} if args.integrator == "multiscatter" \
         else {}
-    img = renderer(args.integrator)(scene, camera, cfg, device=args.device,
-                                    stats=stats, **kw)
+    img = renderer(args.integrator, scene)(scene, camera, cfg,
+                                           device=args.device, stats=stats,
+                                           **kw)
     print(f"Render time: {time.time() - t0:.3f} seconds")
     if stats is not None and args.integrator != "multiscatter":
         extra = "".join(f", {k} {stats[k]}" for k in (
@@ -95,6 +122,35 @@ def cmd_render(args):
     write_ppm(args.output, img)
     print(f"wrote {args.output}")
     return stats
+
+
+def cmd_animate(args):
+    """Render the turntable GIF (io/turntable): the reference's orbit
+    camera, so --camera, --pos and --fov are ignored."""
+    from gvr_tpu_torch.config import RenderConfig
+    from gvr_tpu_torch.io import gif
+    from gvr_tpu_torch.io.turntable import render_turntable
+    from gvr_tpu_torch.scene.scene import load_scene
+
+    if (args.camera, tuple(args.pos), args.fov) != \
+            ("pinhole", (0.0, 1.0, 6.0), 45.0):
+        print("[animate] note: --camera/--pos/--fov are ignored; the "
+              "turntable uses the reference orbit camera "
+              "(orthographic, tests/main.cpp:95-103)")
+    scene = load_scene(args.scene, device=args.device)
+    cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
+                       step_size=args.step_size,
+                       env_samples=args.env_samples, seed=args.seed)
+    t0 = time.time()
+    render_turntable(scene, args.output, cfg, lookat=tuple(args.lookat),
+                     radius=args.radius, num_frames=args.frames,
+                     fps=args.fps, integrator=args.integrator,
+                     device=args.device)
+    seconds = time.time() - t0
+    print(f"GIF saved ({seconds:.1f}s): {args.output}")
+    return dict(frames=args.frames, seconds=seconds, path=args.output,
+                bytes=os.path.getsize(args.output),
+                backend=gif.last_backend)
 
 
 def cmd_fit(args):
@@ -159,7 +215,8 @@ def cmd_fit(args):
 
 def _add_common(p):
     """The scene, size, camera and seed flags of every command."""
-    p.add_argument("scene", help="scene text file (GMM format)")
+    p.add_argument("scene", help="scene file: GMM or SMM text, or a voxel "
+                   ".npz")
     p.add_argument("--width", type=int, default=512)
     p.add_argument("--height", type=int, default=512)
     p.add_argument("--camera", choices=["pinhole", "orthographic"],
@@ -210,6 +267,21 @@ def main(argv=None):
                     help="profiler trace (not ported yet)")
     pr.add_argument("-v", "--verbose", action="store_true")
     pr.set_defaults(fn=cmd_render)
+
+    pa = sub.add_parser("animate", help="turntable GIF")
+    _add_common(pa)
+    pa.add_argument("-o", "--output", default="animation.gif")
+    pa.add_argument("--integrator", default="raymarch",
+                    choices=["raymarch", "multiscatter"])
+    pa.add_argument("--frames", type=int, default=120)
+    pa.add_argument("--fps", type=float, default=30.0)
+    pa.add_argument("--radius", type=float, default=6.0)
+    pa.add_argument("--spp", type=int, default=16)
+    pa.add_argument("--step-size", dest="step_size", type=float,
+                    default=0.01)
+    pa.add_argument("--env-samples", dest="env_samples", type=int,
+                    default=20)
+    pa.set_defaults(fn=cmd_animate)
 
     pf = sub.add_parser("fit", help="fit Gaussians to a target image")
     _add_common(pf)

@@ -46,6 +46,7 @@ def render_single_scatter(scene: Scene, camera, cfg: RenderConfig,
     with repeats), summed sample by sample as the JAX package sums them.
     ``stats``, if given, receives the seconds (host clock, ending with the
     copy to the host), paths, the chunk and K3's launches."""
+    scene.require_gaussian("render_single_scatter")
     t0 = time.perf_counter()
     scene = scene.to(device)
     camera = camera.to(device)

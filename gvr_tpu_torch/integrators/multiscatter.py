@@ -471,6 +471,7 @@ def render_multiscatter(scene: Scene, camera, cfg: RenderConfig,
     (the megakernel's count; on the wavefronts the live lanes or
     extension rays traced), the chunk and the chunks, wavefront iterations
     and Gaussian count."""
+    scene.require_gaussian("render_multiscatter")
     t_build = time.perf_counter()
     engine = engine_for(cfg, scene.medium)
     if engine == "grid":

@@ -2,8 +2,9 @@
 
 Counterpart of ``gvr_tpu/integrators/test_hit.py`` (reference
 ``TestIntegrator``, integrator.h:65-94): magenta where the primary ray
-through the pixel centre crosses any Gaussian's R_CUT-sigma ellipsoid,
-the environment colour elsewhere.  It draws no random number.
+through the pixel centre crosses any primitive of the medium (a
+Gaussian's R_CUT-sigma ellipsoid, a sphere, or a voxel grid's box), the
+environment colour elsewhere.  It draws no random number.
 """
 
 from __future__ import annotations
@@ -36,10 +37,6 @@ def render_hit_mask(scene: Scene, camera, cfg: RenderConfig, device="cuda",
     """[H, W, 3] float32 on the host.  ``stats``, if given, receives the
     seconds (host clock, ending with the copy to the host) and the
     chunk."""
-    if not isinstance(scene.medium, GaussianMixture):
-        raise NotImplementedError(
-            "the hit mask of sphere and voxel media is not ported yet "
-            "(ROADMAP Queue 1 item 6, media)")
     t0 = time.perf_counter()
     scene = scene.to(device)
     camera = camera.to(device)
@@ -47,7 +44,10 @@ def render_hit_mask(scene: Scene, camera, cfg: RenderConfig, device="cuda",
 
     def radiance(ids):
         o, d = pixel_rays(camera, cfg, ids)
-        _, _, hit = intersect_gaussians(scene.medium, o, d)
+        if isinstance(scene.medium, GaussianMixture):
+            _, _, hit = intersect_gaussians(scene.medium, o, d)
+        else:
+            _, _, hit = scene.medium.intersect(o, d)
         return torch.where(hit.any(dim=-1)[:, None], magenta,
                            scene.env_color)
 

@@ -127,6 +127,7 @@ def fit_gaussians(scene_init: Scene, camera, target_img: np.ndarray,
     either package; the fit continues after its iteration, and draws the
     batches and streams the uninterrupted run would (each iteration's are
     derived from (cfg.seed, iteration))."""
+    scene_init.require_gaussian("fit_gaussians")
     h, w = target_img.shape[:2]
     spp = cfg.spp if spp is None else spp
     dev = scene_init.medium.mean.device

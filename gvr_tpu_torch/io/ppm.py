@@ -17,6 +17,16 @@ def quantize(img: np.ndarray) -> np.ndarray:
                    255.0).astype(np.uint8)
 
 
+def rgba_buffer(img: np.ndarray) -> np.ndarray:
+    """uint8 [H,W,4] frame, the quantized image with an opaque alpha
+    (image.h:87-105)."""
+    h, w = img.shape[:2]
+    out = np.empty((h, w, 4), np.uint8)
+    out[..., :3] = quantize(img)
+    out[..., 3] = 255
+    return out
+
+
 def write_ppm(path: str, img: np.ndarray) -> None:
     """Write float [H,W,3] as P6."""
     img = np.asarray(img, np.float32)

@@ -10,6 +10,12 @@ loads the existing file.  Flags: ``sm_90a``, ``-O3``, and no
 
 Every C entry point returns ``cudaGetLastError()`` right after its launch;
 ``launch`` raises on a non-zero code.
+
+``host_library`` builds a host-only C++ source of ``csrc/`` (the GIF
+encoder, ``gif_native.cpp``) with the host C++ compiler ``c++`` (the one
+nvcc itself uses) into the same directory, named by its own hash, and
+loads it with ctypes; the kernels' hash covers the ``.cu``/``.cuh`` files
+only, so it does not change the kernels' build.
 """
 
 from __future__ import annotations
@@ -49,6 +55,9 @@ SIGNATURES = {
     "gvr_big_stage1": [_P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P],
     "gvr_big_nee": [_P, _I, _P, _P, _I, _P, _P, _P, _P],
 }
+
+
+HOST_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-shared")
 
 
 def _sources():
@@ -100,6 +109,44 @@ def build() -> dict:
     log.write_text(res.stdout + res.stderr)
     return {"path": str(out), "seconds": time.perf_counter() - t0,
             "built": True, "log": res.stdout + res.stderr}
+
+
+def host_library_path(name: str) -> pathlib.Path:
+    src = CSRC / f"{name}.cpp"
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def build_host(name: str) -> dict:
+    """Compile ``csrc/<name>.cpp`` with ``c++`` unless this source hash is
+    built already.  Returns {'path', 'seconds', 'built'}; raises where no
+    compiler exists or the compile fails."""
+    out = host_library_path(name)
+    if out.exists():
+        return {"path": str(out), "seconds": 0.0, "built": False}
+    cxx = shutil.which("c++")
+    if cxx is None:
+        raise RuntimeError("c++ not found: the host library cannot be built")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [cxx, *HOST_FLAGS, "-o", tmp, str(CSRC / f"{name}.cpp")]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"c++ failed ({res.returncode}):\n"
+                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+    os.replace(tmp, out)
+    return {"path": str(out), "seconds": time.perf_counter() - t0,
+            "built": True}
+
+
+@functools.lru_cache(maxsize=None)
+def host_library(name: str) -> ctypes.CDLL:
+    """The host library of ``csrc/<name>.cpp``, built at first use."""
+    return ctypes.CDLL(build_host(name)["path"])
 
 
 @functools.lru_cache(maxsize=None)

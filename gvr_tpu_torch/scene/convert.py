@@ -1,7 +1,9 @@
 """State carried across from the JAX package as plain numpy arrays.
 
 ``scene_from_numpy`` takes the leaves of a ``gvr_tpu`` Scene and its
-GaussianMixture under their JAX field names; ``camera_from_numpy`` those of
+medium under their JAX field names (a GaussianMixture's, a
+SphereMixture's or a VoxelGrid's, which ``spheres_from_numpy`` and
+``voxels_from_numpy`` build); ``camera_from_numpy`` those of
 a ``gvr_tpu`` camera; ``grid_from_numpy`` those of a ``gvr_tpu``
 GridIndex; ``ray_gaussians_from_numpy`` those of a ``gvr_tpu``
 RayGaussians, so both packages' solvers can run on one ray-Gaussian
@@ -20,9 +22,13 @@ from gvr_tpu_torch.cameras import OrthographicCamera, PinholeCamera
 from gvr_tpu_torch.ops.transmittance import RayGaussians
 from gvr_tpu_torch.scene.gaussians import GaussianMixture
 from gvr_tpu_torch.scene.scene import Scene
+from gvr_tpu_torch.scene.spheres import SphereMixture
+from gvr_tpu_torch.scene.voxels import VoxelGrid
 
 MIXTURE_FIELDS = ("mean", "cov", "density", "albedo", "emission",
                   "inv_cov", "norm", "eigvals", "eigvecs")
+SPHERE_FIELDS = ("center", "radius", "sigma_a", "sigma_s")
+VOXEL_FIELDS = ("lo", "hi", "sigma_t", "albedo")
 SCENE_FIELDS = ("lights_p", "lights_i", "env_color")
 CAMERA_FIELDS = ("position", "view_dir", "right", "up")
 GRID_FIELDS = ("table", "cell_gfirst", "cell_gcnt", "lo", "cell",
@@ -33,11 +39,30 @@ def _t(x, device):
     return torch.tensor(np.asarray(x, np.float32), device=device)
 
 
+def spheres_from_numpy(arrays: dict, device="cpu") -> SphereMixture:
+    """SphereMixture from a dict keyed by SPHERE_FIELDS."""
+    return SphereMixture(*(_t(arrays[k], device) for k in SPHERE_FIELDS))
+
+
+def voxels_from_numpy(arrays: dict, device="cpu") -> VoxelGrid:
+    """VoxelGrid from a dict keyed by VOXEL_FIELDS."""
+    return VoxelGrid(*(_t(arrays[k], device) for k in VOXEL_FIELDS))
+
+
 def scene_from_numpy(arrays: dict, device="cpu") -> Scene:
-    """Scene from a dict of numpy arrays keyed by the JAX field names."""
-    gmm = GaussianMixture(*(_t(arrays[k], device) for k in MIXTURE_FIELDS))
+    """Scene from a dict of numpy arrays keyed by the JAX field names: a
+    SphereMixture's where it has 'center', a VoxelGrid's where it has
+    'sigma_t', else a GaussianMixture's."""
+    if "center" in arrays:
+        medium = spheres_from_numpy(arrays, device)
+    elif "sigma_t" in arrays:
+        medium = voxels_from_numpy(arrays, device)
+    else:
+        medium = GaussianMixture(*(_t(arrays[k], device)
+                                   for k in MIXTURE_FIELDS))
     lp, li, env = (_t(arrays[k], device) for k in SCENE_FIELDS)
-    return Scene(gmm, lp.reshape(-1, 3), li.reshape(-1, 3), env.reshape(3))
+    return Scene(medium, lp.reshape(-1, 3), li.reshape(-1, 3),
+                 env.reshape(3))
 
 
 def params_from_numpy(params, device="cpu") -> torch.Tensor:

@@ -1,10 +1,11 @@
-"""Procedural random-scene generator (numpy only).
+"""Procedural random-scene generators (numpy only).
 
-A copy of ``gvr_tpu/scene/generators.py:random_gaussian_scene``, the
-counterpart of the reference's ``tests/make_random.py``: uniform means in
+Copies of ``gvr_tpu/scene/generators.py``: ``random_gaussian_scene``, the
+counterpart of the reference's ``tests/make_random.py`` (uniform means in
 [-1,1]x[0,2]x[-1,1], random rotations via QR, small anisotropic diameters,
-moderate densities and albedos.  The same seed gives the same text as the
-JAX package's generator.
+moderate densities and albedos), and ``random_sphere_scene`` (centres in
+[-1.5,1.5]x[0,2.5]x[-1.5,1.5], one white point light above).  The same
+arguments give the same text as the JAX package's generators.
 """
 
 from __future__ import annotations
@@ -43,4 +44,22 @@ def random_gaussian_scene(n: int, seed: int = 0,
             e = rng.uniform(0.0, 1.0, 3)
             row += f"  {e[0]:.4f} {e[1]:.4f} {e[2]:.4f}"
         lines.append(row)
+    return "\n".join(lines) + "\n"
+
+
+def random_sphere_scene(n: int, seed: int = 0,
+                        radius=(0.2, 0.8),
+                        sigma_a=(0.0, 0.3),
+                        sigma_s=(0.3, 1.0),
+                        lights=((0.0, 4.0, 0.0, 35.0, 35.0, 35.0),)) -> str:
+    """SMM scene text with n random homogeneous spheres."""
+    rng = np.random.default_rng(seed)
+    lines = [f"l {p[0]} {p[1]} {p[2]}   {p[3]} {p[4]} {p[5]}"
+             for p in lights]
+    for _ in range(n):
+        c = rng.uniform([-1.5, 0.0, -1.5], [1.5, 2.5, 1.5])
+        lines.append(
+            f"s {c[0]:.4f} {c[1]:.4f} {c[2]:.4f}   "
+            f"{rng.uniform(*radius):.4f}  {rng.uniform(*sigma_a):.4f} "
+            f"{rng.uniform(*sigma_s):.4f}")
     return "\n".join(lines) + "\n"

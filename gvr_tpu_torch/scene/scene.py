@@ -1,4 +1,4 @@
-"""Scene container and the GMM text-format loader.
+"""Scene container and the text-format loaders.
 
 Counterpart of ``gvr_tpu/scene/scene.py`` (reference ``include/scene.h``).
 The text format (scene.h:38-120):
@@ -9,8 +9,10 @@ The text format (scene.h:38-120):
 
 Lines with other leading tokens are skipped, and each line's floats are read
 as a greedy prefix (trailing junk ignored), the same rules as the JAX
-package's ``_parse_lines``.  Sphere, voxel and VDB media wait for their port
-(ROADMAP Queue 1, spheres/voxels) and raise.
+package's ``_parse_lines``.  ``load_scene`` takes a text scene with 'g'
+lines as a GaussianMixture, one with 's' lines as a SphereMixture, and an
+.npz as a VoxelGrid (``scene/voxels.load_voxels``); OpenVDB files raise,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -23,18 +25,26 @@ import numpy as np
 import torch
 
 from gvr_tpu_torch.scene.gaussians import GaussianMixture
+from gvr_tpu_torch.scene.spheres import SphereMixture
 
 DEFAULT_ENV_COLOR = (0.53, 0.81, 0.92)
+
+# The integrators that render each non-Gaussian medium (`cli render`
+# sends a voxel scene's raymarch to the pure marcher).
+OTHER_MEDIA_INTEGRATORS = {
+    "SphereMixture": "raymarch, pureraymarch and hitmask",
+    "VoxelGrid": "pureraymarch (cli render's raymarch too) and hitmask"}
 
 
 @dataclasses.dataclass
 class Scene:
     """Medium + point lights + environment radiance.
 
+    ``medium`` is a GaussianMixture, a SphereMixture or a VoxelGrid;
     lights_p [L,3] and lights_i [L,3] float32; env_color [3] float32.
     """
 
-    medium: GaussianMixture
+    medium: object
     lights_p: torch.Tensor
     lights_i: torch.Tensor
     env_color: torch.Tensor
@@ -43,7 +53,22 @@ class Scene:
     def num_lights(self) -> int:
         return self.lights_p.shape[0]
 
-    def with_medium(self, medium: GaussianMixture) -> "Scene":
+    @property
+    def is_gaussian(self) -> bool:
+        return isinstance(self.medium, GaussianMixture)
+
+    def require_gaussian(self, what: str) -> None:
+        """Raise a TypeError naming the integrators that render this
+        scene's medium unless it is a GaussianMixture (``what``, e.g.
+        render_multiscatter, takes Gaussian media only, as in the JAX
+        package)."""
+        if not self.is_gaussian:
+            kind = type(self.medium).__name__
+            raise TypeError(
+                f"{what} renders Gaussian media only; a {kind} renders "
+                f"with {OTHER_MEDIA_INTEGRATORS.get(kind, 'none')}")
+
+    def with_medium(self, medium) -> "Scene":
         """This scene's lights and environment around another medium."""
         return Scene(medium, self.lights_p, self.lights_i, self.env_color)
 
@@ -54,6 +79,16 @@ class Scene:
     def lights(self) -> torch.Tensor:
         """[L,6] rows (position xyz, intensity rgb), the kernels' layout."""
         return torch.cat([self.lights_p, self.lights_i], dim=1).contiguous()
+
+
+def make_scene(medium, lights, env_color, device="cpu") -> Scene:
+    """A Scene of ``medium`` with light rows [L,6] (position, intensity)
+    and an env_color [3] on ``device``."""
+    lt = torch.as_tensor(np.asarray(lights, np.float32).reshape(-1, 6),
+                         device=device)
+    env = torch.as_tensor(np.asarray(env_color, np.float32), device=device)
+    return Scene(medium, lt[:, 0:3].contiguous(), lt[:, 3:6].contiguous(),
+                 env.reshape(3))
 
 
 def _parse_lines(text: str):
@@ -106,11 +141,7 @@ def parse_gmm(text: str, env_color=DEFAULT_ENV_COLOR,
         np.asarray(emis, np.float32), device=device)
     if gmm.n > MORTON_MIN_N:
         gmm = gmm.morton_sorted()
-    lt = torch.as_tensor(np.asarray(lights, np.float32).reshape(-1, 6),
-                         device=device)
-    env = torch.as_tensor(env_color, dtype=torch.float32, device=device)
-    return Scene(gmm, lt[:, 0:3].contiguous(), lt[:, 3:6].contiguous(),
-                 env.reshape(3))
+    return make_scene(gmm, lights, env_color, device)
 
 
 def load_gmm(path: Union[str, os.PathLike], env_color=DEFAULT_ENV_COLOR,
@@ -119,14 +150,48 @@ def load_gmm(path: Union[str, os.PathLike], env_color=DEFAULT_ENV_COLOR,
     return parse_gmm(_read_text(path), env_color, device)
 
 
+def parse_smm(text: str, env_color=DEFAULT_ENV_COLOR,
+              device="cpu") -> Scene:
+    """Parse SMM scene text ('s x y z radius sigma_a sigma_s' lines)
+    into a Scene on ``device``."""
+    lights, spheres = [], []
+    for tag, v in _parse_lines(text):
+        if tag == "l" and len(v) >= 6:
+            lights.append(v[0:6])
+        elif tag == "s" and len(v) >= 6:
+            spheres.append(v[0:6])
+    s = np.asarray(spheres, np.float32).reshape(-1, 6)
+    smm = SphereMixture.create(s[:, 0:3], s[:, 3], s[:, 4], s[:, 5],
+                               device=device)
+    return make_scene(smm, lights, env_color, device)
+
+
+def load_smm(path: Union[str, os.PathLike], env_color=DEFAULT_ENV_COLOR,
+             device="cpu") -> Scene:
+    """Load a sphere scene file (scene.h:38-68)."""
+    return parse_smm(_read_text(path), env_color, device)
+
+
+def load_vdb(path: Union[str, os.PathLike]) -> Scene:
+    """OpenVDB files are not read, as in the reference (scene.h:21-22,
+    122, 144-145) and the JAX package: convert them to an .npz grid."""
+    raise NotImplementedError(
+        "OpenVDB parsing not supported; convert to .npz (sigma_t [X,Y,Z]) "
+        "and use gvr_tpu_torch.scene.voxels.load_voxels")
+
+
 def load_scene(path: Union[str, os.PathLike], env_color=None,
                device="cpu") -> Scene:
-    """Load a text scene with 'g' lines.  Sphere scenes, voxel grids
-    (.npz) and VDB files are not ported yet and raise."""
-    if str(path).endswith((".npz", ".vdb")):
-        raise NotImplementedError(
-            f"{path}: voxel and VDB media are not ported yet (ROADMAP "
-            f"Queue 1, spheres/voxels)")
+    """Load a scene on ``device``: an .npz is a voxel grid
+    (``load_voxels``), a .vdb raises (``load_vdb``), and a text scene with
+    'g' lines is a GMM, else one with 's' lines an SMM.  ``env_color=None``
+    means the file's env_color where an .npz has one, else the
+    reference's default."""
+    if str(path).endswith(".npz"):
+        from gvr_tpu_torch.scene.voxels import load_voxels
+        return load_voxels(path, env_color, device)
+    if str(path).endswith(".vdb"):
+        return load_vdb(path)
     if env_color is None:
         env_color = DEFAULT_ENV_COLOR
     text = _read_text(path)
@@ -134,7 +199,5 @@ def load_scene(path: Union[str, os.PathLike], env_color=None,
     if "g" in tags:
         return parse_gmm(text, env_color, device)
     if "s" in tags:
-        raise NotImplementedError(
-            f"{path}: sphere (SMM) scenes are not ported yet (ROADMAP "
-            f"Queue 1, spheres/voxels)")
+        return parse_smm(text, env_color, device)
     raise ValueError(f"No primitives found in scene file: {path}")

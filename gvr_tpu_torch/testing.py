@@ -135,6 +135,68 @@ def card_cpu_agreement(card, cpu, hitmask: bool = False) -> dict:
     return res
 
 
+# A voxel bake (``VoxelGrid.from_gaussians``) on the card against the same
+# bake on the CPU: each cell's sigma_t is a sum of N exp terms, rounded
+# apart by the two exps and summation orders, so within rel of the cell's
+# own value plus atol of the grid's largest; the albedo, a ratio of two such
+# sums, within albedo_atol wherever sigma_t is above atol of the largest
+# (in the near-empty cells both sums are rounding noise, and where the
+# field crosses the 1e-25 threshold one side takes the mean-albedo filler).
+BAKE_BARS = dict(rel=1e-5, atol=1e-6, albedo_atol=1e-4)
+
+
+def bake_agreement(card, cpu) -> dict:
+    """The BAKE_BARS terms of two VoxelGrids (the box equal, the largest
+    excess of each field over its bar) and 'ok'."""
+    st_card, st_cpu = card.sigma_t.cpu().double(), cpu.sigma_t.double()
+    top = float(st_cpu.abs().max())
+    dst = (st_card - st_cpu).abs()
+    dense = st_cpu > BAKE_BARS["atol"] * top
+    dal = (card.albedo.cpu().double() - cpu.albedo.double()).abs()[dense]
+    res = dict(box_equal=bool(torch.equal(card.lo.cpu(), cpu.lo)
+                              and torch.equal(card.hi.cpu(), cpu.hi)),
+               max_dsigma_t=float(dst.max()), sigma_t_max=top,
+               sigma_t_excess=float((dst - BAKE_BARS["rel"] * st_cpu.abs()
+                                     - BAKE_BARS["atol"] * top).max()),
+               max_dalbedo_dense=float(dal.max()) if dense.any() else 0.0,
+               dense_share=float(dense.double().mean()))
+    res["ok"] = (res["box_equal"] and res["sigma_t_excess"] <= 0.0
+                 and res["max_dalbedo_dense"] <= BAKE_BARS["albedo_atol"])
+    return res
+
+
+def gif_structure(raw: bytes) -> dict:
+    """Walk a GIF89a's blocks: the signature, the logical screen's width
+    and height, the image descriptors (frames) and whether the trailer 0x3b
+    ends the file right after the last block."""
+    out = dict(signature=raw[:6] == b"GIF89a",
+               width=int.from_bytes(raw[6:8], "little"),
+               height=int.from_bytes(raw[8:10], "little"), frames=0,
+               trailer=False)
+    pos = 13 + (3 << ((raw[10] & 7) + 1) if raw[10] & 0x80 else 0)
+
+    def skip_sub_blocks(p):
+        while raw[p]:
+            p += raw[p] + 1
+        return p + 1
+
+    while pos < len(raw):
+        tag = raw[pos]
+        if tag == 0x3B:
+            out["trailer"] = pos == len(raw) - 1
+            break
+        if tag == 0x21:                        # extension: label, blocks
+            pos = skip_sub_blocks(pos + 2)
+        elif tag == 0x2C:                      # image: descriptor, table,
+            flags = raw[pos + 9]               # LZW code size, blocks
+            pos += 10 + (3 << ((flags & 7) + 1) if flags & 0x80 else 0)
+            pos = skip_sub_blocks(pos + 1)
+            out["frames"] += 1
+        else:
+            break
+    return out
+
+
 # The inverse renderer's loss and gradient (``inverse/fit.fit_loss``) from
 # two implementations on the same parameter vector, rays and streams: the
 # port against the JAX package on the CPU, or the card against the CPU.

@@ -11,7 +11,8 @@ import torch
 
 from gvr_tpu_torch.cameras import PinholeCamera
 from gvr_tpu_torch.scene.convert import (CAMERA_FIELDS, MIXTURE_FIELDS,
-                                         SCENE_FIELDS, camera_from_numpy,
+                                         SCENE_FIELDS, SPHERE_FIELDS,
+                                         VOXEL_FIELDS, camera_from_numpy,
                                          scene_from_numpy)
 from gvr_tpu_torch.testing import bounce_agreement
 
@@ -20,8 +21,12 @@ torch.set_num_threads(1)
 
 
 def scene_arrays(sc) -> dict:
-    """gvr_tpu Scene -> numpy arrays under the JAX field names."""
-    out = {k: np.asarray(getattr(sc.medium, k)) for k in MIXTURE_FIELDS}
+    """gvr_tpu Scene (any medium) -> numpy arrays under the JAX field
+    names."""
+    fields = (SPHERE_FIELDS if hasattr(sc.medium, "center") else
+              VOXEL_FIELDS if hasattr(sc.medium, "sigma_t") else
+              MIXTURE_FIELDS)
+    out = {k: np.asarray(getattr(sc.medium, k)) for k in fields}
     out.update({k: np.asarray(getattr(sc, k)) for k in SCENE_FIELDS})
     return out
 

@@ -25,9 +25,11 @@ from gvr_tpu_torch.integrators.multiscatter import (
     diff_uniforms, multiscatter_radiance_diff, render_multiscatter,
     wavefront_pixels_big)
 from gvr_tpu_torch.integrators.raymarch import (render_pure_raymarch,
-                                                render_raymarch_gaussians)
+                                                render_raymarch_gaussians,
+                                                render_raymarch_spheres)
 from gvr_tpu_torch.integrators.test_hit import render_hit_mask
 from gvr_tpu_torch.inverse import fit as tfit
+from gvr_tpu_torch.io import gif
 from gvr_tpu_torch.io.ppm import read_ppm, write_ppm
 from gvr_tpu_torch.kernels import gridtrace as tgt
 from gvr_tpu_torch.kernels import megatrace as tmt
@@ -36,10 +38,13 @@ from gvr_tpu_torch.kernels import pathtrace_big as tpb
 from gvr_tpu_torch.kernels import rng as trng
 from gvr_tpu_torch.ops import transmittance as tto
 from gvr_tpu_torch.scene.gaussians import GaussianMixture
-from gvr_tpu_torch.scene.generators import random_gaussian_scene
-from gvr_tpu_torch.scene.scene import parse_gmm
-from gvr_tpu_torch.testing import (BIG_DENSE_BARS, big_kernel_vs_plain,
-                                   big_rays, card_cpu_agreement,
+from gvr_tpu_torch.scene.generators import (random_gaussian_scene,
+                                            random_sphere_scene)
+from gvr_tpu_torch.scene.scene import parse_gmm, parse_smm
+from gvr_tpu_torch.scene.voxels import VoxelGrid
+from gvr_tpu_torch.testing import (BIG_DENSE_BARS, bake_agreement,
+                                   big_kernel_vs_plain, big_rays,
+                                   card_cpu_agreement, gif_structure,
                                    fit_agreement, mega_agreement,
                                    solve_agreement, solve_fd_agreement,
                                    span_tau_agreement)
@@ -852,3 +857,92 @@ def test_cli_fit_on_card(cuda_device, tmp_path):
         and launches[5] == 0, launches
     assert all(np.isfinite(v) for _, v in res["losses"])
     assert read_ppm(res["paths"][-1]).shape == (32, 32, 3)
+
+
+# ---- media and animation on the card --------------------------------------
+
+SPHERES16 = random_sphere_scene(16, seed=0)
+
+
+def _voxel_scene(device, res: int = 24):
+    """random_gaussian_scene(250, 0), parsed on the CPU (eigh on the card
+    rounds apart), baked at res^3 on ``device``."""
+    sc = parse_gmm(random_gaussian_scene(250, seed=0)).to(device)
+    return sc.with_medium(VoxelGrid.from_gaussians(sc.medium, res=res))
+
+
+@pytest.mark.parametrize("case", ["spheres raymarch", "spheres pure",
+                                  "voxels pure", "spheres hitmask",
+                                  "voxels hitmask"])
+def test_media_on_card_match_cpu(cuda_device, case):
+    """The sphere marcher, the pure marcher (spheres, a 24^3 bake) and the
+    hit mask at 16^2 on the card against the CPU (testing.CARD_CPU_BARS),
+    K3 launched once a march step and no plain version called."""
+    medium, integrator = case.split()
+    render, kw = {
+        "raymarch": (render_raymarch_spheres,
+                     dict(step_size=0.02, env_samples=4)),
+        "pure": (render_pure_raymarch, dict(step_size=0.1, env_samples=2)),
+        "hitmask": (render_hit_mask, {})}[integrator]
+    cfg = RenderConfig(width=16, height=16, **kw)
+    cam = _cameras("cpu")[0]
+
+    def scene(device):
+        return (parse_smm(SPHERES16, device=device) if medium == "spheres"
+                else _voxel_scene(device))
+
+    want = render(scene("cpu"), cam, cfg, device="cpu")
+    counters = (trng.wave_uniforms, trng.planes_uniforms,
+                trng.wave_uniforms_reference, trng.planes_uniforms_reference)
+    sc = scene(cuda_device)
+    for fn in counters:
+        fn.launches = 0
+    stats = {}
+    got = render(sc, cam, cfg, device=cuda_device, stats=stats)
+    assert [fn.launches for fn in counters] == [
+        0, stats.get("k3_launches", 0), 0, 0]
+    assert integrator == "hitmask" or stats["k3_launches"] > 0
+    res = card_cpu_agreement(got, want, hitmask=integrator == "hitmask")
+    assert res["ok"], (case, res)
+
+
+def test_voxel_bake_on_card_matches_cpu(cuda_device):
+    """VoxelGrid.from_gaussians of the 250-Gaussian scene at 48^3 on the
+    card against the CPU: testing.BAKE_BARS."""
+    card = _voxel_scene(cuda_device, 48).medium
+    cpu = _voxel_scene("cpu", 48).medium
+    assert card.sigma_t.device.type == "cuda"
+    res = bake_agreement(card, cpu)
+    assert res["ok"], res
+
+
+def test_native_gif_encoder_builds(tmp_path):
+    """The GIF encoder builds from csrc/gif_native.cpp with c++ on the
+    card's machine and writes the file (last_backend 'native'): GIF89a,
+    the screen size, one image a frame, the trailer."""
+    r = np.random.default_rng(0)
+    frames = [r.uniform(0, 1, (24, 40, 3)).astype(np.float32)
+              for _ in range(3)]
+    path = tmp_path / "a.gif"
+    gif.write_gif(str(path), frames, delay_cs=4)
+    assert gif.last_backend == "native"
+    assert gif_structure(path.read_bytes()) == dict(
+        signature=True, width=40, height=24, frames=3, trailer=True)
+
+
+def test_cli_animate_multiscatter_on_card(cuda_device, tmp_path):
+    """`cli animate --integrator multiscatter` of a Gaussian scene at 32^2,
+    3 frames, spp 4: the megakernel once a frame (one chunk), no plain
+    version, K3 inside K1 only; the native encoder writes 3 frames."""
+    scene = tmp_path / "scene.txt"
+    scene.write_text(SCENE24)
+    counters = (tmt.mega_call, tmt.mega_reference) + K3_COUNTERS
+    for c in counters:
+        c.launches = 0
+    res = cli.main(["animate", str(scene), "-o", str(tmp_path / "a.gif"),
+                    "--integrator", "multiscatter", "--width", "32",
+                    "--height", "32", "--frames", "3", "--spp", "4"])
+    assert [c.launches for c in counters] == [3, 0, 0, 0, 0, 0]
+    assert res["backend"] == "native" and res["frames"] == 3
+    assert gif_structure((tmp_path / "a.gif").read_bytes()) == dict(
+        signature=True, width=32, height=32, frames=3, trailer=True)

@@ -13,14 +13,16 @@ from gvr_tpu.config import RenderConfig as JConfig
 from gvr_tpu.integrators.multiscatter import \
     render_multiscatter as jax_render
 from gvr_tpu.integrators.multiscatter import tile_order as jax_tile_order
+from gvr_tpu.integrators.raymarch import render_raymarch_spheres
 from gvr_tpu.scene.generators import random_gaussian_scene
 from gvr_tpu.scene.scene import parse_gmm as jax_parse_gmm
+from gvr_tpu.scene.scene import parse_smm as jax_parse_smm
 from gvr_tpu_torch import cli
 from gvr_tpu_torch.cameras import OrthographicCamera, PinholeCamera
 from gvr_tpu_torch.config import RenderConfig
 from gvr_tpu_torch.integrators.multiscatter import (render_multiscatter,
                                                     tile_order)
-from gvr_tpu_torch.io.ppm import read_ppm
+from gvr_tpu_torch.io.ppm import quantize, read_ppm
 from gvr_tpu_torch.scene.scene import parse_gmm
 
 SCENE = random_gaussian_scene(24, seed=7, diameter=(0.2, 0.6),
@@ -59,14 +61,24 @@ def test_cli_render_writes_ppm(tmp_path, capsys):
     img = read_ppm(str(out))
     assert img.shape == (16, 16, 3) and img.std() > 0
     assert "wrote" in capsys.readouterr().out
-    # the ray marcher renders a Gaussian scene; a sphere scene still waits
-    # for the media's port (ROADMAP Queue 1 item 6) and raises
+    # the ray marcher renders a Gaussian scene, and a sphere scene through
+    # the sphere marcher, as the JAX package's CLI routes it
     cli.main(["render", str(scene), "-o", str(out), "--width", "8",
               "--height", "8", "--integrator", "raymarch", "--step-size",
               "0.05", "--env-samples", "2", "--device", "cpu"])
     assert read_ppm(str(out)).shape == (8, 8, 3)
     spheres = tmp_path / "spheres.txt"
     spheres.write_text("s 0 1 0  1.0  0.8 0.0\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["render", str(spheres), "--integrator", "raymarch",
-                  "--device", "cpu"])
+    cli.main(["render", str(spheres), "-o", str(out), "--width", "8",
+              "--height", "8", "--integrator", "raymarch", "--step-size",
+              "0.05", "--env-samples", "2", "--device", "cpu"])
+    want = render_raymarch_spheres(
+        jax_parse_smm("s 0 1 0  1.0  0.8 0.0\n"),
+        JPinhole.create([0, 1, 6], [0, 1, 0], math.radians(45.0)),
+        JConfig(width=8, height=8, step_size=0.05, env_samples=2))
+    # the PPM's truncation to 1/255: a float difference at rtol 1e-4 moves
+    # a byte by at most one level
+    got = read_ppm(str(out))
+    assert np.abs(got - quantize(np.asarray(want)) / 255.0).max() \
+        <= 1.0 / 255.0 + 1e-7
+    assert got.std() > 0

@@ -14,6 +14,7 @@ from gvr_tpu.cameras import PinholeCamera as JPinhole
 from gvr_tpu.io import ppm as jppm
 from gvr_tpu.kernels.pathtrace import pack_table as jax_pack_table
 from gvr_tpu.scene.generators import random_gaussian_scene as jax_generator
+from gvr_tpu.scene.scene import load_scene as jax_load_scene
 from gvr_tpu.scene.scene import parse_gmm as jax_parse_gmm
 from gvr_tpu_torch.cameras import OrthographicCamera, PinholeCamera
 from gvr_tpu_torch.io import ppm
@@ -80,12 +81,22 @@ def test_parse_skip_rules_and_load(tmp_path):
     path.write_text(text)
     loaded = load_scene(path)
     assert torch.equal(loaded.medium.inv_cov, sc.medium.inv_cov)
+    # sphere text and voxel .npz scenes load as in the JAX package; an
+    # OpenVDB file still raises its NotImplementedError
     path_s = tmp_path / "spheres.txt"
     path_s.write_text("s 0 1 0  0.5 0.1 0.4\n")
+    sph, jsph = load_scene(path_s), jax_load_scene(path_s)
+    for k in ("center", "radius", "sigma_a", "sigma_s"):
+        assert np.array_equal(getattr(sph.medium, k).numpy(),
+                              np.asarray(getattr(jsph.medium, k))), k
+    path_v = tmp_path / "grid.npz"
+    np.savez(path_v, sigma_t=np.full((4, 4, 4), 0.5, np.float32))
+    vox, jvox = load_scene(path_v), jax_load_scene(path_v)
+    for k in ("lo", "hi", "sigma_t", "albedo"):
+        assert np.array_equal(getattr(vox.medium, k).numpy(),
+                              np.asarray(getattr(jvox.medium, k))), k
     with pytest.raises(NotImplementedError):
-        load_scene(path_s)
-    with pytest.raises(NotImplementedError):
-        load_scene(tmp_path / "grid.npz")
+        load_scene(tmp_path / "grid.vdb")
 
 
 @pytest.mark.parametrize("kind", ["pinhole", "orthographic", "vertical"])
