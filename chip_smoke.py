@@ -178,6 +178,41 @@ raises, so the exit code is non-zero.
              bytes, launches; the GIF from the native encoder, GIF89a, the
              screen size, one image a frame and the trailer (the card's
              machine has no PIL), no plain version
+ 24 dp render  ranks 0-1 of a 4-rank gloo job that shares the card
+             (parallel/launch.spawn of parallel/checks.card_suite; NCCL
+             refuses ranks that share a card) render through
+             render_multiscatter over a 2-rank mesh: the headline (K1), the
+             10k scene at 512^2 spp 16 (grid: K3/K6/K7) and with
+             --engine dense at 256^2 spp 4 (big-N: K3/K4/K5), each image
+             equal to the one-process image of the same scene arrays bit
+             for bit, or within atol 2e-6 (tests/test_sharding.py's bar;
+             the line says whether two one-process renders differ too,
+             as K1 sums a pixel's samples with atomics): seconds, the assembly's seconds, each rank's
+             launches (counts set to 0 just before); then `torchrun
+             --nproc-per-node 1 -m gvr_tpu_torch.cli render` of the headline
+             over NCCL, its PPM phase 6's within one step a byte on at
+             most PPM_BAR of the bytes, as is another one-process render's
+             (K1's atomic sums are not bit-reproducible)
+ 25 tp       render_multiscatter_tp of the 250-Gaussian scene over a
+             (1 rays x 2 gauss) mesh at 128^2 spp 4, max_bounces 3, against
+             the one-device sample loop (mc_camera_rays +
+             multiscatter_radiance) at testing.TP_BARS: seconds,
+             all-reduces; fit_value_and_grad_tp over a (2 x 2) mesh on the
+             10-Gaussian scene at 16^2, 2 bounces, its loss and gathered
+             gradient against fit_loss and backward at testing.FIT_BARS
+ 26 dp fit   fit_gaussians over ranks 0-1 from phase 20's initial scene
+             toward its target for 5 iterations, and one process twice:
+             the losses within rtol 1e-4 and the parameters within rtol
+             1e-3 / atol 1e-5 of the one-process fit's after each of the
+             first FIT_HELD_ITERS iterations (the trajectories of two
+             summation orders of the batch part after that), the spread
+             after every iteration printed, and that of two one-process
+             fits; seconds an iteration
+ 27 trace    `cli render --trace DIR --stats` of the headline at 256^2
+             spp 4: the trace names mega_kernel, the report holds the chunk
+             and render_multiscatter spans; `python -m
+             gvr_tpu_torch.bench_series --size 256 --spp 4`: its rows
+             finite, with the engine and grid columns
 
 The last three lines: the nvidia-smi line, the kernels JSON (each kernel
 with its launches on its main path, its device time (``ms``), its call's
@@ -310,6 +345,31 @@ ANIMATE = (
 # renders at the CLI's final spp
 FIT_SIZE, FIT_ITERS, FIT_FINAL_SPP = 128, 40, 1024
 FIT_BATCH, FIT_BOUNCES, FIT_SPP = 4096, 4, 2
+# Phases 24-27: the data-parallel renders (label, scene, size, spp,
+# engine, the kernels each rank must launch), the tensor-parallel render,
+# the data-parallel fit's iterations, the trace's size
+DP_RANKS = 4
+DP_RENDERS = (
+    ("headline", "250", MAIN_SIZE, MAIN_SPP, "auto", ("mega_call",)),
+    ("grid", "10k", GRID_SIZE, GRID_SPP, "auto",
+     ("wave_uniforms", "span_tau_pass", "solve_pass")),
+    ("big", "10k", 256, 4, "dense",
+     ("wave_uniforms", "big_stage1", "big_nee")),
+)
+DP_BAR = 2e-6                  # tests/test_sharding.py's, where bits differ
+# The torchrun CLI's PPM against phase 6's: every byte within one step, at
+# most this share of them off (K1's atomic sums part two one-process
+# renders by ~1e-6, which moves a byte where a value sits on a rounding
+# edge)
+PPM_BAR = 1e-3
+TP_CFG = dict(width=128, height=128, spp=4, max_bounces=3)
+DP_FIT_ITERS = 5
+# the data-parallel fit against one process (tests/test_gauss_sharded.py's
+# trajectory bars): losses within FIT_LOSS_RTOL (beyond the log's 5
+# decimals), parameters within FIT_RTOL |p| + FIT_ATOL
+FIT_LOSS_RTOL, FIT_RTOL, FIT_ATOL = 1e-4, 1e-3, 1e-5
+FIT_HELD_ITERS = 2             # the iterations those bars hold on
+TRACE_SIZE, TRACE_SPP = 256, 4
 # The card's peaks (NVIDIA H100 SXM data sheet): float32 outside the
 # tensor cores and HBM bandwidth.  A kernel's bound is the larger of its
 # operations over the first and its bytes over the second.
@@ -618,6 +678,273 @@ def media_phases(dev, smi, text250, counters, cli_render, cli_image,
             raise AssertionError("the sphere turntable never launched K3")
 
     return launches_m, launches_a
+
+
+def parallel_phases(dev, smi, texts, params10, main_img):
+    """Phases 24-27 (see the module docstring): the data- and
+    tensor-parallel paths on ranks that share the card, the torchrun CLI
+    over NCCL, the trace and the scaling series."""
+    import numpy as np
+    import torch
+
+    from gvr_tpu_torch import cli, testing
+    from gvr_tpu_torch.config import RenderConfig
+    from gvr_tpu_torch.integrators.multiscatter import (
+        mc_camera_rays, multiscatter_radiance, render_multiscatter)
+    from gvr_tpu_torch.inverse.fit import fit_loss
+    from gvr_tpu_torch.io.ppm import read_ppm
+    from gvr_tpu_torch.parallel import checks
+    from gvr_tpu_torch.parallel.launch import spawn
+    from gvr_tpu_torch.scene.convert import (MIXTURE_FIELDS, SCENE_FIELDS,
+                                             params_from_numpy,
+                                             scene_from_numpy)
+    from gvr_tpu_torch.scene.gaussians import GaussianMixture
+    from gvr_tpu_torch.scene.scene import parse_gmm
+
+    def arrays(sc):
+        out = {k: getattr(sc.medium, k).detach().cpu().numpy()
+               for k in MIXTURE_FIELDS}
+        out.update({k: getattr(sc, k).cpu().numpy() for k in SCENE_FIELDS})
+        return out
+
+    # every rank and every reference start from one CPU parse's arrays
+    scenes = {k: arrays(parse_gmm(t)) for k, t in texts.items()}
+    sc_true = parse_gmm(texts["250"])
+    p = sc_true.medium.pack_parameters().numpy()
+    p = p + np.random.default_rng(7).normal(0, 0.1, p.shape) \
+        .astype(np.float32)
+    fit_init = arrays(sc_true.with_medium(
+        GaussianMixture.from_parameters(torch.from_numpy(p))))
+    cam = checks.camera(dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    target = render_multiscatter(
+        scene_from_numpy(scenes["250"], dev), cam,
+        RenderConfig(width=FIT_SIZE, height=FIT_SIZE, spp=FIT_FINAL_SPP),
+        device=dev)
+    inp = dict(dp=[(label, scenes[key], size, spp, engine)
+                   for label, key, size, spp, engine, _ in DP_RENDERS],
+               tp_scene=scenes["250"], tp_cfg=TP_CFG, fit_scene=scenes["10"],
+               fit_params=params10.numpy(), fit_seed=5, fit_init=fit_init,
+               fit_target=target, fit_iters=DP_FIT_ITERS,
+               fit_batch=FIT_BATCH)
+    t0 = time.perf_counter()
+    ranks = spawn(checks.card_suite, DP_RANKS, inp, device=dev.type,
+                  timeout=300.0, deadline=900.0)
+    job = time.perf_counter() - t0
+
+    # ---- 24: data-parallel renders against one process ----
+    for label, key, size, spp, engine, kernels in DP_RENDERS:
+        res = [r["dp"][label] for r in ranks[:2]]
+        cfg = RenderConfig(width=size, height=size, spp=spp, engine=engine)
+        sc = scene_from_numpy(scenes[key], dev)
+        one_stats = {}
+        one = render_multiscatter(sc, cam, cfg, device=dev, stats=one_stats)
+        img = res[0]["image"]
+        diff = float(np.abs(img - one).max())
+        note = "bit for bit"
+        if diff:
+            again = render_multiscatter(sc, cam, cfg, device=dev)
+            note = (f"max |diff| {diff:.3e}; two one-process renders "
+                    f"{'differ' if np.abs(again - one).max() else 'agree'}"
+                    f" (max |diff| {np.abs(again - one).max():.3e})")
+            if diff > DP_BAR:
+                raise AssertionError(f"dp {label}: {note}")
+        for r, x in enumerate(res):
+            plain = {k: v for k, v in x["launches"].items()
+                     if k.endswith("_reference") and v}
+            missing = [k for k in kernels if not x["launches"][k]]
+            if x["stats"]["shards"] != 2 or missing or plain:
+                raise AssertionError(f"dp {label} rank {r}: shards "
+                                     f"{x['stats']['shards']}, never "
+                                     f"launched {missing}, plain {plain}")
+        log("24 dp render", f"{label} {size}^2 spp {spp} engine {engine} "
+            f"({res[0]['stats']['kernel']}) over 2 ranks: image == one "
+            f"process: {note}; seconds per rank "
+            f"{[round(x['seconds'], 3) for x in res]} (one process "
+            f"{one_stats['seconds']:.3f}), assembly "
+            f"{[round(x['stats']['assemble_seconds'], 4) for x in res]} s, "
+            f"chunk {res[0]['stats']['chunk']}, launches per rank "
+            f"{json.dumps([{k: v for k, v in x['launches'].items() if v} for x in res])}"
+            f" ({smi})")
+    with tempfile.TemporaryDirectory() as tmp:
+        scene_path, out = os.path.join(tmp, "s.txt"), os.path.join(tmp, "o.ppm")
+        with open(scene_path, "w") as f:
+            f.write(texts["250"])
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=here)
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "1", "-m", "gvr_tpu_torch.cli", "render",
+             scene_path, "-o", out, "--width", str(MAIN_SIZE), "--height",
+             str(MAIN_SIZE), "--spp", str(MAIN_SPP), "--stats", "--device",
+             dev.type],
+            cwd=here, env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if run.returncode:
+            raise AssertionError(f"torchrun cli render: exit "
+                                 f"{run.returncode}\n{run.stdout[-2000:]}\n"
+                                 f"{run.stderr[-4000:]}")
+        banner = [x for x in run.stdout.splitlines() if "[gvr] rank" in x]
+        # K1 sums a pixel's samples with atomics, so two one-process
+        # renders part by ~1e-6 and a few PPM bytes round the other way:
+        # held against phase 6 as a second one-process CLI render is
+        cli.main(["render", scene_path, "-o", out + ".one", "--width",
+                  str(MAIN_SIZE), "--height", str(MAIN_SIZE), "--spp",
+                  str(MAIN_SPP), "--device", str(dev)])
+        ppm = {k: np.rint(read_ppm(f) * 255).astype(np.int16)
+               for k, f in (("torchrun", out), ("one", out + ".one"))}
+    ref = np.rint(main_img * 255).astype(np.int16)
+    ppm_diff = {k: dict(bytes_off=int((v != ref).sum()),
+                        max_step=int(np.abs(v - ref).max()))
+                for k, v in ppm.items()}
+    log("24 dp render", f"torchrun --nproc-per-node 1 cli render 250 "
+        f"{MAIN_SIZE}^2 spp {MAIN_SPP}: {banner}, {wall:.3f} s with "
+        f"start-up; PPM bytes against phase 6's: torchrun "
+        f"{json.dumps(ppm_diff['torchrun'])}, another one-process CLI "
+        f"render {json.dumps(ppm_diff['one'])} (bar: every byte within 1, "
+        f"at most {PPM_BAR:.0e} of them off)")
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if not (banner and backend in banner[0]) or any(
+            d["max_step"] > 1 or d["bytes_off"] > PPM_BAR * ref.size
+            for d in ppm_diff.values()):
+        raise AssertionError("the torchrun render did not run over NCCL or "
+                             "its PPM is not phase 6's")
+
+    # ---- 25: tensor parallel against one device ----
+    sc = scene_from_numpy(scenes["250"], dev)
+    cfg = RenderConfig(**TP_CFG)
+    ids = torch.arange(cfg.width * cfg.height, dtype=torch.int32, device=dev)
+    acc = torch.zeros((ids.shape[0], 3), device=dev)
+    sync()
+    t0 = time.perf_counter()
+    for si in range(cfg.spp):
+        o, d, rid = mc_camera_rays(sc, cam, cfg, ids, si)
+        acc = acc + multiscatter_radiance(sc, o, d, rid, cfg, sample=si)
+    want = (acc / cfg.spp).cpu().numpy()
+    one_s = time.perf_counter() - t0
+    tp = ranks[0]["tp"]["render"]
+    res = testing.tp_agreement(tp["image"], want)
+    log("25 tp", f"render_multiscatter_tp 250 Gaussians over (1 x 2) at "
+        f"{cfg.width}^2 spp {cfg.spp} max_bounces {cfg.max_bounces}: "
+        f"{tp['seconds']:.3f} s (one device {one_s:.3f} s), "
+        f"{tp['allreduces']} all-reduces a rank, {json.dumps(res)} (bars "
+        f"{json.dumps(testing.TP_BARS)}) ({smi})")
+    if not res["ok"]:
+        raise AssertionError(f"the TP render misses TP_BARS: {res}")
+    sc10 = scene_from_numpy(scenes["10"], dev)
+    o, d, ids = checks.pixel_rays(16, 16, dev)
+    p = params_from_numpy(params10.numpy(), dev).requires_grad_(True)
+    val = fit_loss(p, sc10, o, d, ids, torch.full((256, 3), 0.4, device=dev),
+                   n_bounces=2, seed=5)
+    val.backward()
+    tpf = [r["tp"]["fit"] for r in ranks]
+    res = testing.fit_agreement(tpf[0]["loss"], tpf[0]["grad"], val, p.grad)
+    log("25 tp", f"fit_value_and_grad_tp 10 Gaussians over (2 x 2) at 16^2, "
+        f"2 bounces: {max(x['seconds'] for x in tpf):.3f} s, "
+        f"{json.dumps(res)} (bars {json.dumps(testing.FIT_BARS)})")
+    if not res["ok"] or any(not np.array_equal(x["grad"], tpf[0]["grad"])
+                            for x in tpf):
+        raise AssertionError(f"the TP gradient misses FIT_BARS or differs "
+                             f"between ranks: {res}")
+
+    # ---- 26: the data-parallel fit against one process ----
+    # the two ranks sum the batch's gradient in another order than one
+    # process; Adam's normalised step turns such rounding in a small
+    # gradient component into a move of a sizeable share of lr, and the
+    # trajectories part after FIT_HELD_ITERS iterations on the card
+    # (PERF.md): the bars hold on those iterations, the spread
+    # after the rest is printed
+    ones = [checks.logged_fit(scene_from_numpy(fit_init, dev), target,
+                              DP_FIT_ITERS, FIT_BATCH) for _ in range(2)]
+    fit = ranks[0]["fit"]
+
+    def spread(x, y):
+        """max |x - y| - rtol |y| of the parameters after each iteration,
+        and the loss's relative difference beyond the log's 5 decimals."""
+        return ([float(np.max(np.abs(a - b) - FIT_RTOL * np.abs(b)))
+                 for a, b in zip(x["params"], y["params"])],
+                [float(max(abs(a - b) - 1e-5, 0.0) / abs(b))
+                 for a, b in zip(x["losses"], y["losses"])])
+
+    (p_ab, l_ab), (p_dp, l_dp) = spread(ones[1], ones[0]), \
+        spread(fit, ones[0])
+    held = list(range(FIT_HELD_ITERS))
+    log("26 dp fit", f"fit_gaussians 250 Gaussians {FIT_SIZE}^2 over 2 "
+        f"ranks, {DP_FIT_ITERS} iterations: "
+        f"{fit['seconds'] / DP_FIT_ITERS:.4f} s an iteration (one process "
+        f"{ones[0]['seconds'] / DP_FIT_ITERS:.4f}, "
+        f"{ones[1]['seconds'] / DP_FIT_ITERS:.4f}); losses "
+        f"{fit['losses']} vs {ones[0]['losses']}; parameters max(|diff| - "
+        f"1e-3 |p|) after each iteration: 2 ranks vs one process "
+        f"{[float(f'{x:.3e}') for x in p_dp]}, one process vs one process "
+        f"{[float(f'{x:.3e}') for x in p_ab]}; held at rtol 1e-4 (losses) "
+        f"and rtol 1e-3 / atol 1e-5 (parameters) on iterations {held}; "
+        f"the job of "
+        f"{DP_RANKS} ranks {job:.3f} s with start-up ({smi})")
+    if len(fit["params"]) != DP_FIT_ITERS or any(p_dp[i] > FIT_ATOL or l_dp[i] > FIT_LOSS_RTOL
+                   for i in held) \
+            or not all(np.array_equal(a, b) for a, b in zip(
+                fit["params"], ranks[1]["fit"]["params"])):
+        raise AssertionError("the data-parallel fit misses the one-process "
+                             "fit")
+
+    trace_phase(dev, smi, texts["250"])
+
+
+def trace_phase(dev, smi, text250):
+    """Phase 27: `cli render --trace --stats` and the scaling series, each
+    in a process of its own, as a user runs them (late in a long process
+    torch.profiler may record none of a short run's launches; PERF.md)."""
+    import numpy as np
+
+    from gvr_tpu_torch.utils.profiling import TRACE_FILE
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    with tempfile.TemporaryDirectory() as tmp:
+        scene_path = os.path.join(tmp, "s.txt")
+        with open(scene_path, "w") as f:
+            f.write(text250)
+        run = subprocess.run(
+            [sys.executable, "-m", "gvr_tpu_torch.cli", "render", scene_path,
+             "-o", os.path.join(tmp, "o.ppm"), "--width", str(TRACE_SIZE),
+             "--height", str(TRACE_SIZE), "--spp", str(TRACE_SPP),
+             "--trace", os.path.join(tmp, "trace"), "--stats", "--device",
+             dev.type], cwd=here, env=env, capture_output=True, text=True,
+            timeout=600)
+        if run.returncode:
+            raise AssertionError(f"cli render --trace: exit "
+                                 f"{run.returncode}\n{run.stderr[-4000:]}")
+        path = os.path.join(tmp, "trace", TRACE_FILE)
+        size = os.path.getsize(path) if os.path.exists(path) else 0
+        with open(path) as f:
+            named = "mega_kernel" in f.read()
+    spans = [x.split(":")[0][len("[gvr] "):] for x in run.stdout.splitlines()
+             if x.startswith("[gvr] ")]
+    log("27 trace", f"cli render --trace --stats 250 Gaussians "
+        f"{TRACE_SIZE}^2 spp {TRACE_SPP}: trace {size} bytes, names "
+        f"mega_kernel: {named}, report spans {spans}")
+    if not named or "chunk" not in spans or "render_multiscatter" not in spans:
+        raise AssertionError("the trace or the report is incomplete")
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "gvr_tpu_torch.bench_series", "--size",
+         str(TRACE_SIZE), "--spp", str(TRACE_SPP), "--device", dev.type],
+        cwd=here, env=env, capture_output=True, text=True, timeout=600)
+    if run.returncode:
+        raise AssertionError(f"bench_series: exit {run.returncode}\n"
+                             f"{run.stderr[-4000:]}")
+    rows = json.loads(run.stdout.strip().splitlines()[-1])["series"]
+    log("27 trace", f"bench_series --size {TRACE_SIZE} --spp {TRACE_SPP} "
+        f"({time.perf_counter() - t0:.3f} s): {json.dumps(rows)} ({smi})")
+    if not rows or not all(np.isfinite(v) for r in rows for v in r.values()
+                           if isinstance(v, (int, float))):
+        raise AssertionError(f"bench_series rows: {rows}\n{run.stdout}")
 
 
 def main():
@@ -952,6 +1279,7 @@ def run(dev):
 
     stats, wall, launches, img = cli_render(text250, MAIN_SIZE, MAIN_SPP,
                                             ["mega_call"])
+    main_img = img
     log("6 main", f"cli render 250 Gaussians {MAIN_SIZE}^2 spp {MAIN_SPP}: "
         f"render "
         f"{stats['seconds']:.3f} s ({wall:.3f} s with load and PPM), "
@@ -1523,6 +1851,8 @@ def run(dev):
     launches_m, launches_a = media_phases(
         dev, smi, text250, counters, cli_render, cli_image,
         images_i["pureraymarch"])
+    parallel_phases(dev, smi, {"250": text250, "10k": text10k, "10": text10},
+                    params10, main_img)
 
     def entry(name, replaces, key, path_launches, launches_key, err):
         t = times[key][0]

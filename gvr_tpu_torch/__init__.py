@@ -15,7 +15,9 @@ plain PyTorch too.  Inverse rendering (``inverse/``: the Adam fit of the
 11-parameter codec through the differentiable estimator
 ``multiscatter_radiance_diff``, attribution and SFD; ``cli fit``) runs
 under autograd, its draws from the RNG kernel and its renders through
-the megakernel.  It never imports jax or gvr_tpu.
+the megakernel.  ``parallel/`` runs the render and the fit data parallel
+over the ranks of a ``torch.distributed`` job and shards the mixture over
+a Gaussian axis (tensor parallel).  It never imports jax or gvr_tpu.
 """
 
 from gvr_tpu_torch.cameras import OrthographicCamera, PinholeCamera

@@ -15,14 +15,21 @@ cuda):
         [--integrator raymarch|multiscatter]
     python -m gvr_tpu_torch.cli fit init.txt --target target.ppm \
         -o fit_output [--iters 1000] [--snapshots]
+    torchrun --nproc-per-node G -m gvr_tpu_torch.cli render|fit ...
 
 A scene is GMM text, SMM (sphere) text or a voxel .npz.  render routes by
 medium as the JAX package does: raymarch on spheres takes the sphere
 marcher, and a voxel grid renders with the pure marcher only (raymarch
-goes there too; the other integrators are refused).  ``--trace`` raises
-(ROADMAP Queue 1, tooling).  ``main`` returns the command's result (the
-``--stats`` dict for render; for animate the frames, seconds, GIF path,
-its bytes and the GIF backend; for fit the iterations, seconds, logged
+goes there too; the other integrators are refused).  Under torchrun
+(WORLD_SIZE in the environment) each rank joins the job's process group
+on its own card (``parallel.sharding.init_process_group``) and runs the
+command: the multiscatter render and the fit are data parallel over the
+ranks, and only rank 0 writes files.  ``--trace DIR`` writes a
+torch.profiler Chrome trace of a multiscatter render
+(``utils.profiling.device_trace``).  ``main`` returns the command's
+result (for render the ``--stats`` summary, a ``RenderStats``; for
+animate the frames, seconds, and on the writing rank the GIF path, its
+bytes and the GIF backend; for fit the iterations, seconds, logged
 (iteration, loss) pairs, written paths and the fitted scene's packed
 parameters).
 """
@@ -34,6 +41,8 @@ import math
 import os
 import re
 import time
+
+import torch.distributed as dist
 
 INTEGRATORS = ("multiscatter", "singlescatter", "raymarch", "pureraymarch",
                "hitmask")
@@ -72,19 +81,23 @@ def make_camera(args, device):
     return OrthographicCamera.create(args.pos, args.lookat, device=device)
 
 
+def _lead() -> bool:
+    """Whether this process writes files: rank 0 of a distributed job, or
+    the one process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def cmd_render(args):
     from gvr_tpu_torch.config import RenderConfig, Solver
     from gvr_tpu_torch.io.ppm import write_ppm
     from gvr_tpu_torch.scene.scene import load_scene
+    from gvr_tpu_torch.utils.profiling import RenderStats, device_trace
 
     cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
                        step_size=args.step_size,
                        env_samples=args.env_samples,
                        solver=Solver(args.solver), seed=args.seed,
                        engine=args.engine)
-    if args.trace:
-        raise NotImplementedError(
-            "--trace is not ported yet (ROADMAP Queue 1, utils/profiling)")
     from gvr_tpu_torch.scene.voxels import VoxelGrid
 
     scene = load_scene(args.scene, device=args.device)
@@ -94,33 +107,43 @@ def cmd_render(args):
             raise SystemExit(VOXEL_REFUSAL)
         args.integrator = "pureraymarch"
     camera = make_camera(args, args.device)
-    stats = {} if args.stats else None
+    lead = _lead()
+    stats = RenderStats() if args.stats or args.trace else None
     t0 = time.time()
-    kw = {"progress": args.verbose} if args.integrator == "multiscatter" \
-        else {}
-    img = renderer(args.integrator, scene)(scene, camera, cfg,
-                                           device=args.device, stats=stats,
-                                           **kw)
+    multi = args.integrator == "multiscatter"
+    kw = {"progress": args.verbose and lead} if multi else {}
+    with device_trace(args.trace if multi and lead else None):
+        img = renderer(args.integrator, scene)(scene, camera, cfg,
+                                               device=args.device,
+                                               stats=stats, **kw)
     print(f"Render time: {time.time() - t0:.3f} seconds")
-    if stats is not None and args.integrator != "multiscatter":
+    if args.trace and not multi:
+        print("[render] note: --trace is only instrumented for "
+              "--integrator multiscatter")
+    if args.stats and not multi:
         extra = "".join(f", {k} {stats[k]}" for k in (
             "paths", "k3_launches", "n_steps", "steps", "shadow_steps",
             "chunks") if k in stats)
         print(f"[render] {args.integrator}: {stats['seconds']:.3f} s on "
               f"{stats['device']}, chunk {stats['chunk']}{extra}")
-    elif stats is not None:
+    elif args.stats:
         extra = (f", {stats['iterations']} iterations"
                  if stats["kernel"] != "mega" else "")
         if stats["engine"] == "grid":
             extra += f", grid build {stats['grid_seconds']:.3f} s"
         extra += f", chunk {stats['chunk']}"
+        if stats["shards"] > 1:
+            extra += (f", {stats['shards']} shards, assembly "
+                      f"{stats['assemble_seconds']:.3f} s")
         print(f"[render] engine {stats['engine']} ({stats['kernel']} "
               f"kernel): {stats['paths']} paths, "
               f"{stats['bounce_evals']} bounce evaluations in "
               f"{stats['seconds']:.3f} s on {stats['device']}: "
               f"{stats['paths'] / stats['seconds'] / 1e6:.3f} Mpaths/s{extra}")
-    write_ppm(args.output, img)
-    print(f"wrote {args.output}")
+        print(stats.report())
+    if lead:
+        write_ppm(args.output, img)
+        print(f"wrote {args.output}")
     return stats
 
 
@@ -141,12 +164,15 @@ def cmd_animate(args):
     cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
                        step_size=args.step_size,
                        env_samples=args.env_samples, seed=args.seed)
+    lead = _lead()
     t0 = time.time()
-    render_turntable(scene, args.output, cfg, lookat=tuple(args.lookat),
-                     radius=args.radius, num_frames=args.frames,
-                     fps=args.fps, integrator=args.integrator,
-                     device=args.device)
+    render_turntable(scene, args.output if lead else None, cfg,
+                     lookat=tuple(args.lookat), radius=args.radius,
+                     num_frames=args.frames, fps=args.fps,
+                     integrator=args.integrator, device=args.device)
     seconds = time.time() - t0
+    if not lead:
+        return dict(frames=args.frames, seconds=seconds)
     print(f"GIF saved ({seconds:.1f}s): {args.output}")
     return dict(frames=args.frames, seconds=seconds, path=args.output,
                 bytes=os.path.getsize(args.output),
@@ -158,7 +184,8 @@ def cmd_fit(args):
     snapshot render every ``--save-every`` iterations with
     ``--snapshots``, ckpt.npz every 100 and the final render, all into
     ``-o``; the renders through ``render_multiscatter`` on the detached
-    parameters."""
+    parameters.  In a distributed job every rank fits and renders, and
+    rank 0 writes."""
     import torch
 
     from gvr_tpu_torch.config import FitConfig, RenderConfig
@@ -174,7 +201,8 @@ def cmd_fit(args):
     cfg = FitConfig(max_iters=args.iters, lr=args.lr,
                     save_every=args.save_every, out_dir=args.output,
                     seed=args.seed)
-    if (args.width, args.height) != (512, 512):
+    lead = _lead()
+    if lead and (args.width, args.height) != (512, 512):
         print("[fit] note: --width/--height are ignored; the fit "
               f"resolution comes from the target image ({w}x{h})")
     losses, paths = [], []
@@ -191,7 +219,8 @@ def cmd_fit(args):
                                       RenderConfig(width=w, height=h,
                                                    spp=spp),
                                       device=args.device)
-        write_ppm(path, img)
+        if lead:
+            write_ppm(path, img)
         paths.append(path)
 
     def snapshot(it, sc):
@@ -227,7 +256,8 @@ def _add_common(p):
     p.add_argument("--fov", type=float, default=45.0, help="degrees")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
-                   help="torch device to run on (cuda, cuda:N or cpu)")
+                   help="torch device to run on (cuda, cuda:N or cpu); "
+                   "under torchrun each rank takes card LOCAL_RANK % cards")
 
 
 def main(argv=None):
@@ -264,7 +294,8 @@ def main(argv=None):
                     "Mpaths/s and the wavefront iterations; for the marchers "
                     "the steps")
     pr.add_argument("--trace", default=None, metavar="DIR",
-                    help="profiler trace (not ported yet)")
+                    help="write a torch.profiler Chrome trace of the "
+                    "multiscatter render to DIR/trace.json")
     pr.add_argument("-v", "--verbose", action="store_true")
     pr.set_defaults(fn=cmd_render)
 
@@ -300,7 +331,17 @@ def main(argv=None):
     pf.add_argument("--snapshots", action="store_true")
     pf.set_defaults(fn=cmd_fit)
     args = ap.parse_args(argv)
-    return args.fn(args)
+    if "WORLD_SIZE" not in os.environ or dist.is_initialized():
+        return args.fn(args)
+    # under torchrun: join the job on this rank's card for the command
+    from gvr_tpu_torch.parallel.sharding import init_process_group
+    args.device = str(init_process_group(args.device))
+    print(f"[gvr] rank {dist.get_rank()}/{dist.get_world_size()} on "
+          f"{args.device} ({dist.get_backend()})", flush=True)
+    try:
+        return args.fn(args)
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -27,7 +27,9 @@ PyTorch (``ops/transmittance``, ``ops/solvers``, ``_nee``) over
 applies ``candidate_k``.  ``multiscatter_radiance`` is the per-path loop
 of the same bounce.  ``multiscatter_radiance_diff`` is the differentiable
 estimator of the inverse renderer (``inverse/fit``), plain PyTorch under
-autograd.  Every draw on the card comes from K3 (``kernels/rng``).
+autograd.  Every draw on the card comes from K3 (``kernels/rng``).  In a
+``torch.distributed`` job ``render_multiscatter`` shards each chunk over
+the ranks (``parallel/sharding``).
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gvr_tpu_torch.accel import grid as accel_grid
 from gvr_tpu_torch.cameras import PinholeCamera
@@ -57,6 +60,8 @@ from gvr_tpu_torch.ops.solvers import (sample_free_flight,
 from gvr_tpu_torch.ops.transmittance import (albedo_at_from_rg,
                                              compact_candidates, tau_coeffs,
                                              tau_total, transmittance_up_to)
+from gvr_tpu_torch.parallel.sharding import (RAY_AXIS, Mesh, make_mesh,
+                                             shard_bounds)
 from gvr_tpu_torch.scene.scene import Scene
 
 __all__ = ["GRID_CHUNK", "GRID_MIN_N", "diff_uniforms", "engine_for",
@@ -456,22 +461,44 @@ def wavefront_pixels_xla(scene: Scene, camera, cfg: RenderConfig,
 
 def render_multiscatter(scene: Scene, camera, cfg: RenderConfig,
                         device="cuda", progress: bool = False,
-                        stats: dict | None = None) -> np.ndarray:
+                        stats: dict | None = None,
+                        mesh: Mesh | None = None) -> np.ndarray:
     """Full MC render on ``device``: [H, W, 3] float32 on the host.
 
     Results are scattered into a device image that is copied to the host
     once (the megakernel's launches are asynchronous; the wavefronts read
     one value per iteration).  ``progress`` prints the pixels done after
-    each chunk.  ``stats``, if given, receives the engine, the kernel
-    ('mega', 'big', 'grid', or 'xla' for the dense XLA engine), the
-    render's seconds (host clock, after the engine choice and grid build,
-    ending with the copy to the host), the
-    seconds of the engine choice with the grid build (``grid_seconds``; a
-    cached grid costs only its content hash), paths, bounce evaluations
-    (the megakernel's count; on the wavefronts the live lanes or
-    extension rays traced), the chunk and the chunks, wavefront iterations
-    and Gaussian count."""
+    each chunk.
+
+    In a distributed job each pixel chunk is sharded over the ranks of
+    ``mesh`` (``parallel.sharding.make_mesh()``, all ranks, by default),
+    as the JAX package shards it over all devices
+    (``gvr_tpu/integrators/multiscatter.py:614-626, 738-742``): the chunk
+    is padded to a multiple of the shard count, preferring whole 256-ray
+    blocks per shard; each rank renders its contiguous slice of every
+    chunk through the engine it would pick alone; one all-reduce of the
+    image, zero outside each rank's pixels, assembles it, and every rank
+    returns the whole image.  Radiance is keyed by pixel id, so it is the
+    one-process image.
+
+    ``stats``, if given, receives the engine, the kernel ('mega', 'big',
+    'grid', or 'xla' for the dense XLA engine), the render's seconds
+    (host clock, after the engine choice and grid build, ending with the
+    copy to the host), the seconds of the engine choice with the grid
+    build (``grid_seconds``; a cached grid costs only its content hash),
+    paths, bounce evaluations (the megakernel's count; on the wavefronts
+    the live lanes or extension rays traced; summed over the ranks), the
+    chunk and the chunks, wavefront iterations (this rank's), Gaussian
+    count, the shard count and the assembly's seconds.  A
+    ``utils.profiling.RenderStats`` also receives the JAX package's spans:
+    ``chunk`` after each chunk (the device synchronised) and
+    ``render_multiscatter``."""
+    from gvr_tpu_torch.utils.profiling import RenderStats, mrays_per_sec
+
     scene.require_gaussian("render_multiscatter")
+    spans = stats if isinstance(stats, RenderStats) else None
+    mesh = mesh if mesh is not None else make_mesh()
+    n_shards = mesh.shape[RAY_AXIS]
     t_build = time.perf_counter()
     engine = engine_for(cfg, scene.medium)
     if engine == "grid":
@@ -500,10 +527,18 @@ def render_multiscatter(scene: Scene, camera, cfg: RenderConfig,
         else:
             table, boxes = pack_rows(scene.medium), chunk_boxes(scene.medium)
     chunk = min(chunk, ((w * h + 255) // 256) * 256)
+    q = 256 * n_shards if chunk >= 256 * n_shards else n_shards
+    chunk = -(-chunk // q) * q
+    lo, hi = shard_bounds(chunk, mesh)
     for start in range(0, w * h, chunk):
-        ids = order[start:start + chunk]
+        t_chunk = time.perf_counter()
+        # this rank's slice of the chunk; the last chunk's may be short
+        # or empty
+        ids = order[start + lo:min(start + hi, w * h)]
         st = {}
-        if kernel == "mega":
+        if ids.numel() == 0:
+            pass
+        elif kernel == "mega":
             sums, counts = mega_call(cam, table, ids, cfg, lights, env,
                                      pinhole)
             img[ids] = sums / cfg.spp
@@ -522,14 +557,39 @@ def render_multiscatter(scene: Scene, camera, cfg: RenderConfig,
             evals += st["ext_rays"]
         iterations += st.get("iterations", 0)
         n_chunks += 1
+        if spans is not None:
+            _synchronize(device)
+            spans.add("chunk", time.perf_counter() - t_chunk,
+                      pixels=ids.numel(), paths=ids.numel() * cfg.spp,
+                      engine=engine, kernel=kernel, shards=n_shards)
         if progress:
             print(f"  pixels {min(start + chunk, w * h)}/{w * h}")
+    t_assemble = time.perf_counter()
+    group = mesh.group(RAY_AXIS)
+    if group is not None:
+        _synchronize(device)
+        t_assemble = time.perf_counter()
+        dist.all_reduce(img, group=group)
+        if stats is not None:
+            dist.all_reduce(evals, group=group)
     out = img.cpu().numpy().reshape(h, w, 3)
+    t_end = time.perf_counter()
     if stats is not None:
-        stats.update(engine=engine, kernel=kernel,
-                     seconds=time.perf_counter() - t0,
+        stats.update(engine=engine, kernel=kernel, seconds=t_end - t0,
                      grid_seconds=t0 - t_build,
                      paths=w * h * cfg.spp, bounce_evals=int(evals),
                      chunk=chunk, chunks=n_chunks, iterations=iterations,
-                     n=scene.medium.n, device=str(device))
+                     n=scene.medium.n, device=str(device), shards=n_shards,
+                     assemble_seconds=t_end - t_assemble)
+    if spans is not None:
+        spans.add("render_multiscatter", t_end - t0, engine=engine,
+                  kernel=kernel, shards=n_shards, n=scene.medium.n,
+                  paths=w * h * cfg.spp,
+                  mpaths_per_s=round(mrays_per_sec(w * h * cfg.spp,
+                                                   t_end - t0), 3))
     return out
+
+
+def _synchronize(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)

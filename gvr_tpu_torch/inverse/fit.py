@@ -8,9 +8,13 @@ work gives pathwise gradients through autograd, and Adam
 (``torch.optim.Adam``, the update of ``optax.adam``) steps the reference's
 11-parameter codec (gmm.h:583-674).  Each iteration renders a random
 minibatch of pixels, drawn as the JAX package draws them.  It runs on the
-device of the scene, one device; the JAX package's mesh and ``pmean``
-have no counterpart here.  Checkpoints (.npz) keep the JAX package's
-layout, so a fit started in either package resumes in the other.
+device of the scene; in a distributed job it is data parallel over the
+ranks of a ``rays`` mesh (``parallel/sharding``), as the JAX package's
+fit is over its devices: every rank draws the same batch, traces its
+slice, and one all-reduce averages the loss and the gradient, so the
+parameters and Adam's state stay the same on every rank.  Checkpoints
+(.npz) keep the JAX package's layout, so a fit started in either package
+resumes in the other.
 """
 
 from __future__ import annotations
@@ -22,12 +26,15 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from gvr_tpu_torch.config import FitConfig, RenderConfig
 from gvr_tpu_torch.integrators.multiscatter import (
     diff_uniforms, multiscatter_radiance_diff)
 from gvr_tpu_torch.integrators.test_hit import pixel_rays
+from gvr_tpu_torch.parallel.sharding import (make_mesh, shard_rays,
+                                             sharded_value_and_grad)
 from gvr_tpu_torch.scene.convert import params_from_numpy
 from gvr_tpu_torch.scene.gaussians import GaussianMixture
 from gvr_tpu_torch.scene.scene import Scene
@@ -111,16 +118,20 @@ def _pixel_rays(camera, width: int, height: int, ids: torch.Tensor):
 def fit_gaussians(scene_init: Scene, camera, target_img: np.ndarray,
                   cfg: FitConfig = FitConfig(), batch_pixels: int = 4096,
                   n_bounces: int = 4, spp: Optional[int] = None,
-                  log: Callable = print,
+                  mesh=None, log: Callable = print,
                   save_snapshot: Optional[Callable] = None,
                   candidate_k: int = 0, rr_after: int = 0,
                   resume: Optional[str] = None) -> Scene:
     """Run the Adam fit on the device of ``scene_init``; returns the
     fitted scene (detached).
 
-    target_img: [H,W,3] float.  save_snapshot(iteration, scene), if given,
-    is called under ``torch.no_grad()`` on the iterations that log.  spp
-    defaults to cfg.spp.  candidate_k > 0 compacts the solve to each ray's
+    target_img: [H,W,3] float.  mesh: the ``rays`` mesh the batch shards
+    over (``parallel.sharding.make_mesh()``, every rank of the job or the
+    one process, by default); batch_pixels is rounded up to a multiple of
+    its size.  Only its first rank logs and writes checkpoints.
+    save_snapshot(iteration, scene), if given, is called on every rank
+    (a render over the mesh is collective) under ``torch.no_grad()`` on
+    the iterations that log.  spp defaults to cfg.spp.  candidate_k > 0 compacts the solve to each ray's
     candidate_k nearest-entering Gaussians (and probes, on the iterations
     that log, the share of live lanes that dropped candidates); rr_after >
     0 turns Russian roulette on from that bounce.  resume: a ckpt.npz of
@@ -135,6 +146,11 @@ def fit_gaussians(scene_init: Scene, camera, target_img: np.ndarray,
     params = scene_init.medium.pack_parameters().detach().clone() \
         .requires_grad_(True)
     optimizer = torch.optim.Adam([params], lr=cfg.lr)
+    mesh = mesh if mesh is not None else make_mesh()
+    batch_pixels = shard_rays(batch_pixels, mesh.size)
+    lead = not dist.is_initialized() or dist.get_rank() == mesh.ranks[0]
+    if not lead:
+        log = lambda msg: None
     start_iter = 0
     if resume is not None and os.path.exists(resume):
         start_iter = load_checkpoint(resume, optimizer, params).iteration + 1
@@ -146,7 +162,8 @@ def fit_gaussians(scene_init: Scene, camera, target_img: np.ndarray,
         return GaussianMixture.from_parameters(params.detach())
 
     t0 = time.time()
-    os.makedirs(cfg.out_dir, exist_ok=True)
+    if lead:
+        os.makedirs(cfg.out_dir, exist_ok=True)
     for it in range(start_iter, cfg.max_iters):
         # each iteration's batch and streams derive from (cfg.seed, it),
         # so a resumed run draws what the uninterrupted one would
@@ -160,7 +177,7 @@ def fit_gaussians(scene_init: Scene, camera, target_img: np.ndarray,
         seed = (cfg.seed << 20) + it
 
         over = ""
-        if candidate_k > 0 and it % cfg.save_every == 0:
+        if lead and candidate_k > 0 and it % cfg.save_every == 0:
             # the overflow of this step's gradients: the pre-update
             # params and this step's streams, over live lanes only
             with torch.no_grad():
@@ -176,11 +193,12 @@ def fit_gaussians(scene_init: Scene, camera, target_img: np.ndarray,
                     f"candidates (candidate_k={candidate_k} too small "
                     f"— gradients are biased)")
 
-        optimizer.zero_grad(set_to_none=True)
-        loss = fit_loss(params, scene_init, o, d, rng_ids, tgt,
-                        n_bounces=n_bounces, spp=spp, seed=seed,
-                        candidate_k=candidate_k, rr_after=rr_after)
-        loss.backward()
+        value_and_grad = sharded_value_and_grad(
+            lambda p, template, *rays: fit_loss(
+                p, template, *rays, n_bounces=n_bounces, spp=spp, seed=seed,
+                candidate_k=candidate_k, rr_after=rr_after), mesh)
+        loss, params.grad = value_and_grad(params, scene_init, o, d,
+                                           rng_ids, tgt)
         optimizer.step()
 
         if it % cfg.save_every == 0:
@@ -189,7 +207,8 @@ def fit_gaussians(scene_init: Scene, camera, target_img: np.ndarray,
             if save_snapshot is not None:
                 with torch.no_grad():
                     save_snapshot(it, scene_init.with_medium(mixture()))
-        if cfg.checkpoint_every and it % cfg.checkpoint_every == 0:
+        if lead and cfg.checkpoint_every \
+                and it % cfg.checkpoint_every == 0:
             save_checkpoint(os.path.join(cfg.out_dir, "ckpt.npz"),
                             FitState(params, optimizer.state[params], it))
     return scene_init.with_medium(mixture())

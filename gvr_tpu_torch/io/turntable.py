@@ -22,14 +22,15 @@ from gvr_tpu_torch.io.gif import write_gif
 from gvr_tpu_torch.scene.scene import Scene
 
 
-def render_turntable(scene: Scene, out_path: str,
+def render_turntable(scene: Scene, out_path: Optional[str],
                      cfg: RenderConfig = RenderConfig(),
                      lookat=(0.0, 1.0, 0.0), radius: float = 6.0,
                      height: float = 1.0, num_frames: int = 120,
                      fps: float = 30.0, integrator: str = "raymarch",
                      progress: Optional[Callable] = print,
                      device="cuda") -> None:
-    """Render the orbit on ``device`` and write it to ``out_path``.
+    """Render the orbit on ``device`` and write it to ``out_path`` (None:
+    render only, as the ranks but the first of a distributed job do).
     ``integrator`` 'raymarch' takes the analytic marcher of the medium
     (Gaussians or spheres), 'multiscatter' the Monte Carlo renderer;
     ``progress``, if given, receives a line after each frame."""
@@ -52,4 +53,5 @@ def render_turntable(scene: Scene, out_path: str,
         frames.append(render(scene, cam, cfg, device=device))
         if progress:
             progress(f"Frame {frame + 1} / {num_frames} complete.")
-    write_gif(out_path, frames, delay_cs=max(1, round(100.0 / fps)))
+    if out_path is not None:
+        write_gif(out_path, frames, delay_cs=max(1, round(100.0 / fps)))

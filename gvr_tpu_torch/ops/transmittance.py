@@ -23,7 +23,7 @@ from typing import NamedTuple
 import torch
 
 from gvr_tpu_torch.ops import gaxis
-from gvr_tpu_torch.ops.gaxis import gany, gmax, gsum
+from gvr_tpu_torch.ops.gaxis import gany, gmax, gshared, gsum
 from gvr_tpu_torch.ops.quadratics import ray_quadratics_ab, sym6_terms
 from gvr_tpu_torch.scene.gaussians import R_CUT, GaussianMixture
 
@@ -59,7 +59,7 @@ def _rdiv(c: float, x: torch.Tensor) -> torch.Tensor:
 def _as_t(t, like: torch.Tensor) -> torch.Tensor:
     """t (a number or a tensor [...]) as float32 broadcastable against
     ``like`` [..., N]."""
-    t = torch.as_tensor(t, dtype=torch.float32, device=like.device)
+    t = gshared(torch.as_tensor(t, dtype=torch.float32, device=like.device))
     return t[..., None] if t.dim() < like.dim() else t
 
 
@@ -83,6 +83,7 @@ def _interval_pref(gmm: GaussianMixture, origin, direction):
     """(a, b, t0, t1, hit, peak, pref, fscale): the clipped support
     interval t* -/+ sqrt((R^2 - m2) / a) and the erf prefactors of each
     (ray, Gaussian) pair, shared by tau_coeffs and transmittance_up_to."""
+    origin, direction = gshared(origin), gshared(direction)
     a, b = ray_quadratics_ab(gmm, origin, direction)
     a_safe = torch.clamp(a, min=1e-30)
     m2, t_star = min_mahalanobis_sq(gmm, origin, direction, a, b)

@@ -230,6 +230,32 @@ def fit_agreement(loss, grad, loss_ref, grad_ref) -> dict:
     return res
 
 
+# A tensor-parallel render (the mixture sharded over a gauss group, every
+# Gaussian-axis sum completed by an all-reduce) against the one-device
+# estimator: tests/test_gauss_sharded.py's _assert_radiance_close.  The
+# shard-split float32 sums move tau by ~1e-7 relative, which the Newton
+# root amplifies where sigma_t is small: every element within rtol /
+# atol 2e-3, the means within 1e-5 and the 99th percentile of |diff|
+# below 1e-4.
+TP_BARS = dict(rtol=2e-3, atol=2e-3, mean_diff=1e-5, p99=1e-4)
+
+
+def tp_agreement(got, want) -> dict:
+    """The TP_BARS terms of two radiance arrays (numpy) and 'ok'."""
+    got, want = (np.asarray(x, np.float64) for x in (got, want))
+    diff = np.abs(got - want)
+    res = dict(max_excess=float((diff - TP_BARS["atol"]
+                                 - TP_BARS["rtol"] * np.abs(want)).max()),
+               max_diff=float(diff.max()),
+               mean_diff=float(abs(got.mean() - want.mean())),
+               p99=float(np.percentile(diff, 99)),
+               finite=bool(np.isfinite(got).all()))
+    res["ok"] = bool(res["finite"] and res["max_excess"] <= 0
+                     and res["mean_diff"] < TP_BARS["mean_diff"]
+                     and res["p99"] < TP_BARS["p99"])
+    return res
+
+
 # The implicit-function VJP of solve_conditional_free_flight against
 # central differences of the solve itself: f(p) = sum_r w_r t_r(p), the
 # roots of the rays' conditioned targets in the mixture decoded from p,

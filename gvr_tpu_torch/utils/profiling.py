@@ -1,13 +1,26 @@
-"""Throughput helpers (``gvr_tpu/utils/profiling.py:52-149``).
+"""Render observability: timing spans, throughput and the profiler trace.
 
-``path_statistics`` traces a subsample of pixel-centre paths with the
-multiscatter estimator's survival rules and counts their rays and
-scatter events, the bounce histogram behind ``bench.py``'s Mrays/s.
-``device_trace`` (the CLI's ``--trace``) and ``RenderStats`` wait for
-their port (ROADMAP Queue 1, tooling).
+Counterpart of ``gvr_tpu/utils/profiling.py``.  ``RenderStats`` collects
+named ``Span``s (``render_multiscatter`` adds a ``chunk`` span a chunk
+and a ``render_multiscatter`` span) and prints them in the JAX package's
+format; it is also the dict of the last render's summary that the
+integrators fill (engine, kernel, seconds, paths...).  ``device_trace``
+records the kernels' timeline with ``torch.profiler`` into a Chrome trace
+(the CLI's ``--trace``); unlike the JAX package's, it raises where the
+profiler fails.  ``path_statistics`` traces a subsample of pixel-centre
+paths with the multiscatter estimator's survival rules and counts their
+rays and scatter events, the bounce histogram behind the Mrays/s of
+``gvr_tpu_torch.bench_series``.
 """
 
 from __future__ import annotations
+
+import contextlib
+import dataclasses
+import json
+import os
+import time
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -19,6 +32,67 @@ from gvr_tpu_torch.kernels.rng import BOUNCE_DRAWS
 from gvr_tpu_torch.ops.sampling import dir_from_xi, uniform_planes
 from gvr_tpu_torch.ops.solvers import sample_free_flight
 from gvr_tpu_torch.ops.transmittance import albedo_at_from_rg, tau_coeffs
+
+TRACE_FILE = "trace.json"
+
+
+@dataclasses.dataclass
+class Span:
+    name: str
+    seconds: float
+    extra: Dict
+
+
+class RenderStats(dict):
+    """Named spans with a compact report (``report``, ``json``: the JAX
+    package's format), and, as a dict, the summary of the last render
+    (the keys an integrator's ``stats=`` dict receives)."""
+
+    def __init__(self):
+        super().__init__()
+        self.spans: List[Span] = []
+
+    @contextlib.contextmanager
+    def span(self, name: str, **extra):
+        t0 = time.time()
+        yield
+        self.spans.append(Span(name, time.time() - t0, extra))
+
+    def add(self, name: str, seconds: float, **extra):
+        self.spans.append(Span(name, seconds, extra))
+
+    def report(self) -> str:
+        lines = []
+        for s in self.spans:
+            kv = " ".join(f"{k}={v}" for k, v in s.extra.items())
+            lines.append(f"[gvr] {s.name}: {s.seconds:.3f}s {kv}".rstrip())
+        return "\n".join(lines)
+
+    def json(self) -> str:
+        return json.dumps([dataclasses.asdict(s) for s in self.spans])
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: Optional[str]):
+    """Record the work inside the context with ``torch.profiler`` (CPU
+    activity, and CUDA activity where a card is visible) and write its
+    Chrome trace to ``log_dir/trace.json``.  A no-op when log_dir is
+    empty; raises where the profiler cannot start (one is running
+    already: a second would crash the process) or cannot export."""
+    if not log_dir:
+        yield
+        return
+    if torch.autograd.profiler._is_profiler_enabled:
+        raise RuntimeError("device_trace: a profiler is running already")
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
 
 
 def mrays_per_sec(n_rays: int, seconds: float) -> float:

@@ -239,6 +239,17 @@ def test_mega_kernel_crowded_rays(cuda_device, scene):
                                      max_bounces=4), ids)
 
 
+def test_parse_40k_scene_on_the_card(cuda_device):
+    """A 40,000-Gaussian scene parses on the card (its eighs in batches of
+    EIGH_BATCH: one batch of 40,000 makes cuSOLVER raise), its
+    eigenvalues within 1e-5 relative of the CPU's parse."""
+    text = random_gaussian_scene(40_000, seed=12)
+    card = parse_gmm(text, device=cuda_device).medium
+    cpu = parse_gmm(text).medium
+    np.testing.assert_allclose(card.eigvals.cpu().numpy(),
+                               cpu.eigvals.numpy(), rtol=1e-5, atol=1e-12)
+
+
 def test_render_on_card_matches_cpu(cuda_device):
     cfg = RenderConfig(width=16, height=16, spp=9)
     for cam in _cameras("cpu"):

@@ -65,6 +65,22 @@ def test_from_covariances_matches_jax():
                                atol=1e-6 * np.abs(want.cov).max())
 
 
+def test_from_covariances_in_batches_matches_jax():
+    """Above EIGH_BATCH Gaussians the eighs run in batches (cuSOLVER
+    refuses one of 40,000): the 9,000 Gaussians' eigenvalues and inverse
+    covariances within 1e-5 of each one's largest entry, as above."""
+    from gvr_tpu_torch.scene.gaussians import EIGH_BATCH
+    text = jax_generator(9000, seed=1)
+    want = jax_parse_gmm(text).medium
+    got = parse_gmm(text).medium
+    assert got.n == 9000 > EIGH_BATCH
+    for k in ("inv_cov", "eigvals"):
+        w = np.asarray(getattr(want, k)).reshape(9000, -1)
+        g = getattr(got, k).numpy().reshape(9000, -1)
+        rel = np.abs(g - w) / np.abs(w).max(axis=1, keepdims=True)
+        assert rel.max() < 1e-5, (k, rel.max())
+
+
 def test_parse_skip_rules_and_load(tmp_path):
     text = ("# comment line\n"
             "l 0 5 0   10 20 30\n"
