@@ -27,11 +27,13 @@ raises, so the exit code is non-zero.
              version's time (CUDA events), at the main path's shapes: K3
              as the wavefronts launch it ([2 + 9, 65536]; also the two
              launches it replaces and [9, 65536]), K2 65,536 rays at
-             N = 250, K1 the
-             headline's 65,536-pixel chunk through the medium at spp 4 and
-             spp 64, there also held against the plain version
-             (testing.CHUNK_BARS); K1's phase split at both (an instrumented launch:
-             each phase's share of the warps' clock64() cycles and its
+             N = 250, K1 the headline's 65,536-pixel chunk through the
+             medium at spp 4 and spp 64, there also held against the plain
+             version (testing.CHUNK_BARS) and rendered three times more at
+             spp 64, every output the same bits, and its first 2,048
+             pixels at spp 64 and 1024 with the pool forced to 1, 8 and
+             128 pixels, the same bits as the launcher's pool; K1's phase
+             split at both (an instrumented launch: each phase's share of the warps' clock64() cycles and its
              active lanes per warp-step), its blocks resident per SM, and
              the work its paths need at spp 64 (a plain count on every 8th
              pixel, scaled: evaluations, those that scatter, the pairs
@@ -39,7 +41,8 @@ raises, so the exit code is non-zero.
              meet and those groups' rows), from which its bounds
   6 main     `gvr_tpu_torch.cli render` of random_gaussian_scene(250, 0) at
              1024^2 spp 64; image finite and not constant, megakernel
-             launched, no plain version called
+             launched, no plain version called; rendered twice, the two
+             PPMs the same bytes
   7 K6 span tau  kernel vs plain on the grid of random_gaussian_scene(10000,
              0), the DDA crossings of 65,536 random rays without and with
              tmax: on every slot |dtau| <= 1e-4 + 1e-3 |tau| plus the
@@ -185,14 +188,10 @@ raises, so the exit code is non-zero.
              10k scene at 512^2 spp 16 (grid: K3/K6/K7) and with
              --engine dense at 256^2 spp 4 (big-N: K3/K4/K5), each image
              equal to the one-process image of the same scene arrays bit
-             for bit, or within atol 2e-6 (tests/test_sharding.py's bar;
-             the line says whether two one-process renders differ too,
-             as K1 sums a pixel's samples with atomics): seconds, the assembly's seconds, each rank's
+             for bit: seconds, the assembly's seconds, each rank's
              launches (counts set to 0 just before); then `torchrun
              --nproc-per-node 1 -m gvr_tpu_torch.cli render` of the headline
-             over NCCL, its PPM phase 6's within one step a byte on at
-             most PPM_BAR of the bytes, as is another one-process render's
-             (K1's atomic sums are not bit-reproducible)
+             over NCCL, its PPM the same bytes as phase 6's
  25 tp       render_multiscatter_tp of the 250-Gaussian scene over a
              (1 rays x 2 gauss) mesh at 128^2 spp 4, max_bounces 3, against
              the one-device sample loop (mc_camera_rays +
@@ -356,12 +355,6 @@ DP_RENDERS = (
     ("big", "10k", 256, 4, "dense",
      ("wave_uniforms", "big_stage1", "big_nee")),
 )
-DP_BAR = 2e-6                  # tests/test_sharding.py's, where bits differ
-# The torchrun CLI's PPM against phase 6's: every byte within one step, at
-# most this share of them off (K1's atomic sums part two one-process
-# renders by ~1e-6, which moves a byte where a value sits on a rounding
-# edge)
-PPM_BAR = 1e-3
 TP_CFG = dict(width=128, height=128, spp=4, max_bounces=3)
 DP_FIT_ITERS = 5
 # the data-parallel fit against one process (tests/test_gauss_sharded.py's
@@ -687,7 +680,7 @@ def parallel_phases(dev, smi, texts, params10, main_img):
     import numpy as np
     import torch
 
-    from gvr_tpu_torch import cli, testing
+    from gvr_tpu_torch import testing
     from gvr_tpu_torch.config import RenderConfig
     from gvr_tpu_torch.integrators.multiscatter import (
         mc_camera_rays, multiscatter_radiance, render_multiscatter)
@@ -743,16 +736,11 @@ def parallel_phases(dev, smi, texts, params10, main_img):
         sc = scene_from_numpy(scenes[key], dev)
         one_stats = {}
         one = render_multiscatter(sc, cam, cfg, device=dev, stats=one_stats)
-        img = res[0]["image"]
-        diff = float(np.abs(img - one).max())
-        note = "bit for bit"
-        if diff:
-            again = render_multiscatter(sc, cam, cfg, device=dev)
-            note = (f"max |diff| {diff:.3e}; two one-process renders "
-                    f"{'differ' if np.abs(again - one).max() else 'agree'}"
-                    f" (max |diff| {np.abs(again - one).max():.3e})")
-            if diff > DP_BAR:
-                raise AssertionError(f"dp {label}: {note}")
+        img = res[0]["image"]           # rank 0 returns the image
+        if not np.array_equal(img, one):
+            raise AssertionError(f"dp {label}: image not the one-process "
+                                 f"image, max |diff| "
+                                 f"{np.abs(img - one).max():.3e}")
         for r, x in enumerate(res):
             plain = {k: v for k, v in x["launches"].items()
                      if k.endswith("_reference") and v}
@@ -763,7 +751,7 @@ def parallel_phases(dev, smi, texts, params10, main_img):
                                      f"launched {missing}, plain {plain}")
         log("24 dp render", f"{label} {size}^2 spp {spp} engine {engine} "
             f"({res[0]['stats']['kernel']}) over 2 ranks: image == one "
-            f"process: {note}; seconds per rank "
+            f"process's bit for bit; seconds per rank "
             f"{[round(x['seconds'], 3) for x in res]} (one process "
             f"{one_stats['seconds']:.3f}), assembly "
             f"{[round(x['stats']['assemble_seconds'], 4) for x in res]} s, "
@@ -790,28 +778,14 @@ def parallel_phases(dev, smi, texts, params10, main_img):
                                  f"{run.returncode}\n{run.stdout[-2000:]}\n"
                                  f"{run.stderr[-4000:]}")
         banner = [x for x in run.stdout.splitlines() if "[gvr] rank" in x]
-        # K1 sums a pixel's samples with atomics, so two one-process
-        # renders part by ~1e-6 and a few PPM bytes round the other way:
-        # held against phase 6 as a second one-process CLI render is
-        cli.main(["render", scene_path, "-o", out + ".one", "--width",
-                  str(MAIN_SIZE), "--height", str(MAIN_SIZE), "--spp",
-                  str(MAIN_SPP), "--device", str(dev)])
-        ppm = {k: np.rint(read_ppm(f) * 255).astype(np.int16)
-               for k, f in (("torchrun", out), ("one", out + ".one"))}
+        ppm = np.rint(read_ppm(out) * 255).astype(np.int16)
     ref = np.rint(main_img * 255).astype(np.int16)
-    ppm_diff = {k: dict(bytes_off=int((v != ref).sum()),
-                        max_step=int(np.abs(v - ref).max()))
-                for k, v in ppm.items()}
+    bytes_off = int((ppm != ref).sum())
     log("24 dp render", f"torchrun --nproc-per-node 1 cli render 250 "
         f"{MAIN_SIZE}^2 spp {MAIN_SPP}: {banner}, {wall:.3f} s with "
-        f"start-up; PPM bytes against phase 6's: torchrun "
-        f"{json.dumps(ppm_diff['torchrun'])}, another one-process CLI "
-        f"render {json.dumps(ppm_diff['one'])} (bar: every byte within 1, "
-        f"at most {PPM_BAR:.0e} of them off)")
+        f"start-up; PPM bytes off phase 6's: {bytes_off} (bar: 0)")
     backend = "nccl" if dev.type == "cuda" else "gloo"
-    if not (banner and backend in banner[0]) or any(
-            d["max_step"] > 1 or d["bytes_off"] > PPM_BAR * ref.size
-            for d in ppm_diff.values()):
+    if not (banner and backend in banner[0]) or bytes_off:
         raise AssertionError("the torchrun render did not run over NCCL or "
                              "its PPM is not phase 6's")
 
@@ -1156,6 +1130,37 @@ def run(dev):
                 for k, v in split.items())
             + f"; {per_sm} blocks resident per SM, {sms} SMs; counters "
             f"{phases.tolist()}")
+    # K1 is reproducible: chunk 9 three times more, the same bits as the
+    # timed launch's output
+    equal = [all(torch.equal(x, y) for x, y in
+                 zip(megatrace.mega_call(*args), got)) for _ in range(3)]
+    log("5 timing", f"K1 chunk {MEDIUM_CHUNK} spp {MAIN_SPP} three times "
+        f"more: radiance and evaluation counts bit-equal to the first "
+        f"{equal}")
+    if not all(equal):
+        raise AssertionError("K1 is not reproducible on chunk 9")
+    # ... and does not depend on its pool: chunk 9's first 2,048 pixels at
+    # spp 64 and 1024 with the pool forced to 1, 8 and 128 pixels a block
+    # (at spp 1024 every pool runs in rounds), the launcher's pool's bits
+    own_pool = megatrace.pool_pixels
+    for spp in (MAIN_SPP, 1024):
+        cfg = RenderConfig(width=MAIN_SIZE, height=MAIN_SIZE, spp=spp)
+        args = mega_args(sc250, cam1k, cfg, chunk[:2048])
+        want = megatrace.mega_call(*args)
+        equal = {}
+        try:
+            for pix in (1, 8, 128):
+                megatrace.pool_pixels = lambda *_, p=pix: p
+                equal[pix] = all(torch.equal(x, y) for x, y in
+                                 zip(megatrace.mega_call(*args), want))
+        finally:
+            megatrace.pool_pixels = own_pool
+        log("5 timing", f"K1 chunk {MEDIUM_CHUNK}'s first 2048 px spp "
+            f"{spp}, pools forced to 1, 8, 128 px: bit-equal to the "
+            f"launcher's pool of {own_pool(spp, 2048, per_sm * sms)} px "
+            f"{equal}")
+        if not all(equal.values()):
+            raise AssertionError(f"K1 depends on its pool at spp {spp}")
     # the work chunk 9's paths need at spp 64, counted by the plain version
     # on every COUNT_STRIDE-th pixel and scaled
     sample = {}
@@ -1287,6 +1292,12 @@ def run(dev):
         f"{stats['bounce_evals'] / stats['seconds'] / 1e6:.3f} M bounce "
         f"evaluations/s ({stats['bounce_evals']} evaluations), image mean "
         f"{img.mean():.6f}, launches {json.dumps(launches)} ({smi})")
+    # K1 is reproducible: a second CLI render writes the same PPM bytes
+    again = cli_render(text250, MAIN_SIZE, MAIN_SPP, ["mega_call"])[3]
+    log("6 main", f"cli render again: PPM bytes equal to the first "
+        f"{np.array_equal(again, img)}")
+    if not np.array_equal(again, img):
+        raise AssertionError("two CLI renders of the headline differ")
 
     # ---- 7: K6, the grid span-tau kernel ----
     text10k = random_gaussian_scene(GRID_N, seed=0)

@@ -116,16 +116,22 @@ struct MegaParams {
 constexpr int MEGA_BLOCK = 128;  // threads of a megakernel block
 constexpr int MEGA_WARPS = MEGA_BLOCK / 32;
 constexpr int MEGA_MAX_PIX = 128;  // most pixels a block's pool holds
-// A warp's NEE queue: up to 31 entries left from the last drain and 32 new.
+// Path subtotals a block holds at once: a pool of more paths runs in rounds
+// of this many (pixel-major) slots.
+constexpr int MEGA_ROUND = 512;
+// A warp's queue, a ring: up to 31 entries left from the last drain and 32
+// new.
 constexpr int NEE_QCAP = 64;
-// The float fields of a queued NEE ray: origin, direction, tmax, weight.
+// The float fields of a queued entry: origin, direction, tmax, weight.  An
+// escape entry (a path's last term) has tmax kEscape and no ray.
 enum NeeField { kQo = 0, kQd = 3, kQtmax = 6, kQw = 7, kQFields = 10 };
+constexpr float kEscape = -1.0f;
 // Phases of the instrumented megakernel: the extension sweep, the solve
 // (Newton, finisher, albedo), the NEE sweep, and the rest (slot claims,
-// camera rays, uniforms, queue pushes, Russian roulette, the loop).  The
-// counters are [kMegaPhases][3] int64: clock64() cycles summed over warps,
-// warp-steps (rows for a sweep, one a solve or a loop iteration), and
-// active lanes summed over those steps.
+// camera rays, uniforms, queue pushes, Russian roulette, the loop, the
+// rounds' folds).  The counters are [kMegaPhases][3] int64: clock64()
+// cycles summed over warps, warp-steps (rows for a sweep, one a solve or a
+// loop iteration), and active lanes summed over those steps.
 enum MegaPhase { kPhSweep = 0, kPhSolve, kPhNee, kPhOther, kMegaPhases };
 
 // Stratified camera ray for (pixel x, y; sample s) from the 16-float camera
@@ -171,56 +177,84 @@ __device__ __forceinline__ Ray camera_ray(const float* cam,
   return r;
 }
 
-// A warp's drain of `count` (1..32) queued NEE rays from entry `first`:
-// lane k takes entry first + k, sweeps its shadow ray's optical depth over
-// all rows (every lane of the warp the same rows), and adds
-// weight * exp(-tau) into its pixel's accumulator.  Every lane calls it.
-__device__ __forceinline__ void nee_drain(const float* q, const int* q_slot,
-                                          int first, int count,
-                                          const float4* __restrict__ tab,
-                                          int np,
-                                          float (*acc)[MEGA_MAX_PIX]) {
+// A warp's drain of `count` (1..32) queued entries, the oldest first: lane
+// k takes entry first + k of the ring.  A shadow ray's lane sweeps its
+// optical depth over all rows (the warp's sweeping lanes the same rows)
+// and its term is weight * exp(-tau); an escape entry's term is its weight.
+// Each term is added into its path's subtotal sub[.][slot], the lanes that
+// hold one slot one after another in lane order, which is queue order, so
+// a subtotal takes a path's terms in the order it pushed them.  Every lane
+// calls it; returns the lanes that swept.
+__device__ __forceinline__ int nee_drain(const float* q, const int* q_slot,
+                                         int first, int count,
+                                         const float4* __restrict__ tab,
+                                         int np,
+                                         float (*sub)[MEGA_ROUND]) {
   const int lane = threadIdx.x & 31;
   const bool has = lane < count;
-  const int e = first + lane;
+  const int e = (first + lane) & (NEE_QCAP - 1);
   Ray s = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 1.0f};
-  float tmax = 0.0f, wt[3] = {0.0f, 0.0f, 0.0f};
+  float tmax = 0.0f, term[3] = {0.0f, 0.0f, 0.0f};
   int slot = 0;
   if (has) {
     s = {q[(kQo + 0) * NEE_QCAP + e], q[(kQo + 1) * NEE_QCAP + e],
          q[(kQo + 2) * NEE_QCAP + e], q[(kQd + 0) * NEE_QCAP + e],
          q[(kQd + 1) * NEE_QCAP + e], q[(kQd + 2) * NEE_QCAP + e]};
     tmax = q[kQtmax * NEE_QCAP + e];
-    for (int c = 0; c < 3; ++c) wt[c] = q[(kQw + c) * NEE_QCAP + e];
+    for (int c = 0; c < 3; ++c) term[c] = q[(kQw + c) * NEE_QCAP + e];
     slot = q_slot[e];
   }
   __syncwarp();  // every entry read before a later push reuses its place
-  if (has) {
+  const bool sweeps = has && tmax != kEscape;
+  if (sweeps) {
     const float tr = expf(-tau_nee(tab, np, s, tmax));
-    for (int c = 0; c < 3; ++c) atomicAdd(&acc[c][slot], wt[c] * tr);
+    for (int c = 0; c < 3; ++c) term[c] *= tr;
   }
+  // lanes of one slot add in lane order: rank k adds in pass k
+  const unsigned peers = __match_any_sync(FULL_WARP, has ? slot : -1 - lane);
+  const int rank = __popc(peers & ((1u << lane) - 1u));
+  const int passes = __reduce_max_sync(FULL_WARP, has ? rank : 0);
+  for (int k = 0; k <= passes; ++k) {
+    if (has && rank == k)
+      for (int c = 0; c < 3; ++c)
+        sub[c][slot] += term[c];
+    __syncwarp();
+  }
+  return __popc(__ballot_sync(FULL_WARP, sweeps));
 }
 
 // One block owns P.pix consecutive ids of the chunk, and their (pixel,
 // sample) slots form its pool (slot g = pixel g / spp, sample g % spp); the
 // launcher picks P.pix so that the chunk makes enough blocks to fill the
 // card several times over, and the hardware's block scheduler balances
-// them.  A warp's lanes without a live path claim the next slots together
-// (one shared atomicAdd a warp), trace their paths bounce by bounce, add
-// their radiance into the pixel's shared accumulator when they end, and
-// claim again; the warp leaves its loop when no lane holds a path and the
-// pool is empty.  A bounce sweeps the table for the extension ray (every
-// live lane the same rows); only a ray that scatters solves for its root
-// and albedo, from the pairs its sweep kept in shared memory (HitSlots).
-// Its shadow ray is not swept by the lane: the ray and its weight
-// (throughput x albedo x nee_w x (4 pi env or rad / d^2)) go into the
-// warp's queue in shared memory, and whenever the queue holds 32 entries,
-// and once more when the warp is done, the warp drains them with every
-// lane active.  out_rad [b, 3] radiance sums over the spp samples;
-// out_count [b] bounce evaluations; prof (kProf only) the phase counters.
-// Six blocks an SM (30.2 KB of shared memory each, the registers capped at
-// 80 with a few bytes of spills) measured faster than five at 96
-// registers with a 4-pair cache, and than seven with 72 (PERF.md).
+// them.  The pool runs in rounds of MEGA_ROUND slots (one round unless spp
+// > MEGA_ROUND or a pool was forced larger).  A warp's lanes without a live
+// path claim the round's next slots together (one shared atomicAdd a
+// warp), trace their paths bounce by bounce, and claim again; the warp
+// leaves the round when no lane holds a path and the round is empty.  A
+// bounce sweeps the table for the extension ray (every live lane the same
+// rows); only a ray that scatters solves for its root and albedo, from the
+// pairs its sweep kept in shared memory (HitSlots).
+//
+// Each path owns one subtotal sub[.][g - round start], zeroed when it is
+// claimed, and every term of its radiance reaches it through the warp's
+// FIFO queue, in order: a shadow ray (throughput x albedo x nee_w x (4 pi
+// env or rad / d^2), with the ray) for each scatter, then the escape term
+// (throughput x env) if the path escapes.  The lane does not sweep its
+// shadow ray: whenever the queue holds 32 entries, and once more when the
+// round is done, the warp drains the 32 oldest (or the rest) with every
+// lane active; an escape entry's lane only adds its term.  (Adding an
+// escape at once where none of its path's entries waits measured 2-4 %
+// faster, but which route a path takes depends on the race, so the two
+// routes would have to round alike; PERF.md §6.)  At the round's end the
+// block folds each pixel's subtotals into out_rad in sample order, so a
+// pixel's sum is ((s_0 + s_1) + s_2) + ... whichever warp traced which
+// path, and the image does not depend on the pools, the chunk or the card.
+// out_rad [b, 3] radiance sums over the spp samples; out_count [b] bounce
+// evaluations (integer sums); prof (kProf only) the phase counters.  Six
+// blocks an SM (34.8 KB of shared memory each, the registers capped at 80);
+// at 30.2 KB, six measured faster than five at 96 registers with a 4-pair
+// cache, and than seven with 72 (PERF.md).
 template <bool kProf>
 __global__ void __launch_bounds__(MEGA_BLOCK, 6)
     mega_kernel(const float* __restrict__ cam_g,
@@ -231,7 +265,7 @@ __global__ void __launch_bounds__(MEGA_BLOCK, 6)
                 float* __restrict__ out_rad, int* __restrict__ out_count,
                 long long* __restrict__ prof) {
   __shared__ int next_slot;
-  __shared__ float acc[3][MEGA_MAX_PIX];
+  __shared__ float sub[3][MEGA_ROUND];
   __shared__ int cnt[MEGA_MAX_PIX];
   __shared__ HitStore<MEGA_BLOCK> store;
   __shared__ float nee_q[MEGA_WARPS][kQFields * NEE_QCAP];
@@ -242,12 +276,7 @@ __global__ void __launch_bounds__(MEGA_BLOCK, 6)
   const int base = blockIdx.x * P.pix;
   const int npix = min(P.pix, b - base);
   const int pool = npix * P.spp;
-  if (tid == 0) next_slot = 0;
-  for (int k = tid; k < MEGA_MAX_PIX; k += MEGA_BLOCK) {
-    acc[0][k] = acc[1][k] = acc[2][k] = 0.0f;
-    cnt[k] = 0;
-  }
-  __syncthreads();
+  for (int k = tid; k < MEGA_MAX_PIX; k += MEGA_BLOCK) cnt[k] = 0;
 
   float cam[13];
   for (int k = 0; k < 13; ++k) cam[k] = __ldg(cam_g + k);
@@ -271,129 +300,157 @@ __global__ void __launch_bounds__(MEGA_BLOCK, 6)
     }
   };
 
-  bool alive = false, exhausted = false;
-  int slot = 0, bounce = 0, evals = 0, queued = 0;
-  PathKey key = {0u, 0u};
-  Ray r = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 1.0f};
-  float thr[3] = {1.0f, 1.0f, 1.0f}, rad[3] = {0.0f, 0.0f, 0.0f};
-  while (true) {
-    // --- lanes without a path claim the pool's next slots ---
-    if (!exhausted) {
-      const unsigned need = __ballot_sync(FULL_WARP, !alive);
-      if (need) {
-        const int leader = __ffs(need) - 1;
-        int first = 0;
-        if (lane == leader) first = atomicAdd(&next_slot, __popc(need));
-        first = __shfl_sync(FULL_WARP, first, leader);
-        exhausted = first + __popc(need) >= pool;
-        const int g = first + __popc(need & below);
-        if (!alive && g < pool) {
-          slot = g / P.spp;
-          const int s = g - slot * P.spp;
-          const int pid = ids[base + slot];
-          key = path_key(static_cast<uint32_t>(pid),
-                         static_cast<uint32_t>(s), P.seed_mix, P.seed_raw);
-          float jit[2];
-          uniforms<2>(key, JITTER_TAG, jit);
-          r = camera_ray(cam, P, pid % P.w, pid / P.w, s, jit[0], jit[1]);
-          for (int c = 0; c < 3; ++c) {
-            thr[c] = 1.0f;
-            rad[c] = 0.0f;
+  // the warp's queue holds its entries [head, tail), counted from the
+  // kernel's start; entry e sits at e mod NEE_QCAP
+  int head = 0, tail = 0;
+  for (int r0 = 0; r0 < pool; r0 += MEGA_ROUND) {
+    const int r1 = min(r0 + MEGA_ROUND, pool);
+    if (tid == 0) next_slot = r0;
+    __syncthreads();  // also: the last round's fold is done with sub
+    bool alive = false, exhausted = false;
+    int g = 0, bounce = 0, evals = 0;  // g: the path's pool slot
+    PathKey key = {0u, 0u};
+    Ray r = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 1.0f};
+    float thr[3] = {1.0f, 1.0f, 1.0f};
+    while (true) {
+      // --- lanes without a path claim the round's next slots ---
+      if (!exhausted) {
+        const unsigned need = __ballot_sync(FULL_WARP, !alive);
+        if (need) {
+          const int leader = __ffs(need) - 1;
+          int first = 0;
+          if (lane == leader) first = atomicAdd(&next_slot, __popc(need));
+          first = __shfl_sync(FULL_WARP, first, leader);
+          exhausted = first + __popc(need) >= r1;
+          const int claim = first + __popc(need & below);
+          if (!alive && claim < r1) {
+            g = claim;
+            const int pix = g / P.spp;
+            const int s = g - pix * P.spp;
+            const int pid = ids[base + pix];
+            key = path_key(static_cast<uint32_t>(pid),
+                           static_cast<uint32_t>(s), P.seed_mix, P.seed_raw);
+            float jit[2];
+            uniforms<2>(key, JITTER_TAG, jit);
+            r = camera_ray(cam, P, pid % P.w, pid / P.w, s, jit[0], jit[1]);
+            for (int c = 0; c < 3; ++c) {
+              thr[c] = 1.0f;
+              sub[c][g - r0] = 0.0f;
+            }
+            bounce = 0;
+            evals = 0;
+            alive = true;
           }
-          bounce = 0;
-          evals = 0;
-          alive = true;
         }
       }
-    }
-    const unsigned live = __ballot_sync(FULL_WARP, alive);
-    if (!live) break;
-    float xi[9];
-    if (alive) uniforms<9>(key, static_cast<uint32_t>(bounce), xi);
-    mark(kPhOther, __popc(live), 1);
+      const unsigned live = __ballot_sync(FULL_WARP, alive);
+      if (!live) break;
+      float xi[9];
+      if (alive) uniforms<9>(key, static_cast<uint32_t>(bounce), xi);
+      mark(kPhOther, __popc(live), 1);
 
-    // --- the extension ray: sweep, then the solve if it scatters ---
-    Sweep w = {0.0f, BIG, 0.0f, 0};
-    if (alive) w = sweep_pairs(tab, np, r, slots);
-    mark(kPhSweep, __popc(live), np);
-    BounceOut res;
-    res.scattered = false;
-    if (alive)
-      res = solve_bounce<false>(tab, np, r, w, xi[0], P.solver_iters,
-                                P.finisher, slots);
-    const unsigned scat = __ballot_sync(FULL_WARP, res.scattered);
-    mark(kPhSolve, __popc(scat), 1);
+      // --- the extension ray: sweep, then the solve if it scatters ---
+      Sweep w = {0.0f, BIG, 0.0f, 0};
+      if (alive) w = sweep_pairs(tab, np, r, slots);
+      mark(kPhSweep, __popc(live), np);
+      BounceOut res;
+      res.scattered = false;
+      if (alive)
+        res = solve_bounce<false>(tab, np, r, w, xi[0], P.solver_iters,
+                                  P.finisher, slots);
+      const unsigned scat = __ballot_sync(FULL_WARP, res.scattered);
+      mark(kPhSolve, __popc(scat), 1);
 
-    // --- queue the shadow rays of the lanes that scatter ---
-    if (res.scattered) {
-      const NeeRay n = nee_ray(r, res.t_sc, xi[1], xi[2], xi[3], xi[4],
-                               lights.rows, lights.n);
-      const int e = queued + __popc(scat & below);
-      const float o3[3] = {n.s.ox, n.s.oy, n.s.oz};
-      const float d3[3] = {n.s.dx, n.s.dy, n.s.dz};
-      const float wgt = res.albedo * P.nee_w;
-      for (int c = 0; c < 3; ++c) {
-        q[(kQo + c) * NEE_QCAP + e] = o3[c];
-        q[(kQd + c) * NEE_QCAP + e] = d3[c];
-        q[(kQw + c) * NEE_QCAP + e] =
-            thr[c] * wgt * (n.is_env ? lights.env[c] * FOUR_PI_F
-                                     : n.rad[c] * n.inv_d2);
-      }
-      q[kQtmax * NEE_QCAP + e] = n.tmax;
-      q_slot[e] = slot;
-    }
-    queued += __popc(scat);
-    __syncwarp();  // the pushed entries visible to the whole warp
-    mark(kPhOther, __popc(live), 1);
-    if (queued >= 32) {
-      queued -= 32;
-      nee_drain(q, q_slot, queued, 32, tab, np, acc);
-      mark(kPhNee, 32, np);
-    }
-
-    // --- escape, or Russian roulette and the next direction ---
-    if (alive) {
-      ++evals;
-      if (!res.scattered) {
-        for (int c = 0; c < 3; ++c) rad[c] += thr[c] * lights.env[c];
-        alive = false;
-      } else {
-        float tn[3];
-        for (int c = 0; c < 3; ++c) tn[c] = thr[c] * res.albedo;
-        // Russian roulette (integrator.h:688-695) with the tail cap
-        const bool do_rr = bounce >= P.min_scatter;
-        const float cap =
-            bounce >= P.rr_tail_after ? P.rr_cap_tail : P.rr_cap;
-        const float rr = fminf(fmaxf(fmaxf(tn[0], tn[1]), tn[2]), cap);
-        const bool killed = do_rr && xi[5] > rr;
-        if (do_rr && !killed)
-          for (int c = 0; c < 3; ++c) tn[c] = tn[c] / fmaxf(rr, 1e-12f);
-        alive = !killed && bounce + 1 < P.max_bounces;
-        if (alive) {
-          // isotropic phase: new direction from xi[6:8]
-          const float theta = TWO_PI_F * xi[6];
-          const float cphi = 1.0f - 2.0f * xi[7];
-          const float sphi = sqrtf(fmaxf(1.0f - cphi * cphi, 0.0f));
-          r.ox = r.ox + res.t_sc * r.dx;
-          r.oy = r.oy + res.t_sc * r.dy;
-          r.oz = r.oz + res.t_sc * r.dz;
-          r.dx = sphi * cosf(theta);
-          r.dy = sphi * sinf(theta);
-          r.dz = cphi;
-          for (int c = 0; c < 3; ++c) thr[c] = tn[c];
+      // --- queue the shadow ray of a lane that scatters, or the escape
+      // term of one whose path escapes ---
+      if (alive) {
+        const int e = (tail + __popc(live & below)) & (NEE_QCAP - 1);
+        if (res.scattered) {
+          const NeeRay n = nee_ray(r, res.t_sc, xi[1], xi[2], xi[3], xi[4],
+                                   lights.rows, lights.n);
+          const float o3[3] = {n.s.ox, n.s.oy, n.s.oz};
+          const float d3[3] = {n.s.dx, n.s.dy, n.s.dz};
+          const float wgt = res.albedo * P.nee_w;
+          for (int c = 0; c < 3; ++c) {
+            q[(kQo + c) * NEE_QCAP + e] = o3[c];
+            q[(kQd + c) * NEE_QCAP + e] = d3[c];
+            q[(kQw + c) * NEE_QCAP + e] =
+                thr[c] * wgt * (n.is_env ? lights.env[c] * FOUR_PI_F
+                                         : n.rad[c] * n.inv_d2);
+          }
+          q[kQtmax * NEE_QCAP + e] = n.tmax;
+        } else {
+          for (int c = 0; c < 3; ++c)
+            q[(kQw + c) * NEE_QCAP + e] = thr[c] * lights.env[c];
+          q[kQtmax * NEE_QCAP + e] = kEscape;
         }
+        q_slot[e] = g - r0;
       }
-      ++bounce;
-      if (!alive) {
-        for (int c = 0; c < 3; ++c) atomicAdd(&acc[c][slot], rad[c]);
-        atomicAdd(&cnt[slot], evals);
+      tail += __popc(live);
+      __syncwarp();  // the pushed entries visible to the whole warp
+      mark(kPhOther, __popc(live), 1);
+      if (tail - head >= 32) {
+        const int swept = nee_drain(q, q_slot, head, 32, tab, np, sub);
+        head += 32;
+        mark(kPhNee, swept, np);
       }
+
+      // --- escape, or Russian roulette and the next direction ---
+      if (alive) {
+        ++evals;
+        if (!res.scattered) {
+          alive = false;
+        } else {
+          float tn[3];
+          for (int c = 0; c < 3; ++c) tn[c] = thr[c] * res.albedo;
+          // Russian roulette (integrator.h:688-695) with the tail cap
+          const bool do_rr = bounce >= P.min_scatter;
+          const float cap =
+              bounce >= P.rr_tail_after ? P.rr_cap_tail : P.rr_cap;
+          const float rr = fminf(fmaxf(fmaxf(tn[0], tn[1]), tn[2]), cap);
+          const bool killed = do_rr && xi[5] > rr;
+          if (do_rr && !killed)
+            for (int c = 0; c < 3; ++c) tn[c] = tn[c] / fmaxf(rr, 1e-12f);
+          alive = !killed && bounce + 1 < P.max_bounces;
+          if (alive) {
+            // isotropic phase: new direction from xi[6:8]
+            const float theta = TWO_PI_F * xi[6];
+            const float cphi = 1.0f - 2.0f * xi[7];
+            const float sphi = sqrtf(fmaxf(1.0f - cphi * cphi, 0.0f));
+            r.ox = r.ox + res.t_sc * r.dx;
+            r.oy = r.oy + res.t_sc * r.dy;
+            r.oz = r.oz + res.t_sc * r.dz;
+            r.dx = sphi * cosf(theta);
+            r.dy = sphi * sinf(theta);
+            r.dz = cphi;
+            for (int c = 0; c < 3; ++c) thr[c] = tn[c];
+          }
+        }
+        ++bounce;
+        if (!alive) atomicAdd(&cnt[g / P.spp], evals);
+      }
+      mark(kPhOther, __popc(live), 1);
     }
-    mark(kPhOther, __popc(live), 1);
-  }
-  if (queued > 0) {
-    nee_drain(q, q_slot, 0, queued, tab, np, acc);
-    mark(kPhNee, queued, np);
+    if (tail > head) {
+      const int swept = nee_drain(q, q_slot, head, tail - head, tab, np, sub);
+      mark(kPhNee, swept, np);
+      head = tail;
+    }
+    __syncthreads();
+    // --- fold the round: each pixel's subtotals in sample order, after
+    // its sum so far when an earlier round held its first samples ---
+    const int p_hi = (r1 - 1) / P.spp;
+    for (int p = r0 / P.spp + tid; p <= p_hi; p += MEGA_BLOCK) {
+      const int g0 = max(p * P.spp, r0), g1 = min((p + 1) * P.spp, r1);
+      float* out = out_rad + 3 * (base + p);
+      float acc[3] = {0.0f, 0.0f, 0.0f};
+      if (g0 > p * P.spp)
+        for (int c = 0; c < 3; ++c) acc[c] = out[c];
+      for (int k = g0 - r0; k < g1 - r0; ++k)
+        for (int c = 0; c < 3; ++c) acc[c] += sub[c][k];
+      for (int c = 0; c < 3; ++c) out[c] = acc[c];
+    }
+    mark(kPhOther, 0, 0);
   }
   if (kProf && lane == 0)
     for (int k = 0; k < kMegaPhases; ++k)
@@ -401,10 +458,7 @@ __global__ void __launch_bounds__(MEGA_BLOCK, 6)
         atomicAdd(reinterpret_cast<unsigned long long*>(prof + 3 * k + j),
                   static_cast<unsigned long long>(ph[k][j]));
   __syncthreads();
-  if (tid < npix) {
-    for (int c = 0; c < 3; ++c) out_rad[3 * (base + tid) + c] = acc[c][tid];
-    out_count[base + tid] = cnt[tid];
-  }
+  if (tid < npix) out_count[base + tid] = cnt[tid];
 }
 
 // K6: a block takes K6_BLOCK consecutive (ray, crossing) items of cells

@@ -19,22 +19,26 @@ pixel; a lane whose path ended starts the pixel's next sample) around
 Kernel (``csrc/kernels.cu:mega_kernel``): one block of 128 threads owns
 ``pool_pixels`` consecutive ids of the chunk (chosen from spp so that the
 chunk makes several waves of blocks on the card), and their (pixel,
-sample) slots form a pool.  A warp's lanes without a live path claim the
-next slots with one shared-memory atomic, trace their paths bounce by
-bounce, add their radiance into the pixel's shared accumulator when they
-end, and claim again; the block writes its pixel sums when the pool is
-empty.  A bounce sweeps all rows for the extension ray behind a
-division-free pre-test, keeps the crossed pairs in shared memory for the
-solve, and solves only where the ray scatters; its shadow ray goes into a
-per-warp queue that the warp sweeps 32 at a time with every lane active.
-It is bound by the bounce math (K2's device functions, arithmetic and
-special functions): on the headline's heaviest chunk its warps spend ~57 %
-of their cycles in the extension sweeps and ~23 % in the shadow-ray
-sweeps, a pre-test of every row each (PERF.md), and the state of a path
-never leaves registers.  Sums
-arrive in a run-dependent order, so images match the plain version to
-float tolerance, not bit for bit; every path's decisions, and so the
-evaluation counts, do not depend on the order.
+sample) slots form a pool, run in rounds of at most 512 slots
+(``MEGA_ROUND``).  A warp's lanes without a live path claim the
+round's next slots with one shared-memory atomic, trace their paths bounce
+by bounce, and claim again.  A bounce sweeps all rows for the extension
+ray behind a division-free pre-test, keeps the crossed pairs in shared
+memory for the solve, and solves only where the ray scatters; its shadow
+ray goes into a per-warp FIFO queue that the warp sweeps 32 entries at a
+time with every lane active.  It is bound by the bounce math (K2's device
+functions, arithmetic and special functions): on the headline's heaviest
+chunk its warps spend ~57 % of their cycles in the extension sweeps and
+~23 % in the shadow-ray sweeps, a pre-test of every row each (PERF.md),
+and the state of a path never leaves registers.
+
+Each path has one subtotal in shared memory; its terms reach it through
+the queue in the order the path made them (its shadow rays in bounce
+order, then its escape), and at a round's end the block adds each
+pixel's subtotals in sample order.  So the image is the same bits from
+run to run, whichever warp traced which path, and for any pool size,
+chunk or card.  It matches the plain version (which adds each term into
+the pixel's sum as it comes) to float tolerance, not bit for bit.
 """
 
 from __future__ import annotations

@@ -23,7 +23,7 @@ from gvr_tpu_torch.integrators.gridscatter import (critical_crossing,
 from gvr_tpu_torch import cli
 from gvr_tpu_torch.integrators.multiscatter import (
     diff_uniforms, multiscatter_radiance_diff, render_multiscatter,
-    wavefront_pixels_big)
+    tile_order, wavefront_pixels_big)
 from gvr_tpu_torch.integrators.raymarch import (render_pure_raymarch,
                                                 render_raymarch_gaussians,
                                                 render_raymarch_spheres)
@@ -44,7 +44,8 @@ from gvr_tpu_torch.scene.scene import parse_gmm, parse_smm
 from gvr_tpu_torch.scene.voxels import VoxelGrid
 from gvr_tpu_torch.testing import (BIG_DENSE_BARS, bake_agreement,
                                    big_kernel_vs_plain, big_rays,
-                                   card_cpu_agreement, gif_structure,
+                                   card_cpu_agreement, chunk_agreement,
+                                   gif_structure,
                                    fit_agreement, mega_agreement,
                                    solve_agreement, solve_fd_agreement,
                                    span_tau_agreement)
@@ -237,6 +238,62 @@ def test_mega_kernel_crowded_rays(cuda_device, scene):
         assert (crossed > tpt.MAX_HITS).all()
     _hold_mega(sc, cam, RenderConfig(width=16, height=16, spp=4,
                                      max_bounces=4), ids)
+
+
+def test_mega_kernel_reproducible(cuda_device):
+    """K1 five times on the headline's chunk 9 (the 250-Gaussian scene,
+    1024^2, 65,536 pixels through the medium) at spp 64: the same bits
+    each time, the radiance and the evaluation counts."""
+    sc = parse_gmm(random_gaussian_scene(250, seed=0), device=cuda_device)
+    cam = PinholeCamera.create([0, 1, 6], [0, 1, 0], math.radians(45.0),
+                               device=cuda_device)
+    chunk = torch.from_numpy(tile_order(1024, 1024)[9 * 65536:10 * 65536])
+    args = _mega_args(sc, cam, RenderConfig(width=1024, height=1024, spp=64),
+                      chunk.to(cuda_device))
+    first = tmt.mega_call(*args)
+    for _ in range(4):
+        again = tmt.mega_call(*args)
+        assert torch.equal(again[0], first[0])
+        assert torch.equal(again[1], first[1])
+
+
+@pytest.mark.parametrize("spp", [1, 3, 64, 1024])
+def test_mega_kernel_pool_invariant(cuda_device, monkeypatch, spp):
+    """K1 with its pool forced to 1, 8 and 128 pixels a block (at spp 64
+    and 1024 a pool of 8 or 128 pixels runs in rounds of the kernel's
+    MEGA_ROUND paths): the same bits as with the launcher's own pool,
+    radiance and evaluation counts, and the launcher's result within the
+    plain version's CHUNK_BARS (at spp 1024 one path of the 207,872 flips
+    a threshold test)."""
+    args = _mega_args(parse_gmm(SCENE24, device=cuda_device),
+                      _cameras(cuda_device)[0],
+                      RenderConfig(**dict(MEGA_KW, spp=spp)),
+                      torch.arange(3, 206, dtype=torch.int32,
+                                   device=cuda_device))
+    want = tmt.mega_call(*args)
+    res = chunk_agreement(want, tmt.mega_reference(*args), spp)
+    assert res["ok"], res
+    for pix in (1, 8, 128):
+        monkeypatch.setattr(tmt, "pool_pixels", lambda *_, p=pix: p)
+        got = tmt.mega_call(*args)
+        assert torch.equal(got[0], want[0]), pix
+        assert torch.equal(got[1], want[1]), pix
+
+
+def test_render_reproducible(cuda_device):
+    """render_multiscatter of the 250-Gaussian scene at 128^2 spp 16 on the
+    card: the same bits twice, and with ray_chunk 64 against 65,536 (K1's
+    image does not depend on the chunk)."""
+    sc = parse_gmm(random_gaussian_scene(250, seed=0), device=cuda_device)
+    cam = PinholeCamera.create([0, 1, 6], [0, 1, 0], math.radians(45.0),
+                               device=cuda_device)
+    cfg = RenderConfig(width=128, height=128, spp=16)
+    a = render_multiscatter(sc, cam, cfg, device=cuda_device)
+    b = render_multiscatter(sc, cam, cfg, device=cuda_device)
+    c = render_multiscatter(sc, cam, cfg.replace(ray_chunk=64),
+                            device=cuda_device)
+    np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(a, c)
 
 
 def test_parse_40k_scene_on_the_card(cuda_device):

@@ -5,6 +5,8 @@ on the card.  Bar: atol 1e-4, the JAX suite's own mega-vs-XLA bar
 (test_pallas_kernels.py:test_megakernel_matches_step_wavefront)."""
 
 import math
+import pathlib
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -131,6 +133,59 @@ def test_pool_pixels(spp):
     # the headline's chunk on an H100 holding 5 blocks an SM
     want = {1: 128, 4: 32, 9: 24, 64: 8, 256: 2}[spp]
     assert tmt.pool_pixels(spp, 65536, 5 * 132) == want
+
+
+def _kernel_constant(name: str) -> int:
+    """A ``constexpr int`` of K1's source, ``csrc/kernels.cu``."""
+    src = (pathlib.Path(tmt.__file__).parents[1] / "csrc" /
+           "kernels.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+# chunk widths: a block's pool and less, the ragged card-test chunk, the
+# headline's chunk 9
+PARTITION_B = (1, 3, 203, 4096, 65536)
+
+
+@pytest.mark.parametrize("spp", [1, 3, 9, 64, 256, 512, 513, 1024, 4096])
+def test_launch_partition(spp):
+    """K1's partition of a chunk, from the launcher's pools
+    (``pool_pixels`` on two cards) and from forced pools of 1, 8 and 128
+    pixels, walked as the kernel walks it: ``gvr_mega`` launches ceil(b /
+    pix) blocks, block k owns the ids [k pix, min((k + 1) pix, b)) and
+    runs its pool in rounds of the kernel's MEGA_ROUND slots (slot g:
+    pixel g // spp, sample g % spp).  Every (pixel, sample) falls in
+    exactly one block and one round, each block holds whole pixels, no
+    round exceeds the subtotals, the pool fits the per-pixel counters, and
+    the launcher's own pools run in one round up to spp MEGA_ROUND.  The
+    launcher's constants are the kernel's.  (The card test
+    test_mega_kernel_pool_invariant holds the kernel itself.)"""
+    rnd = _kernel_constant("MEGA_ROUND")
+    max_pix = _kernel_constant("MEGA_MAX_PIX")
+    assert tmt.MEGA_MAX_PIX == max_pix
+    assert tmt.MEGA_BLOCK == _kernel_constant("MEGA_BLOCK")
+    for b in PARTITION_B:
+        pools = {tmt.pool_pixels(spp, b, r) for r in (660, 1056)}
+        for pix in pools | {1, 8, 128}:
+            assert 1 <= pix <= max_pix
+            hits = np.zeros((b, spp), dtype=np.int64) \
+                if b * spp <= 1 << 20 else None
+            for k in range(-(-b // pix)):
+                base = k * pix
+                npix = min(pix, b - base)
+                assert npix >= 1
+                pool = npix * spp
+                rounds = [(r0, min(r0 + rnd, pool))
+                          for r0 in range(0, pool, rnd)]
+                assert all(0 < r1 - r0 <= rnd for r0, r1 in rounds)
+                if pix in pools and spp <= rnd:
+                    assert len(rounds) == 1
+                if hits is not None:
+                    for r0, r1 in rounds:
+                        g = np.arange(r0, r1)
+                        np.add.at(hits, (base + g // spp, g % spp), 1)
+            if hits is not None:
+                assert (hits == 1).all()
 
 
 def test_mega_phases_only_on_the_card():

@@ -24,6 +24,7 @@ from gvr_tpu_torch.integrators.multiscatter import (render_multiscatter,
                                                     tile_order)
 from gvr_tpu_torch.io.ppm import quantize, read_ppm
 from gvr_tpu_torch.scene.scene import parse_gmm
+from gvr_tpu_torch.testing import image_agreement
 
 SCENE = random_gaussian_scene(24, seed=7, diameter=(0.2, 0.6),
                               density=(0.5, 2.0))
@@ -45,6 +46,34 @@ def test_render_matches_jax(camera):
     assert got.shape == (16, 16, 3) and got.dtype == np.float32
     assert np.isfinite(got).all() and got.std() > 0
     np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+def test_render_deterministic_same_seed():
+    """JAX's test_multiscatter_deterministic_same_seed: two renders of
+    one seed are the same bits."""
+    tcam = PinholeCamera.create([0, 1, 6], [0, 1, 0], 0.25 * math.pi)
+    cfg = RenderConfig(width=16, height=16, spp=8)
+    a = render_multiscatter(parse_gmm(SCENE), tcam, cfg, device="cpu")
+    b = render_multiscatter(parse_gmm(SCENE), tcam, cfg, device="cpu")
+    np.testing.assert_array_equal(a, b)
+
+
+def test_render_chunk_invariance():
+    """JAX's test_multiscatter_chunk_invariance at its spp 8: ray_chunk 64
+    against 65,536, the same bits (JAX's bar is atol 1e-6), and the image
+    within image_agreement's bars of JAX's (one path of this scene flips
+    a threshold test against JAX's and moves one pixel by 1.4e-4)."""
+    jcam = JPinhole.create([0, 1, 6], [0, 1, 0], 0.25 * math.pi)
+    tcam = PinholeCamera.create([0, 1, 6], [0, 1, 0], 0.25 * math.pi)
+    want = jax_render(jax_parse_gmm(SCENE), jcam,
+                      JConfig(width=16, height=16, spp=8))
+    cfg = RenderConfig(width=16, height=16, spp=8)
+    a, b = (render_multiscatter(parse_gmm(SCENE), tcam,
+                                cfg.replace(ray_chunk=chunk), device="cpu")
+            for chunk in (64, 1 << 16))
+    np.testing.assert_array_equal(a, b)
+    res = image_agreement(a, np.asarray(want), 8)
+    assert res["ok"], res
 
 
 def test_tile_order_matches_jax():
