@@ -186,10 +186,12 @@ raises, so the exit code is non-zero.
              refuses ranks that share a card) render through
              render_multiscatter over a 2-rank mesh: the headline (K1), the
              10k scene at 512^2 spp 16 (grid: K3/K6/K7) and with
-             --engine dense at 256^2 spp 4 (big-N: K3/K4/K5), each image
-             equal to the one-process image of the same scene arrays bit
-             for bit: seconds, the assembly's seconds, each rank's
-             launches (counts set to 0 just before); then `torchrun
+             --engine dense at 256^2 spp 4 (big-N: K3/K4/K5), and the
+             headline with wavefront='step' (K3/K2, K2 once an iteration),
+             each image equal to the one-process image of the same scene
+             arrays bit for bit: seconds, the assembly's seconds, each
+             rank's iterations and launches (counts set to 0 just
+             before); then `torchrun
              --nproc-per-node 1 -m gvr_tpu_torch.cli render` of the headline
              over NCCL, its PPM the same bytes as phase 6's
  25 tp       render_multiscatter_tp of the 250-Gaussian scene over a
@@ -212,19 +214,42 @@ raises, so the exit code is non-zero.
              and render_multiscatter spans; `python -m
              gvr_tpu_torch.bench_series --size 256 --spp 4`: its rows
              finite, with the engine and grid columns
+ 28 step wavefront  render_multiscatter of the headline with
+             RenderConfig(wavefront='step') (K3 and K2 once a wavefront
+             iteration): kernel 'step', K2 and K3 launched once an
+             iteration, no megakernel and no plain version; the image
+             within testing.CHUNK_BARS of K1's image of the same
+             configuration (whose PPM is phase 6's), rendered twice, the
+             same bits; render seconds, Mpaths/s, iterations.  K2 at the
+             inputs of chunk 9's first iteration (65,536 lanes) and of its
+             first with at most 1,024 lanes live: device time, dispatch,
+             plain ms and bound (the pairs its rays cross, and a full
+             sweep), held against the plain version at
+             testing.PATH_BOUNCE_BARS (BOUNCE_BARS with tau missing its
+             bar on at most 16 rays, by at most 2e-2: camera rays grazing
+             a Gaussian's R_CUT clip part float32 from float64), both
+             against the plain version in
+             float64 (printed); the live lanes of that chunk's
+             iterations.  `profile_render --wavefront step` of one
+             65,536-lane chunk (256^2 spp 16) in a process of its own:
+             the device's idle share and K2's share of the device time.
+             random_gaussian_scene(300, 0) at 128^2 spp 4 with 'step':
+             the big-N kernels, K2 not launched
 
 The last three lines: the nvidia-smi line, the kernels JSON (each kernel
 with its launches on its main path, its device time (``ms``), its call's
 CUDA-events time and dispatch (``events_ms``, ``dispatch_us``), its plain
 version's time, and its bound: the larger of its operations over 67
 TFLOP/s and its bytes, each input read and each output written once,
-over 3.35 TB/s; K1, K4, K5, K6 and K7 also with ``bound_ms_sweep``, the
-bound of the same work with a pair test of every pair instead of the
+over 3.35 TB/s; K1, K2, K4, K5, K6 and K7 also with ``bound_ms_sweep``,
+the bound of the same work with a pair test of every pair instead of the
 culling, the pre-test and the crossed-pair lists; K1 also with
 ``bound_ms_pretest``, its own walk: a pre-test of every row instead of
 the group boxes; K1 and K3 also with ``launches_fit``, their launches on
-phase 20's fit), and the result JSON.  Without a CUDA card, or without the package beside
-it, the script exits non-zero before printing any result.
+phase 20's fit; K2 with the step path's launches and times, its tail
+iteration's in ``*_tail`` and phase 5's in ``*_random``), and the result
+JSON.  Without a CUDA card, or without the package beside it, the script
+exits non-zero before printing any result.
 """
 
 import json
@@ -344,16 +369,29 @@ ANIMATE = (
 # renders at the CLI's final spp
 FIT_SIZE, FIT_ITERS, FIT_FINAL_SPP = 128, 40, 1024
 FIT_BATCH, FIT_BOUNCES, FIT_SPP = 4096, 4, 2
-# Phases 24-27: the data-parallel renders (label, scene, size, spp,
-# engine, the kernels each rank must launch), the tensor-parallel render,
+# Phase 28: the step wavefront (RenderConfig(wavefront='step'), K2 once
+# an iteration) on the headline; K2 timed at the inputs of the first
+# iteration of the headline's chunk 9 (all 65,536 lanes live) and of its
+# first iteration with at most STEP_TAIL_LANES live; profile_render of the
+# step path at STEP_PROFILE (size, spp): one chunk of the headline's
+# 65,536-lane width; and random_gaussian_scene(STEP_BIG_N, 0) at
+# STEP_BIG_SIZE^2 spp 4, which 'step' sends to the big-N kernels
+STEP_TAIL_LANES = 1024
+STEP_PROFILE = (256, 16)
+STEP_BIG_N, STEP_BIG_SIZE = 300, 128
+# Phases 24-27: the data-parallel renders (label, scene, RenderConfig
+# fields, the kernels each rank must launch), the tensor-parallel render,
 # the data-parallel fit's iterations, the trace's size
 DP_RANKS = 4
 DP_RENDERS = (
-    ("headline", "250", MAIN_SIZE, MAIN_SPP, "auto", ("mega_call",)),
-    ("grid", "10k", GRID_SIZE, GRID_SPP, "auto",
+    ("headline", "250", dict(width=MAIN_SIZE, height=MAIN_SIZE,
+                             spp=MAIN_SPP), ("mega_call",)),
+    ("grid", "10k", dict(width=GRID_SIZE, height=GRID_SIZE, spp=GRID_SPP),
      ("wave_uniforms", "span_tau_pass", "solve_pass")),
-    ("big", "10k", 256, 4, "dense",
+    ("big", "10k", dict(width=256, height=256, spp=4, engine="dense"),
      ("wave_uniforms", "big_stage1", "big_nee")),
+    ("step", "250", dict(width=MAIN_SIZE, height=MAIN_SIZE, spp=MAIN_SPP,
+                         wavefront="step"), ("wave_uniforms", "bounce_step")),
 )
 TP_CFG = dict(width=128, height=128, spp=4, max_bounces=3)
 DP_FIT_ITERS = 5
@@ -370,15 +408,14 @@ PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 # Flops of one (Gaussian, ray) pair test, csrc/bounce.cuh interval(), an
 # FMA counted as 2: two 23-flop bilinear forms, q.d, b, t*, the closest
 # point, m2, the gap and the interval.  A full sweep needs it once for
-# each pair: every Gaussian for each ray in K2 and in the sweep bounds of
-# K1, K4 and K5, every entry of a crossed or solved cell in K6 and K7.
+# each pair: every Gaussian for each ray in the sweep bounds of K1, K2, K4
+# and K5, every entry of a crossed or solved cell in K6 and K7.
 PAIR_TEST_FLOPS = 94
 # Flops of one evaluation of a crossed pair at a point, bounce.cuh
 # tau_sig_at(): z, the erf difference, the exp term and the two sums, an
-# erff or expf counted as 1.  K1, K4 and K7 need it for each pair a ray
-# crosses in each pass (the tau pass, the solver's steps, the albedo);
-# K2's, K5's and K6's erf/exp work is not counted, so those bounds are
-# floors.
+# erff or expf counted as 1.  K1, K2, K4 and K7 need it for each pair a
+# ray crosses in each pass (the tau pass, the solver's steps, the albedo);
+# K5's and K6's erf/exp work is not counted, so those bounds are floors.
 CROSSED_EVAL_FLOPS = 13
 # Flops of one (box, ray) slab test, csrc/big.cuh box_admits: on each
 # axis two subtractions, two products, a max and a min, then the compare;
@@ -390,8 +427,10 @@ CROSSED_EVAL_FLOPS = 13
 # rays (every bounce evaluation's extension ray, and the shadow-ray segment
 # of each one that scatters) need the same over 32-row groups of its
 # table in Morton order (megatrace.group_boxes; K1 itself pre-tests every
-# row, bound_ms_pretest); K7 a pre-test of every entry of the solved cell
-# and a pair test of each entry its ray crosses.
+# row, bound_ms_pretest); K2 a pre-test of every row for each lane's
+# extension and shadow rays and a pair test of each pair they cross
+# (k2_bounds); K7 a pre-test of every entry of the solved cell and a pair
+# test of each entry its ray crosses.
 BOX_TEST_FLOPS = 19
 PRE_TEST_FLOPS = 56
 SOLVER_ITERS, GRID_SOLVER_ITERS = 12, 6     # the RenderConfig defaults
@@ -429,6 +468,36 @@ def bound(ops, nbytes):
     ``nbytes`` bytes."""
     t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def k2_bounds(args, t_sc):
+    """(bound, full-sweep bound, crossed extension pairs, crossed shadow
+    pairs) of one K2 launch on ``args`` (the arguments of
+    ``pathtrace.bounce_step``), given its rays' t_sc.  K2
+    solves every ray and traces every ray's shadow ray, so the work it
+    needs is a pre-test of every row for both rays of each lane, a pair
+    test and a tau evaluation of each pair they cross, and the Newton
+    steps, the finisher if asked for and the albedo over each crossed
+    extension pair; the full sweep has a pair test of every row in both."""
+    import torch
+
+    from gvr_tpu_torch.kernels import pathtrace as pt
+    table, o, d, xi, lights, env, iters, finisher = args
+    rows, b = table.shape[0], o.shape[0]
+    col = lambda f: table[:, f:f + 1]
+    ray = [v[:, k][None, :] for v in (o, d) for k in range(3)]
+    ext = int(pt._interval(col, *ray, *pt._coeffs(col, *ray))[-1].sum())
+    p, w, tmax, *_ = pt._nee_ray(ray, t_sc[None, :],
+                                 *(xi[:, k][None, :] for k in range(1, 5)),
+                                 lights)
+    t0, t1, _, ok = pt._interval(col, *p, *w, *pt._coeffs(col, *p, *w))
+    nee = int((ok & (torch.minimum(t1, tmax) > t0)).sum())
+    nbytes = rows * 16 * 4 + b * (3 + 3 + 5 + 8) * 4
+    ops = (PRE_TEST_FLOPS * rows * 2 * b
+           + (PAIR_TEST_FLOPS + CROSSED_EVAL_FLOPS) * (ext + nee)
+           + CROSSED_EVAL_FLOPS * (iters + int(finisher) + 1) * ext)
+    return (bound(ops, nbytes),
+            bound(2 * b * rows * PAIR_TEST_FLOPS, nbytes), ext, nee)
 
 
 def fmt_ms(t):
@@ -718,8 +787,8 @@ def parallel_phases(dev, smi, texts, params10, main_img):
         scene_from_numpy(scenes["250"], dev), cam,
         RenderConfig(width=FIT_SIZE, height=FIT_SIZE, spp=FIT_FINAL_SPP),
         device=dev)
-    inp = dict(dp=[(label, scenes[key], size, spp, engine)
-                   for label, key, size, spp, engine, _ in DP_RENDERS],
+    inp = dict(dp=[(label, scenes[key], kw)
+                   for label, key, kw, _ in DP_RENDERS],
                tp_scene=scenes["250"], tp_cfg=TP_CFG, fit_scene=scenes["10"],
                fit_params=params10.numpy(), fit_seed=5, fit_init=fit_init,
                fit_target=target, fit_iters=DP_FIT_ITERS,
@@ -730,9 +799,9 @@ def parallel_phases(dev, smi, texts, params10, main_img):
     job = time.perf_counter() - t0
 
     # ---- 24: data-parallel renders against one process ----
-    for label, key, size, spp, engine, kernels in DP_RENDERS:
+    for label, key, kw, kernels in DP_RENDERS:
         res = [r["dp"][label] for r in ranks[:2]]
-        cfg = RenderConfig(width=size, height=size, spp=spp, engine=engine)
+        cfg = RenderConfig(**kw)
         sc = scene_from_numpy(scenes[key], dev)
         one_stats = {}
         one = render_multiscatter(sc, cam, cfg, device=dev, stats=one_stats)
@@ -745,17 +814,26 @@ def parallel_phases(dev, smi, texts, params10, main_img):
             plain = {k: v for k, v in x["launches"].items()
                      if k.endswith("_reference") and v}
             missing = [k for k in kernels if not x["launches"][k]]
-            if x["stats"]["shards"] != 2 or missing or plain:
+            # the wavefronts launch K2 (the step path) once an iteration
+            k2 = x["launches"]["bounce_step"]
+            if x["stats"]["shards"] != 2 or missing or plain or (
+                    k2 and k2 != x["stats"]["iterations"]):
                 raise AssertionError(f"dp {label} rank {r}: shards "
                                      f"{x['stats']['shards']}, never "
-                                     f"launched {missing}, plain {plain}")
-        log("24 dp render", f"{label} {size}^2 spp {spp} engine {engine} "
-            f"({res[0]['stats']['kernel']}) over 2 ranks: image == one "
+                                     f"launched {missing}, plain {plain}, "
+                                     f"K2 {k2} in "
+                                     f"{x['stats']['iterations']} "
+                                     f"iterations")
+        log("24 dp render", f"{label} {cfg.width}^2 spp {cfg.spp} engine "
+            f"{cfg.engine} ({res[0]['stats']['kernel']}) over 2 ranks: "
+            f"image == one "
             f"process's bit for bit; seconds per rank "
             f"{[round(x['seconds'], 3) for x in res]} (one process "
             f"{one_stats['seconds']:.3f}), assembly "
             f"{[round(x['stats']['assemble_seconds'], 4) for x in res]} s, "
-            f"chunk {res[0]['stats']['chunk']}, launches per rank "
+            f"chunk {res[0]['stats']['chunk']}, iterations per rank "
+            f"{[x['stats']['iterations'] for x in res]} (one process "
+            f"{one_stats['iterations']}), launches per rank "
             f"{json.dumps([{k: v for k, v in x['launches'].items() if v} for x in res])}"
             f" ({smi})")
     with tempfile.TemporaryDirectory() as tmp:
@@ -919,6 +997,183 @@ def trace_phase(dev, smi, text250):
     if not rows or not all(np.isfinite(v) for r in rows for v in r.values()
                            if isinstance(v, (int, float))):
         raise AssertionError(f"bench_series rows: {rows}\n{run.stdout}")
+
+
+def step_phase(dev, smi, text250, counters, main_img):
+    """Phase 28 (see the module docstring): the step wavefront on the
+    headline, K2 at its shapes, its profile and its big-N hand-off.
+    Returns K2's numbers for the kernels line."""
+    import numpy as np
+    import torch
+
+    from gvr_tpu_torch import testing
+    from gvr_tpu_torch.cameras import PinholeCamera
+    from gvr_tpu_torch.config import RenderConfig
+    from gvr_tpu_torch.integrators import multiscatter
+    from gvr_tpu_torch.io.ppm import quantize
+    from gvr_tpu_torch.kernels import pathtrace
+    from gvr_tpu_torch.kernels.timing import kernel_ms
+    from gvr_tpu_torch.scene.generators import random_gaussian_scene
+    from gvr_tpu_torch.scene.scene import parse_gmm
+
+    sc = parse_gmm(text250, device=dev)
+    cam = PinholeCamera.create([0, 1, 6], [0, 1, 0], math.radians(45.0),
+                               device=dev)
+    cfg = RenderConfig(width=MAIN_SIZE, height=MAIN_SIZE, spp=MAIN_SPP,
+                       wavefront="step")
+
+    def render(c, scene=sc):
+        """(image, stats, launches) of a render with every count set to 0
+        just before."""
+        for fn in counters:
+            fn.launches = 0
+        stats = {}
+        img = multiscatter.render_multiscatter(scene, cam, c, device=dev,
+                                               stats=stats)
+        return img, stats, {fn.__name__: fn.launches for fn in counters}
+
+    # K1's image of the same configuration in float: phase 6's PPM bytes
+    mega, _, _ = render(cfg.replace(wavefront="mega"))
+    same_ppm = bool(np.array_equal(
+        quantize(mega), np.rint(main_img * 255).astype(np.uint8)))
+    img, stats, launches = render(cfg)
+    it = stats["iterations"]
+    res = testing.image_agreement(img, mega, cfg.spp)
+    log("28 step wavefront", f"render_multiscatter 250 Gaussians "
+        f"{MAIN_SIZE}^2 spp {cfg.spp} wavefront='step': kernel "
+        f"{stats['kernel']}, render {stats['seconds']:.3f} s, "
+        f"{stats['paths'] / stats['seconds'] / 1e6:.3f} Mpaths/s, {it} "
+        f"iterations over {stats['chunks']} chunks, "
+        f"{stats['bounce_evals']} bounce evaluations, launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}; against "
+        f"K1's image of the same configuration (its PPM == phase 6's: "
+        f"{same_ppm}): {json.dumps(res)} (bars "
+        f"{json.dumps(testing.CHUNK_BARS)}) ({smi})")
+    plain = {k: v for k, v in launches.items()
+             if k.endswith("_reference") and v}
+    if not (stats["kernel"] == "step" and it > 0
+            and launches["bounce_step"] == it
+            and launches["wave_uniforms"] == it
+            and not launches["mega_call"] and not plain
+            and img.shape == (MAIN_SIZE, MAIN_SIZE, 3)):
+        raise AssertionError(f"the step render: kernel {stats['kernel']}, "
+                             f"{it} iterations, launches {launches}")
+    if not res["ok"] or not same_ppm:
+        raise AssertionError(f"the step image misses K1's: {res}, PPM "
+                             f"{same_ppm}")
+    again, _, _ = render(cfg)
+    log("28 step wavefront", f"rendered again: bit-equal "
+        f"{np.array_equal(again, img)}")
+    if not np.array_equal(again, img):
+        raise AssertionError("two step renders of the headline differ")
+
+    # K2 at the path's shapes: the inputs of chunk 9's first iteration and
+    # of its first with at most STEP_TAIL_LANES lanes live
+    order = multiscatter.tile_order(MAIN_SIZE, MAIN_SIZE)
+    ids = torch.from_numpy(
+        order[MEDIUM_CHUNK * RAYS:(MEDIUM_CHUNK + 1) * RAYS]).to(dev)
+    real, lanes, picked = multiscatter.bounce_step, [], {}
+
+    def record(*args):
+        lanes.append(args[1].shape[0])
+        key = "full" if not picked else "tail"
+        if key not in picked and (key == "full"
+                                  or lanes[-1] <= STEP_TAIL_LANES):
+            picked[key] = args
+        return real(*args)
+
+    multiscatter.bounce_step = record
+    try:
+        multiscatter.wavefront_pixels_step(sc, cam, cfg, ids)
+    finally:
+        multiscatter.bounce_step = real
+    out = {"err": 0.0}
+    for key, reps in (("full", 10), ("tail", 50)):
+        args = picked[key]
+        b = args[1].shape[0]
+        t, got = kernel_ms(lambda: pathtrace.bounce_step(*args),
+                           "bounce_kernel", reps)
+        p_ms, want = cuda_ms(
+            lambda: pathtrace.bounce_core_reference(*args), 3)
+        agree = testing.bounce_agreement(got, want,
+                                         testing.PATH_BOUNCE_BARS)
+        # the plain version in float64 on the same inputs: how far each
+        # float32 version is from the exact result
+        f64 = [x.float() if x.is_floating_point() else x
+               for x in pathtrace.bounce_core_reference(*(
+                   a.double() if torch.is_tensor(a) else a for a in args))]
+        vs64 = {name: testing.bounce_agreement(x, f64)
+                for name, x in (("kernel", got), ("plain", want))}
+        out["err"] = max(out["err"], agree["max_dtau"])
+        culled, sweep, ext, nee = k2_bounds(args, want[0])
+        out[key] = dict(lanes=b, t=t, plain_ms=p_ms, bound=culled,
+                        bound_sweep=sweep)
+        log("28 step wavefront", f"K2 at chunk {MEDIUM_CHUNK}'s {key} "
+            f"iteration ({b} lanes): kernel {fmt_ms(t)}, plain "
+            f"{p_ms:.3f} ms, bound {culled[0]:.5f} ms ({culled[1]}; "
+            f"{ext} crossed extension pairs, {nee} crossed shadow pairs), "
+            f"of a full sweep {sweep[0]:.5f} ms ({sweep[1]}); kernel vs "
+            f"plain {json.dumps(agree)} "
+            f"(bars {json.dumps(testing.PATH_BOUNCE_BARS)}); against the "
+            f"plain version in float64: "
+            + "; ".join(f"{k} max |dtau| {v['max_dtau']:.3e}, tau excess "
+                        f"{v['tau_excess']:.3e} on {v['tau_beyond']} rays"
+                        for k, v in vs64.items()))
+        if not agree["ok"]:
+            raise AssertionError(f"K2 at the step path's {key} iteration "
+                                 f"misses PATH_BOUNCE_BARS: {agree}")
+    lanes = np.asarray(lanes)
+    log("28 step wavefront", f"chunk {MEDIUM_CHUNK}: {len(lanes)} "
+        f"iterations, {int(lanes.sum())} lanes traced, "
+        f"{int((lanes < 4096).sum())} iterations under 4,096 lanes, "
+        f"{int((lanes < 128).sum())} under 128, lanes at iteration 0, 10, "
+        f"100 and the last: "
+        f"{[int(lanes[i]) for i in (0, 10, 100, -1) if i < len(lanes)]}")
+
+    # where the step path's time goes: one chunk of the headline's width,
+    # in a process of its own (PERF.md: late in a long process the
+    # profiler may record none of a short run's launches)
+    size, spp = STEP_PROFILE
+    here = os.path.dirname(os.path.abspath(__file__))
+    run = subprocess.run(
+        [sys.executable, "-m", "gvr_tpu_torch.profile_render",
+         "--gaussians", "250", "--size", str(size), "--spp", str(spp),
+         "--wavefront", "step", "--top", "12", "--device", dev.type],
+        cwd=here, env=dict(os.environ, PYTHONPATH=here), capture_output=True,
+        text=True, timeout=600)
+    if run.returncode:
+        raise AssertionError(f"profile_render --wavefront step: exit "
+                             f"{run.returncode}\n{run.stderr[-4000:]}")
+    prof = json.loads(run.stdout.strip().splitlines()[-1])
+    k2_ms = [float(m.group(1)) for m in re.finditer(
+        r"^\s*([\d.]+) ms dev .*bounce_kernel", run.stdout, re.M)]
+    out["profile"] = dict(
+        idle_share=1.0 - prof["busy_share_of_warm"],
+        k2_share=(k2_ms[0] / prof["device_busy_ms"] if k2_ms else None),
+        **{k: prof[k] for k in ("warm_seconds", "device_busy_ms",
+                                "iterations", "launches_per_iteration")})
+    log("28 step wavefront", f"profile_render --gaussians 250 --size {size} "
+        f"--spp {spp} --wavefront step: {json.dumps(out['profile'])}; top "
+        f"rows by device time:\n" + "\n".join(
+            run.stdout.split("--- by host time")[0].splitlines()[1:8]))
+    if prof["kernel"] != "step" or not k2_ms:
+        raise AssertionError(f"the profile did not see K2: {prof}")
+
+    # above MAX_PALLAS_GAUSSIANS 'step' takes the big-N kernels
+    big = parse_gmm(random_gaussian_scene(STEP_BIG_N, seed=0), device=dev)
+    img, stats, launches = render(RenderConfig(
+        width=STEP_BIG_SIZE, height=STEP_BIG_SIZE, spp=4, wavefront="step"),
+        big)
+    log("28 step wavefront", f"{STEP_BIG_N} Gaussians {STEP_BIG_SIZE}^2 "
+        f"spp 4 wavefront='step': kernel {stats['kernel']}, "
+        f"{stats['seconds']:.3f} s, launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    if stats["kernel"] != "big" or launches["bounce_step"] \
+            or not launches["big_stage1"] or not np.isfinite(img).all():
+        raise AssertionError(f"'step' above 256 Gaussians: {stats}, "
+                             f"{launches}")
+    out["launches"] = it
+    return out
 
 
 def main():
@@ -1098,6 +1353,7 @@ def run(dev):
         kernel_ms(lambda: pathtrace.bounce_step(*args), "bounce_kernel",
                   10)[0],
         cuda_ms(lambda: pathtrace.bounce_core_reference(*args), 3)[0])
+    k2_random = k2_bounds(args, pathtrace.bounce_core_reference(*args)[0])
     order = tile_order(MAIN_SIZE, MAIN_SIZE)
     chunk = torch.from_numpy(
         order[MEDIUM_CHUNK * RAYS:(MEDIUM_CHUNK + 1) * RAYS]).to(dev)
@@ -1183,8 +1439,10 @@ def run(dev):
         # wave_uniforms: pid, sample, bounce in, 2 + 9 planes out
         "rng": bound(RNG_OPS_PER_LANE * RAYS, (3 + 11) * 4 * RAYS),
         "rng_planes": bound(RNG_OPS_PER_KEY * RAYS, (3 + 9) * 4 * RAYS),
-        "bounce": bound(2 * RAYS * table250.shape[0] * PAIR_TEST_FLOPS,
-                        table250.numel() * 4 + RAYS * (3 + 3 + 5 + 8) * 4),
+        # K2 on phase 3's random rays: the pairs they cross, and a full
+        # sweep
+        "bounce": k2_random[0],
+        "bounce_sweep": k2_random[1],
         # each ray's box test of every group, a pre-test of each row of
         # the groups it meets, and the crossed pairs' work
         f"mega_spp{MAIN_SPP}": bound(
@@ -1214,8 +1472,10 @@ def run(dev):
         f"[9, {RAYS}]: kernel {fmt_ms(times['rng_planes'][0])}, plain "
         f"{times['rng_planes'][1]:.4f} ms, bound "
         f"{bounds['rng_planes'][0]:.5f} ms; K2 {RAYS} rays N=250: kernel "
-        f"{fmt_ms(times['bounce'][0])}, plain {times['bounce'][1]:.3f} ms "
-        f"({smi})")
+        f"{fmt_ms(times['bounce'][0])}, plain {times['bounce'][1]:.3f} ms, "
+        f"bound {bounds['bounce'][0]:.5f} ms ({k2_random[2]} crossed "
+        f"extension pairs, {k2_random[3]} crossed shadow pairs), of a full "
+        f"sweep {bounds['bounce_sweep'][0]:.5f} ms ({smi})")
 
     # ---- 6: the main path through the CLI ----
     counters = (rng.planes_uniforms, rng.planes_uniforms_reference,
@@ -1864,6 +2124,9 @@ def run(dev):
         images_i["pureraymarch"])
     parallel_phases(dev, smi, {"250": text250, "10k": text10k, "10": text10},
                     params10, main_img)
+    step = step_phase(dev, smi, text250, counters, main_img)
+    times["bounce_step"] = (step["full"]["t"], step["full"]["plain_ms"])
+    bounds["bounce_step"] = step["full"]["bound"]
 
     def entry(name, replaces, key, path_launches, launches_key, err):
         t = times[key][0]
@@ -1880,8 +2143,8 @@ def run(dev):
         entry("mega", "gvr_tpu/kernels/megatrace.py:501",
               f"mega_spp{MAIN_SPP}", launches, "mega_call",
               chunk_res[MAIN_SPP]["max_diff"]),
-        entry("bounce", "gvr_tpu/kernels/pathtrace.py:465", "bounce",
-              launches, "bounce_step", k2_err),
+        entry("bounce", "gvr_tpu/kernels/pathtrace.py:465", "bounce_step",
+              step, "launches", max(k2_err, step["err"])),
         entry("rng", "gvr_tpu/kernels/rng.py:86", "rng", launches_g,
               "wave_uniforms", 0.0),
         entry("span_tau", "gvr_tpu/kernels/gridtrace.py:217", "span_tau",
@@ -1893,12 +2156,30 @@ def run(dev):
         entry("big_nee", "gvr_tpu/kernels/pathtrace_big.py:409", "big_nee",
               launches_b, "big_nee", k5_err),
     ]
-    # K2 runs on the dense main path as a device function inside the
-    # megakernel, so its own launcher's count there is 0 by design; K3 too,
-    # and the grid main path launches it directly, once an iteration, as
-    # wave_uniforms (its count is that run's; the big-N run's in
-    # launches_big)
+    # K1 shares K2's device functions (the pair sweep, the solve, the
+    # shadow-ray depth) but not its bounce, which runs on the step path
+    # (phase 28): K2's launches, device ms, plain ms and bound are that
+    # path's, at the first iteration of the headline's chunk 9 (65,536
+    # lanes), its tail iteration's in *_tail and phase 5's 65,536 random
+    # rays' in *_random; its bound counts the pairs the rays cross, as
+    # K1's does, and bound_ms_sweep* a pair test of every row.  K3 also
+    # runs inside K1, and the grid main path launches it directly, once an
+    # iteration, as wave_uniforms (its count is that run's; the big-N
+    # run's in launches_big)
     kernels[1]["inside"] = kernels[2]["inside"] = "mega"
+    kernels[1]["path"] = "step"
+    kernels[1].update(
+        lanes_tail=step["tail"]["lanes"], ms_tail=step["tail"]["t"]["ms"],
+        plain_ms_tail=step["tail"]["plain_ms"],
+        bound_ms_tail=step["tail"]["bound"][0],
+        ms_random=times["bounce"][0]["ms"],
+        plain_ms_random=times["bounce"][1],
+        bound_ms_random=bounds["bounce"][0],
+        bound_ms_sweep=step["full"]["bound_sweep"][0],
+        bound_ms_sweep_tail=step["tail"]["bound_sweep"][0],
+        bound_ms_sweep_random=bounds["bounce_sweep"][0],
+        idle_share_step=step["profile"]["idle_share"],
+        device_share_step=step["profile"]["k2_share"])
     kernels[2]["launches_big"] = launches_b["wave_uniforms"]
     # this slice's paths draw through K3 too: the XLA engine once an
     # iteration (wave_uniforms, phase 16), single scatter twice a (chunk,

@@ -1,10 +1,11 @@
 """Runtime configuration for renders.
 
 The counterpart of ``gvr_tpu/config.py`` without its TPU layout knobs
-(``pallas``, ``wavefront``, ``block``, ``mxu_coeffs``, ``tau_bf16``,
-``pool_regen``): the CUDA megakernel and the grid wavefront are always the
-pooled ones, and the kernels fix their own block geometry.  ``FitConfig``
-is the JAX package's, field for field.
+(``pallas``, ``block``, ``mxu_coeffs``, ``tau_bf16``, ``pool_regen``): the
+CUDA megakernel and the grid wavefront are always the pooled ones, and the
+kernels fix their own block geometry.  ``wavefront`` is kept: it picks the
+dense engine's kernel path, as in the JAX package.  ``FitConfig`` is the
+JAX package's, field for field.
 """
 
 from __future__ import annotations
@@ -59,9 +60,17 @@ class RenderConfig:
     # scatter solve on each ray's candidate_k nearest-entering Gaussians;
     # the kernel engines ignore it, as the JAX package's do
     candidate_k: int = 0
+    # the dense engine's kernel path up to MAX_PALLAS_GAUSSIANS Gaussians:
+    # 'mega' runs the whole sample/bounce loop in one persistent kernel
+    # (K1); 'step' launches the fused bounce kernel (K2) once a wavefront
+    # iteration.  Above that 'step' takes the big-N kernels, as in JAX.
+    wavefront: str = "mega"
     engine: str = "auto"           # 'auto' | 'dense' | 'grid'
 
     def __post_init__(self):
+        if self.wavefront not in ("mega", "step"):
+            raise ValueError(f"wavefront must be 'mega' or 'step', "
+                             f"got {self.wavefront!r}")
         if self.engine not in ("auto", "dense", "grid"):
             raise ValueError(f"engine must be 'auto'/'dense'/'grid', "
                              f"got {self.engine!r}")

@@ -2,6 +2,11 @@
 // the bounce kernel (K2) and the megakernel (K1).  Its pair math, pre-test,
 // Newton step, finisher and albedo are device functions that the grid
 // kernels (grid.cuh, K6/K7) and the big-N kernels (big.cuh, K4/K5) share.
+// bounce_core, the whole bounce, runs only in K2 (kernels.cu
+// bounce_kernel), which the step wavefront launches once an iteration over
+// its live lanes (integrators/multiscatter.py wavefront_pixels_step, under
+// RenderConfig(wavefront='step')); K1 runs sweep_pairs, solve_bounce and
+// tau_nee in its own loop.
 //
 // Replaces gvr_tpu/kernels/pathtrace.py:272 _bounce_core (with _coeffs :149,
 // _interval :195, _tau_nee :229, _finisher_root :254) and mirrors its steps

@@ -70,6 +70,8 @@ __device__ __forceinline__ Lights make_lights(const float* rows, int n,
 
 constexpr int BOUNCE_BLOCK = 128;  // threads of a bounce-kernel block
 
+// K2: one bounce of b rays, a thread a ray, for the step wavefront's live
+// lanes (any b >= 1; the last block's spare threads return at once).
 // out [8, b]: t_sc, scattered, albedo, Li rgb, tau_tot, fin.
 __global__ void __launch_bounds__(BOUNCE_BLOCK)
     bounce_kernel(const float4* __restrict__ tab, int np,

@@ -16,7 +16,11 @@ S_CAP_MAX slices.  The dense engine runs the megakernel (one
 ``kernels/megatrace.mega_call`` launch per chunk of ``pick_chunk``
 pixels) up to MEGA_MAX_GAUSSIANS Gaussians and the big-N wavefront
 (``wavefront_pixels_big``: K4 and K5 of ``kernels/pathtrace_big`` each
-iteration) above, up to 96 chunks of 256 Gaussians.
+iteration) above, up to 96 chunks of 256 Gaussians.  With
+``cfg.wavefront='step'`` it runs the step wavefront instead
+(``wavefront_pixels_step``: the fused bounce kernel K2 of
+``kernels/pathtrace`` each iteration) up to MAX_PALLAS_GAUSSIANS, and the
+big-N wavefront above, as the JAX package does (``dense_kernel``).
 
 The kernels implement the (analytic-)Newton solver only.  The other
 solvers (BISECTION, ANALYTIC_BISECTION, UNIFORM) take the dense XLA
@@ -48,8 +52,9 @@ from gvr_tpu_torch.integrators.gridscatter import (
     grid_for, wavefront_pixels_grid_pooled)
 from gvr_tpu_torch.kernels.megatrace import (INV_4PI, camera_vector,
                                              mega_call, strat_n, strat_uv)
-from gvr_tpu_torch.kernels.pathtrace import (FOUR_PI, MEGA_MAX_GAUSSIANS,
-                                             pack_table)
+from gvr_tpu_torch.kernels.pathtrace import (FOUR_PI, MAX_PALLAS_GAUSSIANS,
+                                             MEGA_MAX_GAUSSIANS, bounce_step,
+                                             pack_table, padded_n)
 from gvr_tpu_torch.kernels.pathtrace_big import (bounce_step_big,
                                                  chunk_boxes, n_chunks_for,
                                                  pack_rows, plan)
@@ -64,11 +69,12 @@ from gvr_tpu_torch.parallel.sharding import (RAY_AXIS, Mesh, make_mesh,
                                              shard_bounds)
 from gvr_tpu_torch.scene.scene import Scene
 
-__all__ = ["GRID_CHUNK", "GRID_MIN_N", "diff_uniforms", "engine_for",
-           "mc_camera_rays", "multiscatter_radiance",
+__all__ = ["GRID_CHUNK", "GRID_MIN_N", "dense_kernel", "diff_uniforms",
+           "engine_for", "mc_camera_rays", "multiscatter_radiance",
            "multiscatter_radiance_diff", "render_multiscatter", "strat_n",
            "strat_uv", "tile_order", "wavefront_pixels",
-           "wavefront_pixels_big", "wavefront_pixels_xla"]
+           "wavefront_pixels_big", "wavefront_pixels_step",
+           "wavefront_pixels_xla"]
 
 # The JAX package's threshold: above it engine='auto' takes the grid engine.
 GRID_MIN_N = 2000
@@ -109,6 +115,18 @@ def engine_for(cfg: RenderConfig, gmm) -> str:
     return "dense"
 
 
+def dense_kernel(cfg: RenderConfig, n: int) -> str:
+    """The dense engine's kernel path for n Gaussians, as the JAX package
+    picks it (``gvr_tpu/integrators/multiscatter.py:488-503``): under
+    ``wavefront='step'`` the step wavefront ('step', K2 once an iteration)
+    while the padded table holds at most MAX_PALLAS_GAUSSIANS rows, else
+    the big-N wavefront ('big'); under 'mega' the megakernel ('mega') up
+    to MEGA_MAX_GAUSSIANS, else 'big'."""
+    if cfg.wavefront == "step":
+        return "step" if padded_n(n) <= MAX_PALLAS_GAUSSIANS else "big"
+    return "mega" if n <= MEGA_MAX_GAUSSIANS else "big"
+
+
 def tile_order(w: int, h: int, tw: int = 16, th: int = 8) -> np.ndarray:
     """Pixel ids permuted into tw x th screen tiles, so each 128-pixel
     kernel block covers one spatially coherent tile."""
@@ -128,7 +146,15 @@ def _mega_inputs(scene: Scene, camera):
 def wavefront_pixels(scene: Scene, camera, cfg: RenderConfig,
                      ids: torch.Tensor) -> torch.Tensor:
     """Mean radiance [B,3] over the spp samples of each pixel id [B]
-    (int32, on the scene's device), through the megakernel."""
+    (int32, on the scene's device) through the dense engine's kernel path
+    that ``dense_kernel`` picks: the megakernel, the step wavefront or the
+    big-N one, as the JAX package's ``wavefront_pixels`` follows
+    ``cfg.wavefront``."""
+    kernel = dense_kernel(cfg, scene.medium.n)
+    if kernel == "step":
+        return wavefront_pixels_step(scene, camera, cfg, ids)
+    if kernel == "big":
+        return wavefront_pixels_big(scene, camera, cfg, ids)
     cam, table, lights, env, pinhole = _mega_inputs(scene, camera)
     return mega_call(cam, table, ids, cfg, lights, env, pinhole)[0] / cfg.spp
 
@@ -424,6 +450,21 @@ def _wavefront(scene: Scene, camera, cfg: RenderConfig, ids: torch.Tensor,
     return acc / spp
 
 
+def _table_wavefront(scene: Scene, camera, cfg: RenderConfig,
+                     ids: torch.Tensor, stats: dict | None,
+                     bounce) -> torch.Tensor:
+    """``_wavefront`` with each bounce of the live lanes through one call
+    ``bounce(o, d, xi [B,5], lights, env)`` of a bounce kernel's launcher
+    (K2, or K4 and K5), NEE weighted by L + 1 (1 with no lights)."""
+    lights, env = scene.lights(), scene.env_color
+    w_ne = float(lights.shape[0] + 1) if lights.shape[0] else 1.0
+
+    def bounce_fn(o, d, xi):
+        return bounce(o, d, xi[:5].T, lights, env)[:4] + (w_ne,)
+
+    return _wavefront(scene, camera, cfg, ids, bounce_fn, stats)
+
+
 def wavefront_pixels_big(scene: Scene, camera, cfg: RenderConfig,
                          ids: torch.Tensor, stats: dict | None = None,
                          table: torch.Tensor | None = None,
@@ -437,14 +478,30 @@ def wavefront_pixels_big(scene: Scene, camera, cfg: RenderConfig,
         table = pack_rows(scene.medium)
     if boxes is None:
         boxes = chunk_boxes(scene.medium)
-    lights, env = scene.lights(), scene.env_color
-    w_ne = float(lights.shape[0] + 1) if lights.shape[0] else 1.0
+    return _table_wavefront(
+        scene, camera, cfg, ids, stats,
+        lambda o, d, xi, lights, env: bounce_step_big(
+            table, o, d, xi, lights, env, cfg.solver_iters, boxes))
 
-    def bounce_fn(o, d, xi):
-        return bounce_step_big(table, o, d, xi[:5].T, lights, env,
-                               cfg.solver_iters, boxes)[:4] + (w_ne,)
 
-    return _wavefront(scene, camera, cfg, ids, bounce_fn, stats)
+def wavefront_pixels_step(scene: Scene, camera, cfg: RenderConfig,
+                          ids: torch.Tensor, stats: dict | None = None,
+                          table: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean radiance [B,3] over the spp samples of each pixel id [B]
+    (int32) by the step wavefront (``_wavefront``), each bounce of the
+    live lanes through one launch of the fused bounce kernel K2
+    (``bounce_step``; its plain version on a CPU tensor): the JAX
+    package's ``_wavefront_planes_step``
+    (``gvr_tpu/integrators/multiscatter.py:338-449``), which traces every
+    lane in [R, 128] planes where this traces the live ones.  ``table`` is
+    ``pack_table`` of the scene (built here if not given)."""
+    if table is None:
+        table = pack_table(scene.medium)
+    return _table_wavefront(
+        scene, camera, cfg, ids, stats,
+        lambda o, d, xi, lights, env: bounce_step(
+            table, o, d, xi, lights, env, cfg.solver_iters,
+            cfg.solver_finisher))
 
 
 def wavefront_pixels_xla(scene: Scene, camera, cfg: RenderConfig,
@@ -481,11 +538,12 @@ def render_multiscatter(scene: Scene, camera, cfg: RenderConfig,
     returns the whole image.  Radiance is keyed by pixel id, so it is the
     one-process image.
 
-    ``stats``, if given, receives the engine, the kernel ('mega', 'big',
-    'grid', or 'xla' for the dense XLA engine), the render's seconds
-    (host clock, after the engine choice and grid build, ending with the
-    copy to the host), the seconds of the engine choice with the grid
-    build (``grid_seconds``; a cached grid costs only its content hash),
+    ``stats``, if given, receives the engine, the kernel ('mega', 'step'
+    or 'big' by ``dense_kernel``, 'grid', or 'xla' for the dense XLA
+    engine), the render's seconds (host clock, after the engine choice and
+    grid build, ending with the copy to the host), the seconds of the
+    engine choice with the grid build (``grid_seconds``; a cached grid
+    costs only its content hash),
     paths, bounce evaluations (the megakernel's count; on the wavefronts
     the live lanes or extension rays traced; summed over the ranks), the
     chunk and the chunks, wavefront iterations (this rank's), Gaussian
@@ -507,7 +565,7 @@ def render_multiscatter(scene: Scene, camera, cfg: RenderConfig,
     elif engine == "xla":
         kernel, engine = "xla", "dense"
     else:
-        kernel = "mega" if scene.medium.n <= MEGA_MAX_GAUSSIANS else "big"
+        kernel = dense_kernel(cfg, scene.medium.n)
     t0 = time.perf_counter()
     scene = scene.to(device)
     camera = camera.to(device)
@@ -524,6 +582,8 @@ def render_multiscatter(scene: Scene, camera, cfg: RenderConfig,
                            dense=kernel == "xla")
         if kernel == "mega":
             cam, table, lights, env, pinhole = _mega_inputs(scene, camera)
+        elif kernel == "step":
+            table = pack_table(scene.medium)
         else:
             table, boxes = pack_rows(scene.medium), chunk_boxes(scene.medium)
     chunk = min(chunk, ((w * h + 255) // 256) * 256)
@@ -544,6 +604,10 @@ def render_multiscatter(scene: Scene, camera, cfg: RenderConfig,
             img[ids] = sums / cfg.spp
             if stats is not None:
                 evals += counts.sum()
+        elif kernel == "step":
+            img[ids] = wavefront_pixels_step(scene, camera, cfg, ids, st,
+                                             table)
+            evals += st["bounce_evals"]
         elif kernel == "big":
             img[ids] = wavefront_pixels_big(scene, camera, cfg, ids, st,
                                             table, boxes)

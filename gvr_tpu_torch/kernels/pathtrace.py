@@ -12,10 +12,14 @@ of L lights) with one shadow-ray optical depth.
 Plain version (``bounce_core_reference``): the TPU kernel's math on
 [N, B] tensors (Gaussians x rays), step by step, with torch.erf/erfinv.
 
-Kernel (``csrc/bounce.cuh`` device function, shared with the megakernel;
-``csrc/kernels.cu:gvr_bounce`` launcher): one thread per ray.  On this card
-it is bound by arithmetic and the special-function units (erf/exp per pair
-per pass), not by memory: the table is 64 B per Gaussian and stays in the
+Kernel (``csrc/bounce.cuh`` device function, whose pair sweep, solve and
+shadow-ray depth the megakernel shares; ``csrc/kernels.cu:gvr_bounce``
+launcher): one thread per ray.  ``bounce_step`` launches it once a
+wavefront iteration on the step wavefront
+(``integrators/multiscatter.wavefront_pixels_step``, under
+``RenderConfig(wavefront='step')``).  On the H100 it is bound by
+arithmetic and the special-function units (erf/exp per pair per pass), not
+by memory: the table is 64 B per Gaussian and stays in the
 read-only cache.  Its first pass over all rows runs a division-free
 pre-test (``may_cross_reference`` is its plain version) before each pair
 test, and keeps the pairs the ray crosses in shared memory (the first

@@ -38,11 +38,12 @@ from gvr_tpu_torch.parallel.sharding import (make_mesh, shard_last_arg,
 from gvr_tpu_torch.scene.convert import params_from_numpy, scene_from_numpy
 
 # the data-parallel renders of the CPU suite: name -> (scene, config);
-# 'mega' is the production path (K1's plain version on the CPU), 'xla'
-# the dense XLA engine, 'grid' the grid wavefront, 'awkward' a ray_chunk
-# that no shard count divides
+# 'mega' is the production path (K1's plain version on the CPU), 'step'
+# the step wavefront (K2's), 'xla' the dense XLA engine, 'grid' the grid
+# wavefront, 'awkward' a ray_chunk that no shard count divides
 DP_RENDERS = {
     "mega": ("scene1", dict(width=16, height=16, spp=2)),
+    "step": ("scene1", dict(width=16, height=16, spp=2, wavefront="step")),
     "awkward": ("scene1", dict(width=16, height=16, spp=2, ray_chunk=300)),
     "xla": ("scene1", dict(width=16, height=16, spp=2,
                            solver=Solver.BISECTION)),
@@ -211,10 +212,11 @@ def cpu_suite(dev, inp: dict) -> dict:
 
 def counted_kernels():
     """The kernel wrappers and plain versions that count their calls."""
-    from gvr_tpu_torch.kernels import (gridtrace, megatrace, pathtrace_big,
-                                       rng)
+    from gvr_tpu_torch.kernels import (gridtrace, megatrace, pathtrace,
+                                       pathtrace_big, rng)
     return (rng.planes_uniforms, rng.planes_uniforms_reference,
             rng.wave_uniforms, rng.wave_uniforms_reference,
+            pathtrace.bounce_step, pathtrace.bounce_core_reference,
             megatrace.mega_call, megatrace.mega_reference,
             gridtrace.span_tau_pass, gridtrace.span_tau_reference,
             gridtrace.solve_pass, gridtrace.solve_reference,
@@ -225,9 +227,9 @@ def counted_kernels():
 def card_suite(dev, inp: dict) -> dict:
     """chip_smoke's phases 24-26 on one rank of a 4-rank job on the card.
 
-    'dp': each of ``inp['dp']`` (label, scene arrays, size, spp, engine)
-    rendered by ``render_multiscatter`` over ranks 0-1, with its seconds
-    (device synchronised), stats, and this rank's kernel launches, every
+    'dp': each of ``inp['dp']`` (label, scene arrays, RenderConfig
+    fields) rendered by ``render_multiscatter`` over ranks 0-1, with its
+    seconds (device synchronised), stats, and this rank's kernel launches, every
     count set to 0 just before; rank 0 also returns the images.  'tp':
     ``render_multiscatter_tp`` of ``inp['tp_scene']`` at ``inp['tp_cfg']``
     over a (1 x 2) mesh, with its seconds and all-reduces, then
@@ -243,11 +245,11 @@ def card_suite(dev, inp: dict) -> dict:
     counters = counted_kernels()
     out = {"dp": {}, "tp": {}, "fit": {}}
     pair = make_mesh(range(2))
-    for label, arrays, size, spp, engine in inp["dp"]:
+    for label, arrays, kw in inp["dp"]:
         if rank >= 2:
             continue
         sc = scene_from_numpy(arrays, dev)
-        cfg = RenderConfig(width=size, height=size, spp=spp, engine=engine)
+        cfg = RenderConfig(**kw)
         render_multiscatter(sc, camera(dev), cfg.replace(width=64, height=64,
                                                          spp=1),
                             device=dev, mesh=pair)      # warm: grid, build

@@ -2,18 +2,19 @@
 generated scene; with ``--fit``, over one warm iteration of the fit.
 
     python -m gvr_tpu_torch.profile_render [--gaussians 10000] [--size 512]
-        [--spp 16] [--engine auto|dense|grid] [--solver analytic_newton]
-        [--integrator multiscatter]
+        [--spp 16] [--engine auto|dense|grid] [--wavefront mega|step]
+        [--solver analytic_newton] [--integrator multiscatter]
     python -m gvr_tpu_torch.profile_render --fit [--gaussians 250]
         [--size 128]
 
 Renders ``random_gaussian_scene(gaussians, seed=0)`` with the default
 camera and the given engine (auto: the grid above 2,000 Gaussians; dense
-above 2,048: the big-N kernels K4/K5), solver (bisection,
-analytic_bisection and uniform take the dense XLA engine) and integrator
-(the CLI's, with its default step and environment samples) twice
-unprofiled, the second giving
-the warm render seconds, then once under torch.profiler, and prints: the
+above 2,048: the big-N kernels K4/K5), dense kernel path (``--wavefront
+step``: the step wavefront, K2 once an iteration, up to 256 Gaussians),
+solver (bisection, analytic_bisection and uniform take the dense XLA
+engine) and integrator (the CLI's, with its default step and environment
+samples) twice unprofiled, the second giving the warm render seconds,
+then once under torch.profiler, and prints: the
 warm and profiled render seconds, the device time of all kernels and
 copies and its share of the warm render (the device's busy share; the
 rest is idle, bound by the host), kernel launches in all and per
@@ -63,7 +64,8 @@ def _summary(prof, top: int) -> dict:
 def profile_render(gaussians: int = 10_000, size: int = 512, spp: int = 16,
                    top: int = 25, device: str = "cuda",
                    engine: str = "auto", solver: str = "analytic_newton",
-                   integrator: str = "multiscatter") -> dict:
+                   integrator: str = "multiscatter",
+                   wavefront: str = "mega") -> dict:
     """Profile one render after two unprofiled ones; returns the summary
     that ``main`` prints (times in ms unless named seconds)."""
     import torch
@@ -80,7 +82,7 @@ def profile_render(gaussians: int = 10_000, size: int = 512, spp: int = 16,
     cam = PinholeCamera.create([0, 1, 6], [0, 1, 0], math.radians(45.0),
                                device=device)
     cfg = RenderConfig(width=size, height=size, spp=spp, engine=engine,
-                       solver=Solver(solver))
+                       solver=Solver(solver), wavefront=wavefront)
     render = renderer(integrator)
     stats = {}
     for _ in range(2):
@@ -184,6 +186,7 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--engine", default="auto",
                     choices=["auto", "dense", "grid"])
+    ap.add_argument("--wavefront", default="mega", choices=["mega", "step"])
     ap.add_argument("--solver", default="analytic_newton",
                     choices=[s.value for s in Solver])
     ap.add_argument("--integrator", default="multiscatter",

@@ -19,31 +19,50 @@ from gvr_tpu_torch.kernels import pathtrace_big
 # boundary may legitimately land on the other side on a few rays).
 BOUNCE_BARS = dict(agree=0.995, tau_rtol=1e-3, tau_atol=1e-4, t=1e-3,
                    albedo=1e-3, li=2e-2)
+# BOUNCE_BARS on the step wavefront's own rays (chip_smoke phase 28):
+# camera rays from 5-6 units away cross some Gaussians at the edge of the
+# R_CUT clip, where the interval's width sqrt((R_CUT^2 - m2) / a) grows a
+# relative rounding of m2 by m2 / (2 (R_CUT^2 - m2)), a thousandfold at
+# R_CUT^2 - m2 = 4.5e-3, into the pair's tau.  Two float32 versions part
+# there: the plain version in float32 against itself in float64 leaves
+# rays with such a grazing pair beyond the tau bar
+# (tests/test_torch_step.py).  So tau may miss its bar on at most
+# tau_misses rays of a launch, and by no more than tau_cap in |dtau| on
+# any ray; every other bar holds as it is.  On the headline's 65,536
+# camera rays of chunk 9 on the H100, K2 against the plain version missed
+# on 4 rays by |dtau| 5.25e-3 at most, and the plain version in float32
+# against float64 on 6 by 9.28e-3 at most: the limits are 4x the first
+# count and 2x the larger spread.
+PATH_BOUNCE_BARS = dict(BOUNCE_BARS, tau_misses=16, tau_cap=2e-2)
 
 
-def bounce_agreement(outs, refs) -> dict:
+def bounce_agreement(outs, refs, bars=BOUNCE_BARS) -> dict:
     """Measured agreement of two (t_sc, scattered, albedo, li, tau_tot)
-    results (numpy arrays or tensors) and whether it meets BOUNCE_BARS."""
+    results (numpy arrays or tensors) and whether it meets ``bars``
+    (BOUNCE_BARS, or PATH_BOUNCE_BARS)."""
     host = lambda x: (x.cpu().numpy() if isinstance(x, torch.Tensor)
                       else np.asarray(x))
     t_p, sc_p, alb_p, li_p, tau_p = (host(x) for x in outs[:5])
     t_x, sc_x, alb_x, li_x, tau_x = (host(x) for x in refs[:5])
     both = sc_p & sc_x
-    dtau = np.abs(tau_p - tau_x)
+    excess = (np.abs(tau_p - tau_x) - bars["tau_atol"]
+              - bars["tau_rtol"] * np.abs(tau_x))
     res = dict(
         agree=float((sc_p == sc_x).mean()),
-        max_dtau=float(dtau.max()),
-        tau_excess=float((dtau - BOUNCE_BARS["tau_atol"]
-                          - BOUNCE_BARS["tau_rtol"] * np.abs(tau_x)).max()),
+        max_dtau=float(np.abs(tau_p - tau_x).max()),
+        tau_excess=float(excess.max()),
+        tau_beyond=int((excess > 0.0).sum()),
         n_both=int(both.sum()),
         t=float(np.median(np.abs(t_p - t_x)[both])) if both.any() else 0.0,
         albedo=float(np.median(np.abs(alb_p - alb_x)[both]))
         if both.any() else 0.0,
         li=float(np.median(np.abs(li_p - li_x)[both])) if both.any() else 0.0)
-    res["ok"] = bool(res["agree"] > BOUNCE_BARS["agree"]
-                     and res["tau_excess"] <= 0.0 and res["n_both"] > 10
-                     and all(res[k] < BOUNCE_BARS[k]
-                             for k in ("t", "albedo", "li")))
+    tau_ok = (res["tau_beyond"] <= bars["tau_misses"]
+              and res["max_dtau"] <= bars["tau_cap"]
+              if "tau_misses" in bars else res["tau_excess"] <= 0.0)
+    res["ok"] = bool(res["agree"] > bars["agree"] and tau_ok
+                     and res["n_both"] > 10
+                     and all(res[k] < bars[k] for k in ("t", "albedo", "li")))
     return res
 
 

@@ -42,10 +42,11 @@ from gvr_tpu_torch.scene.generators import (random_gaussian_scene,
                                             random_sphere_scene)
 from gvr_tpu_torch.scene.scene import parse_gmm, parse_smm
 from gvr_tpu_torch.scene.voxels import VoxelGrid
-from gvr_tpu_torch.testing import (BIG_DENSE_BARS, bake_agreement,
+from gvr_tpu_torch.testing import (BIG_DENSE_BARS, BOUNCE_BARS,
+                                   bake_agreement,
                                    big_kernel_vs_plain, big_rays,
                                    card_cpu_agreement, chunk_agreement,
-                                   gif_structure,
+                                   gif_structure, image_agreement,
                                    fit_agreement, mega_agreement,
                                    solve_agreement, solve_fd_agreement,
                                    span_tau_agreement)
@@ -120,6 +121,44 @@ def test_bounce_kernel_matches_plain(cuda_device, finisher, n_lights):
     want = tpt.bounce_core_reference(*args)
     torch.cuda.synchronize()
     check_bounce(got, want)
+
+
+@pytest.mark.parametrize("lanes", [1, 127, 129])
+def test_bounce_kernel_ragged_lanes(cuda_device, lanes):
+    """K2 at the step wavefront's tail widths, live-lane counts that are no
+    multiple of its 128-thread block: rays from the 250-Gaussian scene's
+    means (each starts inside a Gaussian, as a scattered path does), each
+    ray's outputs equal bit for bit to the same ray's in a launch of all
+    250 (a thread depends on no other ray), and BOUNCE_BARS against the
+    plain version.  One ray cannot meet the bars' floor of more than 10
+    rays that scatter in both, so it is held per ray at their
+    tolerances."""
+    sc = parse_gmm(random_gaussian_scene(250, seed=0), device=cuda_device)
+    n = sc.medium.n
+    _, d, xi = (torch.from_numpy(a).to(cuda_device)
+                for a in random_rays(n, seed=3))
+    o = sc.medium.mean.contiguous()
+    table = tpt.pack_table(sc.medium)
+    rest = (sc.lights(), sc.env_color, 12, False)
+    full = tpt.bounce_step(table, o, d, xi, *rest)
+    args = (table, o[:lanes].contiguous(), d[:lanes].contiguous(),
+            xi[:lanes].contiguous()) + rest
+    got = tpt.bounce_step(*args)
+    want = tpt.bounce_core_reference(*args)
+    torch.cuda.synchronize()
+    for x, y in zip(got, full):
+        assert torch.equal(x, y[:lanes])
+    if lanes > 1:
+        check_bounce(got, want)
+        return
+    t, scat, alb, li, tau = (x.cpu().numpy() for x in got[:5])
+    t_r, scat_r, alb_r, li_r, tau_r = (x.cpu().numpy() for x in want[:5])
+    assert scat.all() and scat_r.all()
+    assert np.all(np.abs(tau - tau_r) <= BOUNCE_BARS["tau_atol"]
+                  + BOUNCE_BARS["tau_rtol"] * np.abs(tau_r))
+    assert np.all(np.abs(t - t_r) < BOUNCE_BARS["t"])
+    assert np.all(np.abs(alb - alb_r) < BOUNCE_BARS["albedo"])
+    assert np.all(np.abs(li - li_r) < BOUNCE_BARS["li"])
 
 
 def _hold_mega(sc, cam, cfg, ids):
@@ -294,6 +333,45 @@ def test_render_reproducible(cuda_device):
                             device=cuda_device)
     np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(a, c)
+
+
+def _step_render(device, cfg):
+    stats = {}
+    img = render_multiscatter(parse_gmm(SCENE24), _cameras("cpu")[0],
+                              cfg.replace(wavefront="step"), device=device,
+                              stats=stats)
+    assert stats["kernel"] == "step" and np.isfinite(img).all()
+    return img, stats
+
+
+def test_step_render_on_card_matches_cpu(cuda_device):
+    """The step wavefront (K3 and K2 once an iteration) at 32^2 spp 4 on
+    the card against the same render on the CPU (K2's plain version), by
+    image_agreement (CHUNK_BARS: a path whose scatter or RR test sits
+    within rounding of its threshold may flip); no plain version and no
+    megakernel on the card."""
+    cfg = RenderConfig(width=32, height=32, spp=4)
+    want, _ = _step_render("cpu", cfg)
+    counters = (tpt.bounce_step, tpt.bounce_core_reference,
+                trng.wave_uniforms, trng.wave_uniforms_reference,
+                tmt.mega_call, tmt.mega_reference)
+    for fn in counters:
+        fn.launches = 0
+    got, stats = _step_render(cuda_device, cfg)
+    res = image_agreement(got, want, cfg.spp)
+    assert res["ok"], res
+    it = stats["iterations"]
+    assert it > 0
+    assert [fn.launches for fn in counters] == [it, 0, it, 0, 0, 0]
+
+
+def test_step_render_reproducible(cuda_device):
+    """Two step renders of one scene and seed on the card, the same bits
+    (no atomics on this path)."""
+    cfg = RenderConfig(width=32, height=32, spp=8)
+    a, _ = _step_render(cuda_device, cfg)
+    b, _ = _step_render(cuda_device, cfg)
+    np.testing.assert_array_equal(a, b)
 
 
 def test_parse_40k_scene_on_the_card(cuda_device):

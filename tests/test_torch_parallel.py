@@ -87,8 +87,9 @@ TEXTS = {"scene1": SCENE,
 JCAM = JPinhole.create([0, 1, 6], [0, 1, 0], 0.25 * math.pi)
 RANKS = 8
 # a DP render's JAX reference: the same image ('awkward' is 'mega' with
-# another chunk)
-JAX_DP = {"awkward": "mega"}
+# another chunk; 'step' is 'mega' through the step wavefront, and JAX on
+# the CPU renders both through its XLA branch)
+JAX_DP = {"awkward": "mega", "step": "mega"}
 # the CLI in the job: 8x8 renders; a 2-iteration fit of 64-pixel batches
 CLI_RENDER = ["--width", "8", "--height", "8", "--spp", "2"]
 CLI_FIT = ["--iters", "2", "--batch-pixels", "64", "--bounces", "2",
