@@ -211,7 +211,8 @@ raises, so the exit code is non-zero.
              fits; seconds an iteration
  27 trace    `cli render --trace DIR --stats` of the headline at 256^2
              spp 4: the trace names mega_kernel, the report holds the chunk
-             and render_multiscatter spans; `python -m
+             and render_multiscatter spans and the trace the render's
+             spans (render.prepare, chunk); `python -m
              gvr_tpu_torch.bench_series --size 256 --spp 4`: its rows
              finite, with the engine and grid columns
  28 step wavefront  render_multiscatter of the headline with
@@ -975,13 +976,17 @@ def trace_phase(dev, smi, text250):
         path = os.path.join(tmp, "trace", TRACE_FILE)
         size = os.path.getsize(path) if os.path.exists(path) else 0
         with open(path) as f:
-            named = "mega_kernel" in f.read()
+            text = f.read()
+        named = "mega_kernel" in text
+        traced = [n for n in ("render.prepare", "chunk", "render.readback")
+                  if f'"name": "{n}"' in text]
     spans = [x.split(":")[0][len("[gvr] "):] for x in run.stdout.splitlines()
              if x.startswith("[gvr] ")]
     log("27 trace", f"cli render --trace --stats 250 Gaussians "
         f"{TRACE_SIZE}^2 spp {TRACE_SPP}: trace {size} bytes, names "
-        f"mega_kernel: {named}, report spans {spans}")
-    if not named or "chunk" not in spans or "render_multiscatter" not in spans:
+        f"mega_kernel: {named}, spans {traced}, report spans {spans}")
+    if not named or len(traced) < 3 or "chunk" not in spans \
+            or "render_multiscatter" not in spans:
         raise AssertionError("the trace or the report is incomplete")
     t0 = time.perf_counter()
     run = subprocess.run(
@@ -1148,7 +1153,7 @@ def step_phase(dev, smi, text250, counters, main_img):
     k2_ms = [float(m.group(1)) for m in re.finditer(
         r"^\s*([\d.]+) ms dev .*bounce_kernel", run.stdout, re.M)]
     out["profile"] = dict(
-        idle_share=1.0 - prof["busy_share_of_warm"],
+        idle_share=1.0 - prof["busy_share"],
         k2_share=(k2_ms[0] / prof["device_busy_ms"] if k2_ms else None),
         **{k: prof[k] for k in ("warm_seconds", "device_busy_ms",
                                 "iterations", "launches_per_iteration")})

@@ -35,6 +35,7 @@ from gvr_tpu_torch.kernels.pathtrace import FOUR_PI
 from gvr_tpu_torch.kernels.rng import BOUNCE_DRAWS, wave_uniforms
 from gvr_tpu_torch.ops.sampling import dir_from_xi
 from gvr_tpu_torch.scene.scene import Scene
+from gvr_tpu_torch.utils.profiling import count, span
 
 NO_SCATTER = -1.0        # t_sc of a ray that escapes (gvr_tpu ops/solvers)
 
@@ -136,7 +137,11 @@ def wavefront_pixels_grid_pooled(scene: Scene, grid: GridIndex, camera,
     slot, one add per slot per ``index_add_`` (dead lanes add into the
     dummy row pool_n), and a pixel sums its slots in sample order, so the
     result does not depend on the chunk.  ``stats``, if given, receives
-    'iterations' and 'ext_rays' (extension rays traced)."""
+    'iterations' and 'ext_rays' (extension rays traced).  Under
+    ``utils.profiling``'s recorder each iteration is a
+    ``wavefront.iteration`` span, its closing read a
+    ``wavefront.live_read``, and the chunk counts ``lanes_traced`` (the
+    extension rays) and ``lane_slots`` (lanes x iterations)."""
     dev = ids.device
     b = ids.shape[0]
     w, h, spp = cfg.width, cfg.height, cfg.spp
@@ -161,75 +166,86 @@ def wavefront_pixels_grid_pooled(scene: Scene, grid: GridIndex, camera,
     p_g = torch.full((b,), pool_n, dtype=torch.int64, device=dev)
     ext_rays = torch.zeros((), dtype=torch.int64, device=dev)
     planes = torch.empty((2 + BOUNCE_DRAWS, b), **f32)   # K3's, reused
-    next_g, it = 0, 0
-    while it < cap:
-        # the one host read of the iteration: live lanes, pending NEE
+    next_g, it, lanes = 0, 0, 0
+    # the one host read an iteration, at its end (the first before the
+    # loop): live lanes, pending NEE
+    with span("wavefront.live_read"):
         n_alive, pending = torch.stack(
             [alive.sum(), (p_val > 0.0).any().long()]).tolist()
-        if not (n_alive or next_g < pool_n or pending):
-            break
-        # pooled regeneration: dead lanes claim consecutive slots
-        dead = ~alive
-        di = dead.long()
-        g_new = next_g + torch.cumsum(di, 0) - di
-        regen = dead & (g_new < pool_n)
-        g = torch.where(regen, g_new, g)
-        px = torch.where(regen, ids[torch.clamp(g_new // spp, 0, b - 1)],
-                         px)
-        smp = torch.where(regen, (g_new % spp).to(torch.int32), smp)
-        next_g = min(next_g + b - n_alive, pool_n)
+    while n_alive or next_g < pool_n or pending:
+        with span("wavefront.iteration"):
+            # pooled regeneration: dead lanes claim consecutive slots
+            dead = ~alive
+            di = dead.long()
+            g_new = next_g + torch.cumsum(di, 0) - di
+            regen = dead & (g_new < pool_n)
+            g = torch.where(regen, g_new, g)
+            px = torch.where(regen, ids[torch.clamp(g_new // spp, 0, b - 1)],
+                             px)
+            smp = torch.where(regen, (g_new % spp).to(torch.int32), smp)
+            claimed = min(next_g + b - n_alive, pool_n) - next_g
+            next_g += claimed
+            lanes += n_alive + claimed
 
-        bounce = torch.where(regen, 0, bounce)
-        # one K3 launch: the jitter pair (used where regen), then xi [9, B]
-        jit, xi = wave_uniforms(px, smp, bounce, cfg.seed,
-                                out=planes).split([2, BOUNCE_DRAWS])
-        u, v = strat_uv(px % w, px // w, smp, n_strat, w, h, jit[0], jit[1])
-        o_n, d_n = camera.sample_ray(torch.stack([u, v], dim=-1))
-        o = torch.where(regen[:, None], o_n, o)
-        d = torch.where(regen[:, None], d_n, d)
-        thr = torch.where(regen[:, None], 1.0, thr)
-        alive = alive | regen
-        ext_rays += alive.sum()
+            bounce = torch.where(regen, 0, bounce)
+            # one K3 launch: the jitter pair (used where regen), then xi [9, B]
+            jit, xi = wave_uniforms(px, smp, bounce, cfg.seed,
+                                    out=planes).split([2, BOUNCE_DRAWS])
+            u, v = strat_uv(px % w, px // w, smp, n_strat, w, h, jit[0],
+                            jit[1])
+            o_n, d_n = camera.sample_ray(torch.stack([u, v], dim=-1))
+            o = torch.where(regen[:, None], o_n, o)
+            d = torch.where(regen[:, None], d_n, d)
+            thr = torch.where(regen[:, None], 1.0, thr)
+            alive = alive | regen
+            ext_rays += alive.sum()
 
-        # one DDA and K6 pass over [extension rays ; pending NEE rays]
-        tau2, cells2, tin2, tout2 = grid_tau_crossings(
-            grid, torch.cat([o, p_pos]), torch.cat([d, p_wi]),
-            torch.cat([torch.where(alive, 1e8, 0.0), p_tmax]))
-        tr = torch.exp(-tau2[b:].sum(dim=-1))
-        slots.index_add_(0, p_g, tr[:, None] * p_val)
+            # one DDA and K6 pass over [extension rays ; pending NEE rays]
+            tau2, cells2, tin2, tout2 = grid_tau_crossings(
+                grid, torch.cat([o, p_pos]), torch.cat([d, p_wi]),
+                torch.cat([torch.where(alive, 1e8, 0.0), p_tmax]))
+            tr = torch.exp(-tau2[b:].sum(dim=-1))
+            slots.index_add_(0, p_g, tr[:, None] * p_val)
 
-        t_sc, scattered, albedo, _ = grid_solve_from_crossings(
-            grid, o, d, tau2[:b], cells2[:b], tin2[:b], tout2[:b], xi[0],
-            cfg.grid_solver_iters)
-        escaped = alive & ~scattered
-        slots.index_add_(0, torch.where(escaped, g, pool_n),
-                         thr * scene.env_color)
-        alive_n = alive & scattered
+            t_sc, scattered, albedo, _ = grid_solve_from_crossings(
+                grid, o, d, tau2[:b], cells2[:b], tin2[:b], tout2[:b], xi[0],
+                cfg.grid_solver_iters)
+            escaped = alive & ~scattered
+            slots.index_add_(0, torch.where(escaped, g, pool_n),
+                             thr * scene.env_color)
+            alive_n = alive & scattered
 
-        pos = o + torch.clamp(t_sc, min=0.0)[:, None] * d
-        wi, tmax_n, base, w_ne = _nee_select(scene, pos, xi[1], xi[2],
-                                             xi[3:5].T)
-        weight = thr * (albedo * (INV_4PI * w_ne))[:, None] * base
-        p_val = torch.where(alive_n[:, None], weight, 0.0)
-        p_tmax = torch.where(alive_n, tmax_n, 0.0)
-        p_g = torch.where(alive_n, g, pool_n)
-        p_pos, p_wi = pos, wi
+            pos = o + torch.clamp(t_sc, min=0.0)[:, None] * d
+            wi, tmax_n, base, w_ne = _nee_select(scene, pos, xi[1], xi[2],
+                                                 xi[3:5].T)
+            weight = thr * (albedo * (INV_4PI * w_ne))[:, None] * base
+            p_val = torch.where(alive_n[:, None], weight, 0.0)
+            p_tmax = torch.where(alive_n, tmax_n, 0.0)
+            p_g = torch.where(alive_n, g, pool_n)
+            p_pos, p_wi = pos, wi
 
-        thr_n = thr * albedo[:, None]
-        do_rr = bounce >= cfg.min_scatter
-        rr_cap = torch.where(bounce >= cfg.rr_tail_after, cfg.rr_cap_tail,
-                             cfg.rr_cap).to(torch.float32)
-        rr = torch.minimum(thr_n.amax(dim=-1), rr_cap)
-        killed = do_rr & (xi[5] > rr)
-        thr_n = torch.where((do_rr & ~killed)[:, None],
-                            thr_n / torch.clamp(rr, min=1e-12)[:, None],
-                            thr_n)
-        alive = alive_n & ~killed & (bounce + 1 < cfg.max_bounces)
-        o = torch.where(alive[:, None], pos, o)
-        d = torch.where(alive[:, None], dir_from_xi(xi[6:8].T), d)
-        thr = torch.where(alive[:, None], thr_n, thr)
-        bounce = bounce + 1
-        it += 1
+            thr_n = thr * albedo[:, None]
+            do_rr = bounce >= cfg.min_scatter
+            rr_cap = torch.where(bounce >= cfg.rr_tail_after, cfg.rr_cap_tail,
+                                 cfg.rr_cap).to(torch.float32)
+            rr = torch.minimum(thr_n.amax(dim=-1), rr_cap)
+            killed = do_rr & (xi[5] > rr)
+            thr_n = torch.where((do_rr & ~killed)[:, None],
+                                thr_n / torch.clamp(rr, min=1e-12)[:, None],
+                                thr_n)
+            alive = alive_n & ~killed & (bounce + 1 < cfg.max_bounces)
+            o = torch.where(alive[:, None], pos, o)
+            d = torch.where(alive[:, None], dir_from_xi(xi[6:8].T), d)
+            thr = torch.where(alive[:, None], thr_n, thr)
+            bounce = bounce + 1
+            it += 1
+            if it == cap:
+                break
+            with span("wavefront.live_read"):
+                n_alive, pending = torch.stack(
+                    [alive.sum(), (p_val > 0.0).any().long()]).tolist()
+    count("lanes_traced", lanes)
+    count("lane_slots", b * it)
     if stats is not None:
         stats.update(iterations=it, ext_rays=int(ext_rays))
     return slots[:pool_n].reshape(b, spp, 3).sum(dim=1) / spp
@@ -242,14 +258,19 @@ def grid_for(gmm) -> GridIndex:
     """The scene's grid, built once per mixture content and kept for the
     next call (one entry: tables can be large).  The key is a digest of
     the arrays that determine the grid, so an edit that keeps their sums
-    (swapping two coordinates) still rebuilds."""
-    hsh = hashlib.blake2b(digest_size=16)
-    for t in (gmm.mean, gmm.density, gmm.albedo, gmm.eigvals, gmm.eigvecs):
-        hsh.update(np.ascontiguousarray(t.detach().cpu().numpy()).tobytes())
-    key = (gmm.n, str(gmm.mean.device), hsh.hexdigest())
-    grid = _GRID_CACHE.get(key)
-    if grid is None:
-        grid = build_grid(gmm)
-        _GRID_CACHE.clear()
-        _GRID_CACHE[key] = grid
-    return grid
+    (swapping two coordinates) still rebuilds.  Its span ``grid_for``
+    (``utils.profiling``) says whether it ``built``."""
+    with span("grid_for") as sp:
+        hsh = hashlib.blake2b(digest_size=16)
+        for t in (gmm.mean, gmm.density, gmm.albedo, gmm.eigvals,
+                  gmm.eigvecs):
+            hsh.update(np.ascontiguousarray(t.detach().cpu().numpy())
+                       .tobytes())
+        key = (gmm.n, str(gmm.mean.device), hsh.hexdigest())
+        grid = _GRID_CACHE.get(key)
+        sp.set(built=grid is None)
+        if grid is None:
+            grid = build_grid(gmm)
+            _GRID_CACHE.clear()
+            _GRID_CACHE[key] = grid
+        return grid

@@ -68,6 +68,7 @@ from gvr_tpu_torch.ops.transmittance import (albedo_at_from_rg,
 from gvr_tpu_torch.parallel.sharding import (RAY_AXIS, Mesh, make_mesh,
                                              shard_bounds)
 from gvr_tpu_torch.scene.scene import Scene
+from gvr_tpu_torch.utils import profiling
 
 __all__ = ["GRID_CHUNK", "GRID_MIN_N", "dense_kernel", "diff_uniforms",
            "engine_for", "mc_camera_rays", "multiscatter_radiance",
@@ -384,7 +385,11 @@ def _wavefront(scene: Scene, camera, cfg: RenderConfig, ids: torch.Tensor,
     lanes gives the same results, as a lane's bounce does not depend on
     the others, and took less time on the card in the big-N engine
     (PERF.md, the A/B of compacted and every lane).  ``stats``, if given,
-    receives 'iterations' and 'bounce_evals' (live lanes traced)."""
+    receives 'iterations' and 'bounce_evals' (live lanes traced).  Under
+    ``utils.profiling``'s recorder each iteration is a
+    ``wavefront.iteration`` span, its closing read a
+    ``wavefront.live_read``, and the chunk counts ``lanes_traced`` (the
+    live lanes traced) and ``lane_slots`` (lanes x iterations)."""
     dev = ids.device
     b = ids.shape[0]
     w, h, spp = cfg.width, cfg.height, cfg.spp
@@ -401,50 +406,57 @@ def _wavefront(scene: Scene, camera, cfg: RenderConfig, ids: torch.Tensor,
     planes = torch.empty((2 + BOUNCE_DRAWS, b), **f32)   # K3's, reused
     evals = 0
     it, cap = 0, spp * cfg.max_bounces + cfg.max_bounces
-    while it < cap:
-        # the one host read of the iteration: the lanes with a path to
-        # trace, which are the live lanes after regeneration
+    # the one host read an iteration, at its end (the first before the
+    # loop): the lanes with a path to trace, which are the next
+    # iteration's live lanes after regeneration
+    with profiling.span("wavefront.live_read"):
         live = torch.nonzero(alive | (sample < spp)).squeeze(1)
-        if live.numel() == 0:
-            break
-        regen = ~alive & (sample < spp)
-        bounce = torch.where(regen, 0, bounce)
-        sample = torch.where(regen, sample + 1, sample)
-        # one K3 launch keyed by each lane's current sample (the new one
-        # where regen): the jitter pair, used where regen, then xi [9, B]
-        s_cur = torch.clamp(sample, min=1) - 1
-        jit, xi = wave_uniforms(ids, s_cur, bounce, cfg.seed,
-                                out=planes).split([2, BOUNCE_DRAWS])
-        u, v = strat_uv(ids % w, ids // w, s_cur, n_strat, w, h, jit[0],
-                        jit[1])
-        o_n, d_n = camera.sample_ray(torch.stack([u, v], dim=-1))
-        o = torch.where(regen[:, None], o_n, o)
-        d = torch.where(regen[:, None], d_n, d)
-        thr = torch.where(regen[:, None], 1.0, thr)
-        alive = alive | regen
-        evals += live.numel()
+    while live.numel():
+        with profiling.span("wavefront.iteration"):
+            regen = ~alive & (sample < spp)
+            bounce = torch.where(regen, 0, bounce)
+            sample = torch.where(regen, sample + 1, sample)
+            # one K3 launch keyed by each lane's current sample (the new one
+            # where regen): the jitter pair, used where regen, then xi [9, B]
+            s_cur = torch.clamp(sample, min=1) - 1
+            jit, xi = wave_uniforms(ids, s_cur, bounce, cfg.seed,
+                                    out=planes).split([2, BOUNCE_DRAWS])
+            u, v = strat_uv(ids % w, ids // w, s_cur, n_strat, w, h, jit[0],
+                            jit[1])
+            o_n, d_n = camera.sample_ray(torch.stack([u, v], dim=-1))
+            o = torch.where(regen[:, None], o_n, o)
+            d = torch.where(regen[:, None], d_n, d)
+            thr = torch.where(regen[:, None], 1.0, thr)
+            alive = alive | regen
+            evals += live.numel()
 
-        # the live lanes only, in lane order; the others' results are
-        # masked below, as in JAX, where every lane is traced
-        res = bounce_fn(o[live], d[live], xi[:, live])
-        w_ne = res[4]
-        t_sc, scattered, albedo, li = (
-            torch.zeros((b,) + r.shape[1:], dtype=r.dtype, device=dev)
-            .index_copy_(0, live, r) for r in res[:4])
-        acc = acc + torch.where((alive & ~scattered)[:, None], thr * env,
-                                0.0)
-        alive_n = alive & scattered
-        pos = o + t_sc[:, None] * d
-        acc = acc + torch.where(
-            alive_n[:, None], thr * (albedo * INV_4PI * w_ne)[:, None] * li,
-            0.0)
-        thr_n, killed = _roulette(cfg, thr, albedo, bounce, xi[5])
-        alive = alive_n & ~killed & (bounce + 1 < cfg.max_bounces)
-        o = torch.where(alive[:, None], pos, o)
-        d = torch.where(alive[:, None], dir_from_xi(xi[6:8].T), d)
-        thr = torch.where(alive[:, None], thr_n, thr)
-        bounce = bounce + 1
-        it += 1
+            # the live lanes only, in lane order; the others' results are
+            # masked below, as in JAX, where every lane is traced
+            res = bounce_fn(o[live], d[live], xi[:, live])
+            w_ne = res[4]
+            t_sc, scattered, albedo, li = (
+                torch.zeros((b,) + r.shape[1:], dtype=r.dtype, device=dev)
+                .index_copy_(0, live, r) for r in res[:4])
+            acc = acc + torch.where((alive & ~scattered)[:, None], thr * env,
+                                    0.0)
+            alive_n = alive & scattered
+            pos = o + t_sc[:, None] * d
+            acc = acc + torch.where(
+                alive_n[:, None],
+                thr * (albedo * INV_4PI * w_ne)[:, None] * li, 0.0)
+            thr_n, killed = _roulette(cfg, thr, albedo, bounce, xi[5])
+            alive = alive_n & ~killed & (bounce + 1 < cfg.max_bounces)
+            o = torch.where(alive[:, None], pos, o)
+            d = torch.where(alive[:, None], dir_from_xi(xi[6:8].T), d)
+            thr = torch.where(alive[:, None], thr_n, thr)
+            bounce = bounce + 1
+            it += 1
+            if it == cap:
+                break
+            with profiling.span("wavefront.live_read"):
+                live = torch.nonzero(alive | (sample < spp)).squeeze(1)
+    profiling.count("lanes_traced", evals)
+    profiling.count("lane_slots", b * it)
     if stats is not None:
         stats.update(iterations=it, bounce_evals=evals)
     return acc / spp
@@ -547,96 +559,110 @@ def render_multiscatter(scene: Scene, camera, cfg: RenderConfig,
     paths, bounce evaluations (the megakernel's count; on the wavefronts
     the live lanes or extension rays traced; summed over the ranks), the
     chunk and the chunks, wavefront iterations (this rank's), Gaussian
-    count, the shard count and the assembly's seconds.  A
-    ``utils.profiling.RenderStats`` also receives the JAX package's spans:
-    ``chunk`` after each chunk (the device synchronised) and
-    ``render_multiscatter``."""
-    from gvr_tpu_torch.utils.profiling import RenderStats, mrays_per_sec
+    count, the shard count and the assembly's seconds.
 
+    The render is the root span ``render_multiscatter`` of
+    ``utils.profiling``, which records while a torch.profiler runs or a
+    ``RenderStats`` is given as ``stats``: inside it ``render.prepare``
+    (from entry to the first chunk: the engine choice with ``grid_for``,
+    the moves to the device, the tile order, the chunk size and the
+    tables), a ``chunk`` span a chunk (the host's enqueue: nothing
+    waits for the device), the wavefronts' ``wavefront.iteration`` spans
+    with their ``wavefront.live_read`` and counters (``_wavefront``,
+    ``gridscatter.wavefront_pixels_grid_pooled``), and
+    ``render.readback`` (the all-reduce, the copy to the host)."""
+    with profiling.render("render_multiscatter", stats) as root:
+        return _render(scene, camera, cfg, device, progress, stats, mesh,
+                       root)
+
+
+def _render(scene: Scene, camera, cfg: RenderConfig, device, progress,
+            stats, mesh, root) -> np.ndarray:
+    """The body of ``render_multiscatter``; ``root`` is its span."""
     scene.require_gaussian("render_multiscatter")
-    spans = stats if isinstance(stats, RenderStats) else None
     mesh = mesh if mesh is not None else make_mesh()
     n_shards = mesh.shape[RAY_AXIS]
-    t_build = time.perf_counter()
-    engine = engine_for(cfg, scene.medium)
-    if engine == "grid":
-        kernel = "grid"
-        grid = grid_for(scene.medium)
-    elif engine == "xla":
-        kernel, engine = "xla", "dense"
-    else:
-        kernel = dense_kernel(cfg, scene.medium.n)
-    t0 = time.perf_counter()
-    scene = scene.to(device)
-    camera = camera.to(device)
-    w, h = cfg.width, cfg.height
-    order = torch.from_numpy(tile_order(w, h)).to(device)
-    img = torch.zeros((w * h, 3), dtype=torch.float32, device=device)
-    evals = torch.zeros((), dtype=torch.int64, device=device)
-    n_chunks = iterations = 0
-    if kernel == "grid":
-        grid = grid.to(device)
-        chunk = min(cfg.ray_chunk, GRID_CHUNK)
-    else:
-        chunk = pick_chunk(cfg, scene.medium.n, device,
-                           dense=kernel == "xla")
-        if kernel == "mega":
-            cam, table, lights, env, pinhole = _mega_inputs(scene, camera)
-        elif kernel == "step":
-            table = pack_table(scene.medium)
+    with profiling.span("render.prepare"):
+        t_build = time.perf_counter()
+        engine = engine_for(cfg, scene.medium)
+        if engine == "grid":
+            kernel = "grid"
+            grid = grid_for(scene.medium)
+        elif engine == "xla":
+            kernel, engine = "xla", "dense"
         else:
-            table, boxes = pack_rows(scene.medium), chunk_boxes(scene.medium)
-    chunk = min(chunk, ((w * h + 255) // 256) * 256)
-    q = 256 * n_shards if chunk >= 256 * n_shards else n_shards
-    chunk = -(-chunk // q) * q
-    lo, hi = shard_bounds(chunk, mesh)
+            kernel = dense_kernel(cfg, scene.medium.n)
+        t0 = time.perf_counter()
+        scene = scene.to(device)
+        camera = camera.to(device)
+        w, h = cfg.width, cfg.height
+        order = torch.from_numpy(tile_order(w, h)).to(device)
+        img = torch.zeros((w * h, 3), dtype=torch.float32, device=device)
+        evals = torch.zeros((), dtype=torch.int64, device=device)
+        n_chunks = iterations = 0
+        if kernel == "grid":
+            grid = grid.to(device)
+            chunk = min(cfg.ray_chunk, GRID_CHUNK)
+        else:
+            chunk = pick_chunk(cfg, scene.medium.n, device,
+                               dense=kernel == "xla")
+            if kernel == "mega":
+                cam, table, lights, env, pinhole = _mega_inputs(scene,
+                                                                camera)
+            elif kernel == "step":
+                table = pack_table(scene.medium)
+            else:
+                table = pack_rows(scene.medium)
+                boxes = chunk_boxes(scene.medium)
+        chunk = min(chunk, ((w * h + 255) // 256) * 256)
+        q = 256 * n_shards if chunk >= 256 * n_shards else n_shards
+        chunk = -(-chunk // q) * q
+        lo, hi = shard_bounds(chunk, mesh)
     for start in range(0, w * h, chunk):
-        t_chunk = time.perf_counter()
         # this rank's slice of the chunk; the last chunk's may be short
         # or empty
         ids = order[start + lo:min(start + hi, w * h)]
         st = {}
-        if ids.numel() == 0:
-            pass
-        elif kernel == "mega":
-            sums, counts = mega_call(cam, table, ids, cfg, lights, env,
-                                     pinhole)
-            img[ids] = sums / cfg.spp
-            if stats is not None:
-                evals += counts.sum()
-        elif kernel == "step":
-            img[ids] = wavefront_pixels_step(scene, camera, cfg, ids, st,
-                                             table)
-            evals += st["bounce_evals"]
-        elif kernel == "big":
-            img[ids] = wavefront_pixels_big(scene, camera, cfg, ids, st,
-                                            table, boxes)
-            evals += st["bounce_evals"]
-        elif kernel == "xla":
-            img[ids] = wavefront_pixels_xla(scene, camera, cfg, ids, st)
-            evals += st["bounce_evals"]
-        else:
-            img[ids] = wavefront_pixels_grid_pooled(scene, grid, camera, cfg,
-                                                    ids, st)
-            evals += st["ext_rays"]
+        with profiling.span("chunk", pixels=ids.numel(),
+                            paths=ids.numel() * cfg.spp, engine=engine,
+                            kernel=kernel, shards=n_shards):
+            if ids.numel() == 0:
+                pass
+            elif kernel == "mega":
+                sums, counts = mega_call(cam, table, ids, cfg, lights, env,
+                                         pinhole)
+                img[ids] = sums / cfg.spp
+                if stats is not None:
+                    evals += counts.sum()
+            elif kernel == "step":
+                img[ids] = wavefront_pixels_step(scene, camera, cfg, ids, st,
+                                                 table)
+                evals += st["bounce_evals"]
+            elif kernel == "big":
+                img[ids] = wavefront_pixels_big(scene, camera, cfg, ids, st,
+                                                table, boxes)
+                evals += st["bounce_evals"]
+            elif kernel == "xla":
+                img[ids] = wavefront_pixels_xla(scene, camera, cfg, ids, st)
+                evals += st["bounce_evals"]
+            else:
+                img[ids] = wavefront_pixels_grid_pooled(scene, grid, camera,
+                                                        cfg, ids, st)
+                evals += st["ext_rays"]
         iterations += st.get("iterations", 0)
         n_chunks += 1
-        if spans is not None:
-            _synchronize(device)
-            spans.add("chunk", time.perf_counter() - t_chunk,
-                      pixels=ids.numel(), paths=ids.numel() * cfg.spp,
-                      engine=engine, kernel=kernel, shards=n_shards)
         if progress:
             print(f"  pixels {min(start + chunk, w * h)}/{w * h}")
-    t_assemble = time.perf_counter()
-    group = mesh.group(RAY_AXIS)
-    if group is not None:
-        _synchronize(device)
+    with profiling.span("render.readback"):
         t_assemble = time.perf_counter()
-        dist.all_reduce(img, group=group)
-        if stats is not None:
-            dist.all_reduce(evals, group=group)
-    out = img.cpu().numpy().reshape(h, w, 3)
+        group = mesh.group(RAY_AXIS)
+        if group is not None:
+            _synchronize(device)
+            t_assemble = time.perf_counter()
+            dist.all_reduce(img, group=group)
+            if stats is not None:
+                dist.all_reduce(evals, group=group)
+        out = img.cpu().numpy().reshape(h, w, 3)
     t_end = time.perf_counter()
     if stats is not None:
         stats.update(engine=engine, kernel=kernel, seconds=t_end - t0,
@@ -645,12 +671,10 @@ def render_multiscatter(scene: Scene, camera, cfg: RenderConfig,
                      chunk=chunk, chunks=n_chunks, iterations=iterations,
                      n=scene.medium.n, device=str(device), shards=n_shards,
                      assemble_seconds=t_end - t_assemble)
-    if spans is not None:
-        spans.add("render_multiscatter", t_end - t0, engine=engine,
-                  kernel=kernel, shards=n_shards, n=scene.medium.n,
-                  paths=w * h * cfg.spp,
-                  mpaths_per_s=round(mrays_per_sec(w * h * cfg.spp,
-                                                   t_end - t0), 3))
+    root.set(engine=engine, kernel=kernel, shards=n_shards,
+             n=scene.medium.n, paths=w * h * cfg.spp,
+             mpaths_per_s=round(profiling.mrays_per_sec(w * h * cfg.spp,
+                                                        t_end - t0), 3))
     return out
 
 

@@ -16,18 +16,21 @@ engine) and integrator (the CLI's, with its default step and environment
 samples) twice unprofiled, the second giving the warm render seconds,
 then once under torch.profiler, and prints: the
 warm and profiled render seconds, the device time of all kernels and
-copies and its share of the warm render (the device's busy share; the
-rest is idle, bound by the host), kernel launches in all and per
-wavefront iteration, and the ops that take the most device time and the
-most host time.  On the marchers "iterations" are the march steps.
+copies and its share of the profiled render (``busy_share``; the rest is
+idle, bound by the host), kernel launches in all and per wavefront
+iteration, the ops that take the most device time and the most host
+time, and the render loop's spans (``utils.profiling``: render.prepare,
+chunk, wavefront.iteration and its wavefront.live_read,
+render.readback...) by their self time, with their counters.  On the
+marchers "iterations" are the march steps.
 
 ``--fit`` profiles chip_smoke's fit cell instead: the scene's packed
 parameters perturbed by N(0, 0.1) (numpy seed 7), a 4,096-pixel batch of
 the size^2 image, 4 bounces, the 'l2_dual' loss at spp 2 and an Adam
 step, as one iteration of ``inverse/fit.fit_gaussians`` at the CLI's
 settings; three warm iterations give the seconds an iteration, then one
-runs under torch.profiler (launches and device time an iteration, peak
-device memory).
+runs under torch.profiler (launches, device time and its share of the
+profiled iteration, peak device memory).
 """
 
 from __future__ import annotations
@@ -61,6 +64,28 @@ def _summary(prof, top: int) -> dict:
         by_host=[_row(e) for e in by_cpu])
 
 
+def _spans(top: int) -> dict:
+    """The recorder's spans (``utils.profiling.recorded``) summed by
+    name, the top by self time (their duration less their children's),
+    and its counters summed over the renders."""
+    from gvr_tpu_torch.utils.profiling import recorded
+    rec = recorded()
+    own = rec.self_ns()
+    by_name = {}
+    for s in rec.spans:
+        n, total, self_ns = by_name.get(s.name, (0, 0, 0))
+        by_name[s.name] = (n + 1, total + s.end_ns - s.start_ns,
+                           self_ns + own[s.id])
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][2])[:top]
+    return dict(
+        by_span=[f"{self_ns / 1e6:12.3f} ms self {total / 1e6:12.3f} ms "
+                 f"total {n:8d} spans  {name}"
+                 for name, (n, total, self_ns) in rows],
+        span_self_ms={name: self_ns / 1e6
+                      for name, (_, _, self_ns) in rows},
+        counters=rec.totals())
+
+
 def profile_render(gaussians: int = 10_000, size: int = 512, spp: int = 16,
                    top: int = 25, device: str = "cuda",
                    engine: str = "auto", solver: str = "analytic_newton",
@@ -76,6 +101,7 @@ def profile_render(gaussians: int = 10_000, size: int = 512, spp: int = 16,
     from gvr_tpu_torch.config import RenderConfig, Solver
     from gvr_tpu_torch.scene.generators import random_gaussian_scene
     from gvr_tpu_torch.scene.scene import parse_gmm
+    from gvr_tpu_torch.utils.profiling import recorded
 
     scene = parse_gmm(random_gaussian_scene(gaussians, seed=0),
                       device=device)
@@ -92,6 +118,7 @@ def profile_render(gaussians: int = 10_000, size: int = 512, spp: int = 16,
     if torch.device(device).type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     prof_stats = {}
+    recorded().clear()
     with profile(activities=activities) as prof:
         render(scene, cam, cfg, device=device, stats=prof_stats)
     summ = _summary(prof, top)
@@ -101,9 +128,9 @@ def profile_render(gaussians: int = 10_000, size: int = 512, spp: int = 16,
         integrator=integrator, gaussians=gaussians, size=size, spp=spp,
         warm_seconds=warm_s, profiled_seconds=prof_stats["seconds"],
         iterations=iters,
-        busy_share_of_warm=summ["device_busy_ms"] / 1e3 / warm_s,
+        busy_share=summ["device_busy_ms"] / 1e3 / prof_stats["seconds"],
         launches_per_iteration=(summ["kernel_launches"] / iters if iters
-                                else None), **summ)
+                                else None), **summ, **_spans(top))
 
 
 def profile_fit(gaussians: int = 250, size: int = 128, top: int = 25,
@@ -164,7 +191,7 @@ def profile_fit(gaussians: int = 250, size: int = 128, top: int = 25,
         fit=True, gaussians=gaussians, size=size, batch=batch,
         bounces=bounces, spp=spp, warm_seconds_per_iteration=warm_s,
         profiled_seconds=prof_s,
-        busy_share_of_warm=summ["device_busy_ms"] / 1e3 / warm_s,
+        busy_share=summ["device_busy_ms"] / 1e3 / prof_s,
         peak_memory_gib=(torch.cuda.max_memory_allocated() / 2**30
                          if torch.device(device).type == "cuda" else None),
         **summ)
@@ -199,11 +226,13 @@ def main(argv=None):
         args["gaussians"] = args["gaussians"] or 10_000
         args["size"] = args["size"] or 512
         res = profile_render(**args)
-    for key in ("by_device", "by_host"):
-        print(f"--- by {key[3:]} time")
-        print("\n".join(res[key]))
-    print(json.dumps({k: v for k, v in res.items()
-                      if k not in ("by_device", "by_host")}))
+    rows = ("by_device", "by_host", "by_span")
+    for key in rows:
+        if key in res:
+            print(f"--- by {key[3:]} time" + (" (self)" if key == "by_span"
+                                              else ""))
+            print("\n".join(res[key]))
+    print(json.dumps({k: v for k, v in res.items() if k not in rows}))
     return res
 
 

@@ -127,15 +127,18 @@ def test_build_sources_and_checks():
 
 def test_profile_render_summarises_a_render(capsys):
     """The profiler tool on the CPU: a warm render, then a profiled one;
-    the CPU has no device time and no kernel launches."""
+    the CPU has no device time and no kernel launches; the render loop's
+    spans by their self time."""
     from gvr_tpu_torch import profile_render
     res = profile_render.main(["--gaussians", "12", "--size", "8", "--spp",
                                "1", "--top", "5", "--device", "cpu"])
     assert res["engine"] == "dense" and res["warm_seconds"] > 0
     assert res["device_busy_ms"] == 0 and res["kernel_launches"] == 0
     assert len(res["by_host"]) == 5
+    assert "render.prepare" in res["span_self_ms"]
     out = capsys.readouterr().out
-    assert "--- by host time" in out and '"busy_share_of_warm"' in out
+    assert "--- by host time" in out and '"busy_share": 0.0' in out
+    assert "--- by span time (self)" in out
 
 
 @pytest.mark.parametrize("args,key", [
