@@ -73,7 +73,7 @@ from gvr_tpu_torch.utils import profiling
 __all__ = ["GRID_CHUNK", "GRID_MIN_N", "dense_kernel", "diff_uniforms",
            "engine_for", "mc_camera_rays", "multiscatter_radiance",
            "multiscatter_radiance_diff", "render_multiscatter", "strat_n",
-           "strat_uv", "tile_order", "wavefront_pixels",
+           "strat_uv", "tile_ids", "tile_order", "wavefront_pixels",
            "wavefront_pixels_big", "wavefront_pixels_step",
            "wavefront_pixels_xla"]
 
@@ -136,6 +136,37 @@ def tile_order(w: int, h: int, tw: int = 16, th: int = 8) -> np.ndarray:
            + (xs // tw)) * (tw * th) \
         + (ys % th) * tw + (xs % tw)
     return np.argsort(key.reshape(-1), kind="stable").astype(np.int32)
+
+
+def tile_ids(w: int, h: int, device, tw: int = 16,
+             th: int = 8) -> torch.Tensor:
+    """``tile_order(w, h, tw, th)`` made on ``device`` without a sort:
+    int32 [w*h].  Tiles run row-major over the tile grid and pixels
+    row-major inside each tile, so each band of th rows (the last one
+    shorter where th does not divide h) is its full tiles, then its
+    partial tile on the right.  Each of these at most four blocks of
+    equal tiles is a strided view of the row-major pixel ids, copied into
+    the slice of the order it fills: one arange and at most four copies,
+    whatever the size."""
+    n = w * h
+    assert n < 2 ** 31, (w, h)
+    ids = torch.arange(n, dtype=torch.int32, device=device).view(h, w)
+    out = torch.empty(n, dtype=torch.int32, device=device)
+    fy, fx = h - h % th, w - w % tw    # the rows and columns of full tiles
+    for y0, y1 in ((0, fy), (fy, h)):
+        b = min(th, y1 - y0)           # the band's height
+        if b == 0:
+            continue
+        nb = (y1 - y0) // b
+        src = ids[y0:y1].view(nb, b, w)
+        dst = out[y0 * w:y1 * w].view(nb, b * w)
+        if fx:
+            dst[:, :b * fx].view(nb, fx // tw, b, tw).copy_(
+                src[:, :, :fx].view(nb, b, fx // tw, tw)
+                .permute(0, 2, 1, 3))
+        if fx < w:
+            dst[:, b * fx:].view(nb, b, w - fx).copy_(src[:, :, fx:])
+    return out
 
 
 def _mega_inputs(scene: Scene, camera):
@@ -596,7 +627,7 @@ def _render(scene: Scene, camera, cfg: RenderConfig, device, progress,
         scene = scene.to(device)
         camera = camera.to(device)
         w, h = cfg.width, cfg.height
-        order = torch.from_numpy(tile_order(w, h)).to(device)
+        order = tile_ids(w, h, device)
         img = torch.zeros((w * h, 3), dtype=torch.float32, device=device)
         evals = torch.zeros((), dtype=torch.int64, device=device)
         n_chunks = iterations = 0

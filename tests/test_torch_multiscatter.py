@@ -5,6 +5,7 @@ import math
 
 import numpy as np
 import pytest
+import torch
 
 import _torch_common  # noqa: F401  (sets torch threads)
 from gvr_tpu.cameras import OrthographicCamera as JOrtho
@@ -20,8 +21,9 @@ from gvr_tpu.scene.scene import parse_smm as jax_parse_smm
 from gvr_tpu_torch import cli
 from gvr_tpu_torch.cameras import OrthographicCamera, PinholeCamera
 from gvr_tpu_torch.config import RenderConfig
+from gvr_tpu_torch.integrators import multiscatter as tms
 from gvr_tpu_torch.integrators.multiscatter import (render_multiscatter,
-                                                    tile_order)
+                                                    tile_ids, tile_order)
 from gvr_tpu_torch.io.ppm import quantize, read_ppm
 from gvr_tpu_torch.scene.scene import parse_gmm
 from gvr_tpu_torch.testing import image_agreement
@@ -79,6 +81,36 @@ def test_render_chunk_invariance():
 def test_tile_order_matches_jax():
     for w, h in ((32, 32), (48, 24), (17, 9)):
         assert np.array_equal(tile_order(w, h), jax_tile_order(w, h))
+
+
+@pytest.mark.parametrize("w,h,tile", [
+    (1024, 1024, (16, 8)), (512, 512, (16, 8)), (256, 256, (16, 8)),
+    (17, 9, (16, 8)), (100, 37, (16, 8)), (15, 7, (16, 8)),
+    (33, 130, (16, 8)), (640, 360, (16, 8)), (1, 1, (16, 8)),
+    (1, 300, (16, 8)), (300, 1, (16, 8)), (64, 64, (8, 4))])
+def test_tile_ids_matches_tile_order(w, h, tile):
+    """The order made on the device is the JAX package's sorted one,
+    partial tiles on the right and bottom included."""
+    tw, th = tile
+    got = tile_ids(w, h, "cpu", tw=tw, th=th)
+    assert got.dtype == torch.int32 and got.shape == (w * h,)
+    assert np.array_equal(got.numpy(), jax_tile_order(w, h, tw, th))
+
+
+def test_render_same_with_sorted_order(monkeypatch):
+    """A render whose chunks take the numpy order is the same bits:
+    partial tiles and four chunks of at most 256 pixels, every pixel once."""
+    tcam = PinholeCamera.create([0, 1, 6], [0, 1, 0], 0.25 * math.pi)
+    cfg = RenderConfig(width=40, height=21, spp=2, ray_chunk=256)
+    stats = {}
+    got = render_multiscatter(parse_gmm(SCENE), tcam, cfg, device="cpu",
+                              stats=stats)
+    assert stats["chunks"] == 4
+    monkeypatch.setattr(tms, "tile_ids", lambda w, h, device: torch.from_numpy(
+        tile_order(w, h)).to(device))
+    want = render_multiscatter(parse_gmm(SCENE), tcam, cfg, device="cpu")
+    assert got.std() > 0
+    np.testing.assert_array_equal(got, want)
 
 
 def test_cli_render_writes_ppm(tmp_path, capsys):
