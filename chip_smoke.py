@@ -13,7 +13,7 @@ raises, so the exit code is non-zero.
   0 card     nvidia-smi name and power limit, torch and nvcc versions
   1 build    nvcc seconds and ptxas register/spill lines
   2 K3 rng   kernel == plain (torch.equal), [9, 512, 128] draws, bounce
-             array and the jitter tag; the wavefronts' launcher
+             array and the jitter tag; the grid wavefront's launcher
              (wave_uniforms, [2 + 9, 65,535]: jitter pair and bounce draws)
   3 K2 bounce  kernel vs plain, 250 Gaussians, 65,536 random rays,
              finisher off and on: the bars of testing.BOUNCE_BARS
@@ -92,11 +92,11 @@ raises, so the exit code is non-zero.
              pair tests of the crossed pairs) and of a full sweep (a pair
              test of every pair)
  14 big main `gvr_tpu_torch.cli render` of the 10k scene at 512^2 spp 16,
-             engine dense (K3, K4, K5): render seconds, Mpaths/s,
+             engine dense (K8, K4, K5): render seconds, Mpaths/s,
              iterations, chunks; image finite, not constant, its mean
              within 1 % of phase 11's grid image of the same scene,
-             camera, size, spp and seed; K3 launched once an iteration,
-             no plain version called
+             camera, size, spp and seed; K8's two launches once an
+             iteration, K3 not launched, no plain version called
  15 auto fallback  the fallback scene, whose grid exceeds S_CAP_MAX,
              through the CLI at 128^2 spp 4 with engine auto: dense with
              the big kernel, K4/K5 launched, host grid-build seconds,
@@ -108,8 +108,8 @@ raises, so the exit code is non-zero.
              finite and not constant, the first two (the exact solvers)
              with their means within 1 % of the megakernel's
              analytic_newton image at the same size and seed (UNIFORM is
-             biased by design; its mean is reported); K3 launched
-             once an iteration, K1 and every plain version not called;
+             biased by design; its mean is reported); K8's two
+             launches once an iteration, K1 and every plain version not called;
              render seconds, Mpaths/s, iterations.  Then the 10k scene at
              128^2 spp 4 with --solver bisection: engine auto takes the XLA
              engine, its chunk within the 2^25-element budget
@@ -119,9 +119,10 @@ raises, so the exit code is non-zero.
              CLI on the card
              and with --device cpu: testing.CARD_CPU_BARS (image means
              within 0.5 %, per-pixel mean |diff| below 1e-3; the hit mask
-             equal on 99.9 % of the pixels), K3 launched as each path
-             draws (once an iteration, twice a chunk and sample, once a
-             march step), no plain version called on the card
+             equal on 99.9 % of the pixels), K8 twice an iteration on the
+             XLA engine, K3 launched as each other path draws (twice a
+             chunk and sample, once a march step), no plain version
+             called on the card
  18 at size  single scatter 512^2 spp 16, the analytic marcher at the
              CLI's step and environment samples at 256^2, the pure
              marcher at step 0.05 at 128^2, the hit mask at 1024^2:
@@ -186,8 +187,8 @@ raises, so the exit code is non-zero.
              refuses ranks that share a card) render through
              render_multiscatter over a 2-rank mesh: the headline (K1), the
              10k scene at 512^2 spp 16 (grid: K3/K6/K7) and with
-             --engine dense at 256^2 spp 4 (big-N: K3/K4/K5), and the
-             headline with wavefront='step' (K3/K2, K2 once an iteration),
+             --engine dense at 256^2 spp 4 (big-N: K8/K4/K5), and the
+             headline with wavefront='step' (K8/K2, K2 once an iteration),
              each image equal to the one-process image of the same scene
              arrays bit for bit: seconds, the assembly's seconds, each
              rank's iterations and launches (counts set to 0 just
@@ -216,12 +217,13 @@ raises, so the exit code is non-zero.
              gvr_tpu_torch.bench_series --size 256 --spp 4`: its rows
              finite, with the engine and grid columns
  28 step wavefront  render_multiscatter of the headline with
-             RenderConfig(wavefront='step') (K3 and K2 once a wavefront
-             iteration): kernel 'step', K2 and K3 launched once an
-             iteration, no megakernel and no plain version; the image
+             RenderConfig(wavefront='step') (K8 twice and K2 once a
+             wavefront iteration): kernel 'step', K2 and each K8 launch
+             once an iteration, no megakernel and no plain version; the image
              within testing.CHUNK_BARS of K1's image of the same
              configuration (whose PPM is phase 6's), rendered twice, the
-             same bits; render seconds, Mpaths/s, iterations.  K2 at the
+             same bits; render seconds, Mpaths/s, iterations.  In a
+             process of its own (step_k2), K2 at the
              inputs of chunk 9's first iteration (65,536 lanes) and of its
              first with at most 1,024 lanes live: device time, dispatch,
              plain ms and bound (the pairs its rays cross, and a full
@@ -236,6 +238,18 @@ raises, so the exit code is non-zero.
              the device's idle share and K2's share of the device time.
              random_gaussian_scene(300, 0) at 128^2 spp 4 with 'step':
              the big-N kernels, K2 not launched
+ 29 K8 glue  the dense wavefront's glue (kernels/wavefront.py) against its
+             plain version run eagerly on the card, bit for bit, on 65,536
+             random lanes of the 512^2 spp 16 image (testing.random_lanes):
+             the pre-bounce launch's gathered rays and draws and the lane
+             state, the post-bounce launch's state and mask, roulette
+             draws at and one ulp above the survival probability; each
+             launch's device time, dispatch and plain ms there (the
+             pre-bounce launch on lanes that start no sample, so a call
+             repeats the same work; the post-bounce launch after the
+             lane state's restore), its bound (the lane state's bytes, each
+             read and written once, over 3.35 TB/s) and its launches on
+             phase 14's big-N render
 
 The last three lines: the nvidia-smi line, the kernels JSON (each kernel
 with its launches on its main path, its device time (``ms``), its call's
@@ -244,7 +258,9 @@ version's time, and its bound: the larger of its operations over 67
 TFLOP/s and its bytes, each input read and each output written once,
 over 3.35 TB/s; K1, K2, K4, K5, K6 and K7 also with ``bound_ms_sweep``,
 the bound of the same work with a pair test of every pair instead of the
-culling, the pre-test and the crossed-pair lists; K1 also with
+culling, the pre-test and the crossed-pair lists; K8's two launches
+(wave_pre, wave_post) with their launches on the big-N render and on the
+XLA engine (``launches_xla``); K1 also with
 ``bound_ms_pretest``, its own walk: a pre-test of every row instead of
 the group boxes; K1 and K3 also with ``launches_fit``, their launches on
 phase 20's fit; K2 with the step path's launches and times, its tail
@@ -289,9 +305,10 @@ XLA_BIG = (GRID_N, 128, 4)
 # kernels it must launch on the card)
 CARD_CPU_SIZE = 32
 SLICE_PATHS = (
-    ("multiscatter xla", ["--solver", "bisection"], 4, ["wave_uniforms"]),
+    ("multiscatter xla", ["--solver", "bisection"], 4,
+     ["wave_pre", "wave_post"]),
     ("multiscatter xla uniform", ["--solver", "uniform"], 4,
-     ["wave_uniforms"]),
+     ["wave_pre", "wave_post"]),
     ("singlescatter", ["--integrator", "singlescatter"], 4,
      ["planes_uniforms"]),
     ("raymarch", ["--integrator", "raymarch", "--step-size", "0.02",
@@ -390,9 +407,10 @@ DP_RENDERS = (
     ("grid", "10k", dict(width=GRID_SIZE, height=GRID_SIZE, spp=GRID_SPP),
      ("wave_uniforms", "span_tau_pass", "solve_pass")),
     ("big", "10k", dict(width=256, height=256, spp=4, engine="dense"),
-     ("wave_uniforms", "big_stage1", "big_nee")),
+     ("wave_pre", "wave_post", "big_stage1", "big_nee")),
     ("step", "250", dict(width=MAIN_SIZE, height=MAIN_SIZE, spp=MAIN_SPP,
-                         wavefront="step"), ("wave_uniforms", "bounce_step")),
+                         wavefront="step"),
+     ("wave_pre", "wave_post", "bounce_step")),
 )
 TP_CFG = dict(width=128, height=128, spp=4, max_bounces=3)
 DP_FIT_ITERS = 5
@@ -499,6 +517,180 @@ def k2_bounds(args, t_sc):
            + CROSSED_EVAL_FLOPS * (iters + int(finisher) + 1) * ext)
     return (bound(ops, nbytes),
             bound(2 * b * rows * PAIR_TEST_FLOPS, nbytes), ext, nee)
+
+
+def step_k2():
+    """Phase 28's K2 at the step path's shapes, in a process of its own:
+    the inputs of the headline's chunk 9's first iteration and of its
+    first with at most STEP_TAIL_LANES lanes live.  Prints its lines, and
+    last {'err', 'full', 'tail'} as JSON."""
+    import numpy as np
+    import torch
+
+    from gvr_tpu_torch import testing
+    from gvr_tpu_torch.cameras import PinholeCamera
+    from gvr_tpu_torch.config import RenderConfig
+    from gvr_tpu_torch.integrators import multiscatter
+    from gvr_tpu_torch.kernels import pathtrace
+    from gvr_tpu_torch.kernels.timing import kernel_ms
+    from gvr_tpu_torch.scene.generators import random_gaussian_scene
+    from gvr_tpu_torch.scene.scene import parse_gmm
+
+    dev = torch.device("cuda", 0)
+    sc = parse_gmm(random_gaussian_scene(250, seed=0), device=dev)
+    cam = PinholeCamera.create([0, 1, 6], [0, 1, 0], math.radians(45.0),
+                               device=dev)
+    cfg = RenderConfig(width=MAIN_SIZE, height=MAIN_SIZE, spp=MAIN_SPP,
+                       wavefront="step")
+    order = multiscatter.tile_order(MAIN_SIZE, MAIN_SIZE)
+    ids = torch.from_numpy(
+        order[MEDIUM_CHUNK * RAYS:(MEDIUM_CHUNK + 1) * RAYS]).to(dev)
+    real, lanes, picked = multiscatter.bounce_step, [], {}
+
+    def record(*args):
+        lanes.append(args[1].shape[0])
+        key = "full" if not picked else "tail"
+        if key not in picked and (key == "full"
+                                  or lanes[-1] <= STEP_TAIL_LANES):
+            picked[key] = args
+        return real(*args)
+
+    multiscatter.bounce_step = record
+    try:
+        multiscatter.wavefront_pixels_step(sc, cam, cfg, ids)
+    finally:
+        multiscatter.bounce_step = real
+    out = {"err": 0.0}
+    for key, reps in (("full", 10), ("tail", 50)):
+        args = picked[key]
+        b = args[1].shape[0]
+        t, got = kernel_ms(lambda: pathtrace.bounce_step(*args),
+                           "bounce_kernel", reps)
+        p_ms, want = cuda_ms(
+            lambda: pathtrace.bounce_core_reference(*args), 3)
+        agree = testing.bounce_agreement(got, want,
+                                         testing.PATH_BOUNCE_BARS)
+        # the plain version in float64 on the same inputs: how far each
+        # float32 version is from the exact result
+        f64 = [x.float() if x.is_floating_point() else x
+               for x in pathtrace.bounce_core_reference(*(
+                   a.double() if torch.is_tensor(a) else a for a in args))]
+        vs64 = {name: testing.bounce_agreement(x, f64)
+                for name, x in (("kernel", got), ("plain", want))}
+        out["err"] = max(out["err"], agree["max_dtau"])
+        culled, sweep, ext, nee = k2_bounds(args, want[0])
+        out[key] = dict(lanes=b, t=t, plain_ms=p_ms, bound=culled,
+                        bound_sweep=sweep)
+        log("28 step wavefront", f"K2 at chunk {MEDIUM_CHUNK}'s {key} "
+            f"iteration ({b} lanes): kernel {fmt_ms(t)}, plain "
+            f"{p_ms:.3f} ms, bound {culled[0]:.5f} ms ({culled[1]}; "
+            f"{ext} crossed extension pairs, {nee} crossed shadow pairs), "
+            f"of a full sweep {sweep[0]:.5f} ms ({sweep[1]}); kernel vs "
+            f"plain {json.dumps(agree)} "
+            f"(bars {json.dumps(testing.PATH_BOUNCE_BARS)}); against the "
+            f"plain version in float64: "
+            + "; ".join(f"{k} max |dtau| {v['max_dtau']:.3e}, tau excess "
+                        f"{v['tau_excess']:.3e} on {v['tau_beyond']} rays"
+                        for k, v in vs64.items()))
+        if not agree["ok"]:
+            raise AssertionError(f"K2 at the step path's {key} iteration "
+                                 f"misses PATH_BOUNCE_BARS: {agree}")
+    lanes = np.asarray(lanes)
+    log("28 step wavefront", f"chunk {MEDIUM_CHUNK}: {len(lanes)} "
+        f"iterations, {int(lanes.sum())} lanes traced, "
+        f"{int((lanes < 4096).sum())} iterations under 4,096 lanes, "
+        f"{int((lanes < 128).sum())} under 128, lanes at iteration 0, 10, "
+        f"100 and the last: "
+        f"{[int(lanes[i]) for i in (0, 10, 100, -1) if i < len(lanes)]}")
+
+    print(json.dumps(out))
+
+
+def glue_phase(dev, smi):
+    """Phase 29 (see the module docstring): K8 against its plain version
+    and at 65,536 lanes.  Returns {launch: (times, plain ms, bound)}."""
+    import torch
+
+    from gvr_tpu_torch import testing
+    from gvr_tpu_torch.cameras import PinholeCamera
+    from gvr_tpu_torch.config import RenderConfig
+    from gvr_tpu_torch.kernels import wavefront as wf
+    from gvr_tpu_torch.kernels.timing import kernel_ms
+
+    cam = PinholeCamera.create([0, 1, 6], [0, 1, 0], math.radians(45.0),
+                               device=dev)
+    cfg = RenderConfig(width=GRID_SIZE, height=GRID_SIZE, spp=GRID_SPP,
+                       min_scatter=1, rr_tail_after=3)
+    env = torch.tensor([0.3, 0.5, 0.9], device=dev)
+    lanes, live, res, edges = testing.random_lanes(cfg, cam, RAYS, dev, 29)
+
+    def clone(ln):
+        return wf.Lanes(**{k: v.clone() if torch.is_tensor(v) else v
+                           for k, v in vars(ln).items()})
+
+    fields = ("o", "d", "thr", "acc", "alive", "sample", "bounce")
+    differ = lambda a, b: [k for k in fields
+                           if not torch.equal(getattr(a, k), getattr(b, k))]
+    regen = int((~lanes.alive & (lanes.sample < cfg.spp)).sum())
+    plain = clone(lanes)
+    got = wf.wave_pre(lanes, live, cfg)
+    want = wf.wave_pre_reference(plain, live, cfg)
+    bad = [k for k, g, w in zip(("o", "d", "xi", "xr"), got, want)
+           if not torch.equal(g, w)] + differ(lanes, plain)
+    xr = got[3].clone()
+    xr[0] = edges(plain, xr[0])
+    after_pre = clone(lanes)
+    k_post, p_post = clone(lanes), clone(plain)
+    mask = wf.wave_post(k_post, live, xr, res, 4.0, env, cfg)
+    mask_p = wf.wave_post_reference(p_post, live, xr, res, 4.0, env, cfg)
+    torch.cuda.synchronize()
+    bad += differ(k_post, p_post) + ([] if torch.equal(mask, mask_p)
+                                     else ["want"])
+    b, n = RAYS, live.shape[0]
+    lives = int(k_post.alive.sum())
+    log("29 K8 glue", f"kernel vs plain (eager on the card) on {b} random "
+        f"lanes, {n} live, {regen} starting a sample, {lives} alive after "
+        f"the bounce: {'bit-equal' if not bad else 'differ in ' + str(bad)}")
+    if bad:
+        raise AssertionError(f"K8 differs from its plain version in {bad}")
+
+    def post():
+        for k in fields:
+            getattr(k_post, k).copy_(getattr(after_pre, k))
+        return wf.wave_post(k_post, live, xr, res, 4.0, env, cfg)
+
+    def post_plain():
+        ln = clone(after_pre)
+        return wf.wave_post_reference(ln, live, xr, res, 4.0, env, cfg)
+
+    # bytes each launch must move, every field read and written once: the
+    # pre-bounce launch reads a live lane's index, id, sample, bounce,
+    # alive flag and ray (no ray for a lane that starts a sample) and
+    # writes its ray, its 9 draws, slot and alive flag, and the new
+    # sample's ray, throughput, sample and bounce; the post-bounce launch
+    # reads every lane's flag, bounce and sample, a live lane's slot, ray,
+    # throughput, sum, results and 3 draws, and writes every lane's
+    # bounce and mask, a live lane's sum and flag and a survivor's ray
+    # and throughput
+    pre_bytes = n * (8 + 4 + 4 + 4 + 1 + 24) - regen * 24 \
+        + n * (24 + 36 + 4 + 1) + regen * (24 + 12 + 8)
+    post_bytes = b * (1 + 4 + 4) + n * (4 + 24 + 12 + 12 + 4 + 1 + 4 + 12
+                                        + 12) \
+        + b * (4 + 1) + n * (12 + 1) + lives * 36
+    out = {}
+    for name, fn, fn_plain, nbytes in (
+            ("wave_pre", lambda: wf.wave_pre(lanes, live, cfg),
+             lambda: wf.wave_pre_reference(clone(after_pre), live, cfg),
+             pre_bytes),
+            ("wave_post", post, post_plain, post_bytes)):
+        t, _ = kernel_ms(fn, f"{name}_kernel", 20)
+        p_ms, _ = cuda_ms(fn_plain, 3)
+        out[name] = (t, p_ms, bound(0, nbytes))
+        log("29 K8 glue", f"{name} {b} lanes ({n} live): kernel "
+            f"{fmt_ms(t)}, plain (eager on the card) {p_ms:.3f} ms, bound "
+            f"{out[name][2][0] * 1e3:.3f} us ({nbytes} bytes over 3.35 "
+            f"TB/s) ({smi})")
+    return out
 
 
 def fmt_ms(t):
@@ -1009,15 +1201,12 @@ def step_phase(dev, smi, text250, counters, main_img):
     headline, K2 at its shapes, its profile and its big-N hand-off.
     Returns K2's numbers for the kernels line."""
     import numpy as np
-    import torch
 
     from gvr_tpu_torch import testing
     from gvr_tpu_torch.cameras import PinholeCamera
     from gvr_tpu_torch.config import RenderConfig
     from gvr_tpu_torch.integrators import multiscatter
     from gvr_tpu_torch.io.ppm import quantize
-    from gvr_tpu_torch.kernels import pathtrace
-    from gvr_tpu_torch.kernels.timing import kernel_ms
     from gvr_tpu_torch.scene.generators import random_gaussian_scene
     from gvr_tpu_torch.scene.scene import parse_gmm
 
@@ -1058,7 +1247,8 @@ def step_phase(dev, smi, text250, counters, main_img):
              if k.endswith("_reference") and v}
     if not (stats["kernel"] == "step" and it > 0
             and launches["bounce_step"] == it
-            and launches["wave_uniforms"] == it
+            and launches["wave_pre"] == launches["wave_post"] == it
+            and not launches["wave_uniforms"]
             and not launches["mega_call"] and not plain
             and img.shape == (MAIN_SIZE, MAIN_SIZE, 3)):
         raise AssertionError(f"the step render: kernel {stats['kernel']}, "
@@ -1072,74 +1262,26 @@ def step_phase(dev, smi, text250, counters, main_img):
     if not np.array_equal(again, img):
         raise AssertionError("two step renders of the headline differ")
 
-    # K2 at the path's shapes: the inputs of chunk 9's first iteration and
-    # of its first with at most STEP_TAIL_LANES lanes live
-    order = multiscatter.tile_order(MAIN_SIZE, MAIN_SIZE)
-    ids = torch.from_numpy(
-        order[MEDIUM_CHUNK * RAYS:(MEDIUM_CHUNK + 1) * RAYS]).to(dev)
-    real, lanes, picked = multiscatter.bounce_step, [], {}
-
-    def record(*args):
-        lanes.append(args[1].shape[0])
-        key = "full" if not picked else "tail"
-        if key not in picked and (key == "full"
-                                  or lanes[-1] <= STEP_TAIL_LANES):
-            picked[key] = args
-        return real(*args)
-
-    multiscatter.bounce_step = record
-    try:
-        multiscatter.wavefront_pixels_step(sc, cam, cfg, ids)
-    finally:
-        multiscatter.bounce_step = real
-    out = {"err": 0.0}
-    for key, reps in (("full", 10), ("tail", 50)):
-        args = picked[key]
-        b = args[1].shape[0]
-        t, got = kernel_ms(lambda: pathtrace.bounce_step(*args),
-                           "bounce_kernel", reps)
-        p_ms, want = cuda_ms(
-            lambda: pathtrace.bounce_core_reference(*args), 3)
-        agree = testing.bounce_agreement(got, want,
-                                         testing.PATH_BOUNCE_BARS)
-        # the plain version in float64 on the same inputs: how far each
-        # float32 version is from the exact result
-        f64 = [x.float() if x.is_floating_point() else x
-               for x in pathtrace.bounce_core_reference(*(
-                   a.double() if torch.is_tensor(a) else a for a in args))]
-        vs64 = {name: testing.bounce_agreement(x, f64)
-                for name, x in (("kernel", got), ("plain", want))}
-        out["err"] = max(out["err"], agree["max_dtau"])
-        culled, sweep, ext, nee = k2_bounds(args, want[0])
-        out[key] = dict(lanes=b, t=t, plain_ms=p_ms, bound=culled,
-                        bound_sweep=sweep)
-        log("28 step wavefront", f"K2 at chunk {MEDIUM_CHUNK}'s {key} "
-            f"iteration ({b} lanes): kernel {fmt_ms(t)}, plain "
-            f"{p_ms:.3f} ms, bound {culled[0]:.5f} ms ({culled[1]}; "
-            f"{ext} crossed extension pairs, {nee} crossed shadow pairs), "
-            f"of a full sweep {sweep[0]:.5f} ms ({sweep[1]}); kernel vs "
-            f"plain {json.dumps(agree)} "
-            f"(bars {json.dumps(testing.PATH_BOUNCE_BARS)}); against the "
-            f"plain version in float64: "
-            + "; ".join(f"{k} max |dtau| {v['max_dtau']:.3e}, tau excess "
-                        f"{v['tau_excess']:.3e} on {v['tau_beyond']} rays"
-                        for k, v in vs64.items()))
-        if not agree["ok"]:
-            raise AssertionError(f"K2 at the step path's {key} iteration "
-                                 f"misses PATH_BOUNCE_BARS: {agree}")
-    lanes = np.asarray(lanes)
-    log("28 step wavefront", f"chunk {MEDIUM_CHUNK}: {len(lanes)} "
-        f"iterations, {int(lanes.sum())} lanes traced, "
-        f"{int((lanes < 4096).sum())} iterations under 4,096 lanes, "
-        f"{int((lanes < 128).sum())} under 128, lanes at iteration 0, 10, "
-        f"100 and the last: "
-        f"{[int(lanes[i]) for i in (0, 10, 100, -1) if i < len(lanes)]}")
+    # K2 at the path's shapes, in a process of its own: late in a long
+    # process the profiler may record none of a short run's launches
+    # (PERF.md), and here it recorded none of K2's in three windows
+    here = os.path.dirname(os.path.abspath(__file__))
+    run = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.step_k2()"],
+        cwd=here, env=dict(os.environ, PYTHONPATH=here), capture_output=True,
+        text=True, timeout=900)
+    if run.returncode:
+        raise AssertionError(f"K2 at the step path's shapes: exit "
+                             f"{run.returncode}\n{run.stderr[-4000:]}")
+    lines = run.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line, flush=True)
+    out = json.loads(lines[-1])
 
     # where the step path's time goes: one chunk of the headline's width,
     # in a process of its own (PERF.md: late in a long process the
     # profiler may record none of a short run's launches)
     size, spp = STEP_PROFILE
-    here = os.path.dirname(os.path.abspath(__file__))
     run = subprocess.run(
         [sys.executable, "-m", "gvr_tpu_torch.profile_render",
          "--gaussians", "250", "--size", str(size), "--spp", str(spp),
@@ -1207,6 +1349,7 @@ def run(dev):
                                        pathtrace, pathtrace_big, rng)
     from gvr_tpu_torch.kernels.timing import kernel_ms
     from gvr_tpu_torch.ops.sampling import dir_from_xi
+    from gvr_tpu_torch.parallel.checks import counted_kernels
     from gvr_tpu_torch.scene.generators import random_gaussian_scene
     from gvr_tpu_torch.scene.scene import parse_gmm
 
@@ -1483,14 +1626,7 @@ def run(dev):
         f"sweep {bounds['bounce_sweep'][0]:.5f} ms ({smi})")
 
     # ---- 6: the main path through the CLI ----
-    counters = (rng.planes_uniforms, rng.planes_uniforms_reference,
-                rng.wave_uniforms, rng.wave_uniforms_reference,
-                pathtrace.bounce_step, pathtrace.bounce_core_reference,
-                megatrace.mega_call, megatrace.mega_reference,
-                gridtrace.span_tau_pass, gridtrace.span_tau_reference,
-                gridtrace.solve_pass, gridtrace.solve_reference,
-                pathtrace_big.big_stage1, pathtrace_big.big_stage1_reference,
-                pathtrace_big.big_nee, pathtrace_big.big_nee_reference)
+    counters = counted_kernels()
 
     def cli_image(text, size, spp, device, args=(), scene_file=None):
         """(stats, wall seconds, launches, image) of ``text`` (or of the
@@ -1529,10 +1665,11 @@ def run(dev):
         missing = [k for k in kernels if launches[k] == 0]
         if missing:
             raise AssertionError(f"main path never launched {missing}")
-        # K3's launches: wave_uniforms once a wavefront iteration, or
+        # K3's launches: wave_uniforms once a grid iteration, or
         # planes_uniforms as the other integrators draw (their
         # k3_launches: twice a chunk and sample in single scatter, once a
-        # march step in the marchers)
+        # march step in the marchers); the dense wavefronts draw inside
+        # K8, whose two launches come once an iteration
         for k3, other, due in (
                 ("wave_uniforms", "planes_uniforms", "iterations"),
                 ("planes_uniforms", "wave_uniforms", "k3_launches")):
@@ -1541,6 +1678,16 @@ def run(dev):
                 raise AssertionError(
                     f"K3 launched {launches[k3]} + {launches[other]} times "
                     f"where {stats[due]} were due")
+        if "wave_pre" in kernels and not (
+                launches["wave_pre"] == launches["wave_post"]
+                == stats["iterations"] and not launches["wave_uniforms"]
+                and not launches["planes_uniforms"]):
+            raise AssertionError(
+                f"K8 launched {launches['wave_pre']} + "
+                f"{launches['wave_post']} times, K3 "
+                f"{launches['wave_uniforms']} + "
+                f"{launches['planes_uniforms']}, where "
+                f"{stats['iterations']} iterations ran")
         plain = {k: v for k, v in launches.items()
                  if k.endswith("_reference") and v}
         if plain:
@@ -1867,7 +2014,7 @@ def run(dev):
     # ---- 14: the big-N main path through the CLI, against phase 11 ----
     stats, wall, launches_b, img_big = cli_render(
         text10k, GRID_SIZE, GRID_SPP,
-        ["big_stage1", "big_nee", "wave_uniforms"], engine="dense")
+        ["big_stage1", "big_nee", "wave_pre", "wave_post"], engine="dense")
     m_big, m_grid = float(img_big.mean()), float(img_grid.mean())
     log("14 big main", f"cli render {GRID_N} Gaussians {GRID_SIZE}^2 spp "
         f"{GRID_SPP} --engine dense ({stats['kernel']} kernel): render "
@@ -1906,10 +2053,10 @@ def run(dev):
     launches_x = {}
     for solver in XLA_SOLVERS:
         stats, wall, launches_p, img = cli_render(
-            text250, XLA_SIZE, XLA_SPP, ["wave_uniforms"],
+            text250, XLA_SIZE, XLA_SPP, ["wave_pre", "wave_post"],
             args=["--solver", solver])
         m = float(img.mean())
-        launches_x[solver] = launches_p["wave_uniforms"]
+        launches_x[solver] = launches_p["wave_pre"]
         log("16 xla engine", f"cli render 250 Gaussians {XLA_SIZE}^2 spp "
             f"{XLA_SPP} --solver {solver}: engine {stats['engine']} "
             f"({stats['kernel']} kernel), render {stats['seconds']:.3f} s "
@@ -1930,9 +2077,9 @@ def run(dev):
             raise AssertionError(f"--solver {solver}: not the XLA engine, "
                                  f"K1 launched, or the mean is off")
     stats, wall, launches_p, img = cli_render(
-        text10k, XLA_BIG[1], XLA_BIG[2], ["wave_uniforms"],
+        text10k, XLA_BIG[1], XLA_BIG[2], ["wave_pre", "wave_post"],
         args=["--solver", "bisection"])
-    launches_x["10k"] = launches_p["wave_uniforms"]
+    launches_x["10k"] = launches_p["wave_pre"]
     log("16 xla engine", f"cli render {XLA_BIG[0]} Gaussians {XLA_BIG[1]}^2 "
         f"spp {XLA_BIG[2]} --solver bisection, engine auto: engine "
         f"{stats['engine']} ({stats['kernel']} kernel), chunk "
@@ -2132,6 +2279,8 @@ def run(dev):
     step = step_phase(dev, smi, text250, counters, main_img)
     times["bounce_step"] = (step["full"]["t"], step["full"]["plain_ms"])
     bounds["bounce_step"] = step["full"]["bound"]
+    for name, (t, p_ms, bnd) in glue_phase(dev, smi).items():
+        times[name], bounds[name] = (t, p_ms), bnd
 
     def entry(name, replaces, key, path_launches, launches_key, err):
         t = times[key][0]
@@ -2160,6 +2309,8 @@ def run(dev):
               "big_stage1", launches_b, "big_stage1", k4_err),
         entry("big_nee", "gvr_tpu/kernels/pathtrace_big.py:409", "big_nee",
               launches_b, "big_nee", k5_err),
+        entry("wave_pre", None, "wave_pre", launches_b, "wave_pre", 0.0),
+        entry("wave_post", None, "wave_post", launches_b, "wave_post", 0.0),
     ]
     # K1 shares K2's device functions (the pair sweep, the solve, the
     # shadow-ray depth) but not its bounce, which runs on the step path
@@ -2168,9 +2319,8 @@ def run(dev):
     # lanes), its tail iteration's in *_tail and phase 5's 65,536 random
     # rays' in *_random; its bound counts the pairs the rays cross, as
     # K1's does, and bound_ms_sweep* a pair test of every row.  K3 also
-    # runs inside K1, and the grid main path launches it directly, once an
-    # iteration, as wave_uniforms (its count is that run's; the big-N
-    # run's in launches_big)
+    # runs inside K1 and K8, and the grid main path launches it directly,
+    # once an iteration, as wave_uniforms (its count is that run's)
     kernels[1]["inside"] = kernels[2]["inside"] = "mega"
     kernels[1]["path"] = "step"
     kernels[1].update(
@@ -2185,11 +2335,9 @@ def run(dev):
         bound_ms_sweep_random=bounds["bounce_sweep"][0],
         idle_share_step=step["profile"]["idle_share"],
         device_share_step=step["profile"]["k2_share"])
-    kernels[2]["launches_big"] = launches_b["wave_uniforms"]
-    # this slice's paths draw through K3 too: the XLA engine once an
-    # iteration (wave_uniforms, phase 16), single scatter twice a (chunk,
-    # sample) and the marchers once a step (planes_uniforms, phase 18)
-    kernels[2]["launches_xla"] = launches_x
+    # this slice's paths draw through K3 too: single scatter twice a
+    # (chunk, sample) and the marchers once a step (planes_uniforms, phase
+    # 18); the dense wavefronts (big-N, step, XLA) draw inside K8
     kernels[2]["launches_integrators"] = launches_i
     # the fit path (phase 20): K3 four times an iteration
     # (planes_uniforms: 2 loss buffers x spp 2, every bounce's draws in
@@ -2207,7 +2355,13 @@ def run(dev):
     kernels[2]["bound_ms_planes"] = bounds["rng_planes"][0]
     for k in kernels[2:5]:
         k["path"] = "grid"
-    for k in kernels[5:]:
+    # K8 replaces no TPU kernel: the dense wavefronts' eager glue (phase
+    # 29); its launches are the big-N render's (phase 14), the XLA
+    # engine's in launches_xla (phase 16)
+    for k in kernels[7:]:
+        k["path"] = "big"
+        k["launches_xla"] = launches_x
+    for k in kernels[5:7]:
         k["path"] = "big"
         t, k["plain_ms_bounce1"] = times[k["name"] + "_bounce1"]
         k["ms_bounce1"] = t["ms"]

@@ -32,7 +32,7 @@ def single_scatter_radiance(scene: Scene, origin, direction, rng_ids,
     with the bounce-0 draws of (rng_ids, sample)."""
     xi = uniform_planes(rng_ids, sample, 0, BOUNCE_DRAWS, cfg.seed)
     _, scattered, albedo, li, w_ne = _xla_bounce(scene, cfg, origin,
-                                                 direction, xi)
+                                                 direction, xi[:5].T, xi[8])
     scatter_l = (albedo * INV_4PI * w_ne)[:, None] * li
     return torch.where(scattered[:, None], scatter_l,
                        scene.env_color.expand_as(scatter_l))

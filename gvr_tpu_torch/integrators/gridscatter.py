@@ -33,6 +33,7 @@ from gvr_tpu_torch.kernels.gridtrace import solve_pass, span_tau_pass
 from gvr_tpu_torch.kernels.megatrace import INV_4PI, strat_n, strat_uv
 from gvr_tpu_torch.kernels.pathtrace import FOUR_PI
 from gvr_tpu_torch.kernels.rng import BOUNCE_DRAWS, wave_uniforms
+from gvr_tpu_torch.kernels.wavefront import roulette
 from gvr_tpu_torch.ops.sampling import dir_from_xi
 from gvr_tpu_torch.scene.scene import Scene
 from gvr_tpu_torch.utils.profiling import count, span
@@ -224,15 +225,7 @@ def wavefront_pixels_grid_pooled(scene: Scene, grid: GridIndex, camera,
             p_g = torch.where(alive_n, g, pool_n)
             p_pos, p_wi = pos, wi
 
-            thr_n = thr * albedo[:, None]
-            do_rr = bounce >= cfg.min_scatter
-            rr_cap = torch.where(bounce >= cfg.rr_tail_after, cfg.rr_cap_tail,
-                                 cfg.rr_cap).to(torch.float32)
-            rr = torch.minimum(thr_n.amax(dim=-1), rr_cap)
-            killed = do_rr & (xi[5] > rr)
-            thr_n = torch.where((do_rr & ~killed)[:, None],
-                                thr_n / torch.clamp(rr, min=1e-12)[:, None],
-                                thr_n)
+            thr_n, killed = roulette(cfg, thr, albedo, bounce, xi[5])
             alive = alive_n & ~killed & (bounce + 1 < cfg.max_bounces)
             o = torch.where(alive[:, None], pos, o)
             d = torch.where(alive[:, None], dir_from_xi(xi[6:8].T), d)

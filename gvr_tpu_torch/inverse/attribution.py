@@ -26,9 +26,10 @@ import torch
 
 from gvr_tpu_torch.config import RenderConfig, Solver
 from gvr_tpu_torch.integrators.common import pick_chunk
-from gvr_tpu_torch.integrators.multiscatter import _roulette, mc_camera_rays
+from gvr_tpu_torch.integrators.multiscatter import mc_camera_rays
 from gvr_tpu_torch.integrators.test_hit import pixel_rays
 from gvr_tpu_torch.kernels.rng import BOUNCE_DRAWS
+from gvr_tpu_torch.kernels.wavefront import roulette
 from gvr_tpu_torch.ops.quadratics import intersect_gaussians
 from gvr_tpu_torch.ops.sampling import dir_from_xi, uniform_planes
 from gvr_tpu_torch.ops.solvers import sample_free_flight
@@ -104,7 +105,7 @@ def _path_membership(scene: Scene, camera, cfg: RenderConfig, ids,
         mem |= touched & alive[:, None]
         pos = o + t_sc[:, None] * d
         albedo = albedo_at_from_rg(rg_s, alb_k, t_sc)
-        thr_n, killed = _roulette(cfg, thr, albedo, bounce, xi[5])
+        thr_n, killed = roulette(cfg, thr, albedo, bounce, xi[5])
         alive = alive & scattered & ~killed
         o = torch.where(alive[:, None], pos, o)
         d = torch.where(alive[:, None], dir_from_xi(xi[6:8].T), d)

@@ -213,9 +213,11 @@ def cpu_suite(dev, inp: dict) -> dict:
 def counted_kernels():
     """The kernel wrappers and plain versions that count their calls."""
     from gvr_tpu_torch.kernels import (gridtrace, megatrace, pathtrace,
-                                       pathtrace_big, rng)
+                                       pathtrace_big, rng, wavefront)
     return (rng.planes_uniforms, rng.planes_uniforms_reference,
             rng.wave_uniforms, rng.wave_uniforms_reference,
+            wavefront.wave_pre, wavefront.wave_pre_reference,
+            wavefront.wave_post, wavefront.wave_post_reference,
             pathtrace.bounce_step, pathtrace.bounce_core_reference,
             megatrace.mega_call, megatrace.mega_reference,
             gridtrace.span_tau_pass, gridtrace.span_tau_reference,

@@ -10,7 +10,7 @@ import torch
 
 from gvr_tpu_torch.cameras import PinholeCamera
 from gvr_tpu_torch.integrators.multiscatter import tile_order
-from gvr_tpu_torch.kernels import pathtrace_big
+from gvr_tpu_torch.kernels import pathtrace_big, wavefront
 
 # Bars for two bounce results, from gvr_tpu's tests/test_pallas_kernels.py
 # _check: scatter decisions agree on > 99.5 % of rays, tau to rtol 1e-3 /
@@ -548,3 +548,66 @@ def big_kernel_vs_plain(table, boxes, o, d, xi, lights, env,
                                    and torch.equal(adm5, want5)))
     res["ok"] = res["ok"] and res["admitted_equal"]
     return res
+
+
+def roulette_edges(cfg, thr, albedo, bounce, u) -> torch.Tensor:
+    """Russian roulette's draws u [n] of lanes with throughput thr [n, 3],
+    the bounce's albedo [n] and bounce [n], with every third lane's draw
+    set to its survival probability (it survives) and the next lane's one
+    ulp above it (it is killed), where roulette applies: the edges of
+    ``kernels/wavefront.roulette``'s test."""
+    b = bounce.to(torch.int64)
+    cap = torch.where(b >= cfg.rr_tail_after, cfg.rr_cap_tail,
+                      cfg.rr_cap).to(torch.float32)
+    rr = torch.minimum((thr * albedo[:, None]).amax(dim=-1), cap)
+    k = torch.arange(u.shape[0], device=u.device) % 3
+    u = torch.where(k == 0, rr, u)
+    u = torch.where(k == 1, torch.nextafter(rr, torch.full_like(rr, 2.0)), u)
+    # the edges decide as the plain roulette does
+    killed = wavefront.roulette(cfg, thr, albedo, bounce, u)[1]
+    do_rr = b >= cfg.min_scatter
+    assert not killed[(k == 0) & do_rr].any()
+    assert killed[(k == 1) & do_rr].all()
+    return u
+
+
+def random_lanes(cfg, camera, b: int, device, seed: int):
+    """Random wavefront lanes for holding the glue of
+    ``kernels/wavefront`` (K8 or its plain version) against another
+    version: (lanes, live, res, edges).  The b lanes hold distinct pixel
+    ids; a third are alive, the rest dead: with samples left (a fifth of
+    them at the last sample) or finished; bounces in [0, max_bounces),
+    a tenth at max_bounces - 1.  ``live`` is the loop's live read of them,
+    ``res`` random bounce results (t_sc, scattered, albedo, li [n, 3]) of
+    the live lanes, ``edges(lanes, u)`` ``roulette_edges`` on the live
+    lanes of ``lanes`` after the pre-bounce step."""
+    g = torch.Generator().manual_seed(seed)
+    rnd = lambda *shape: torch.rand(shape, generator=g)
+    ri = lambda lo, hi, n: torch.randint(lo, hi, (n,), generator=g)
+    spp, mb = cfg.spp, cfg.max_bounces
+    assert b <= cfg.width * cfg.height
+    ids = torch.randperm(cfg.width * cfg.height, generator=g)[:b]
+    L = wavefront.lanes(ids.to(torch.int32).to(device), camera)
+    alive = rnd(b) < 1 / 3
+    sample = torch.where(alive, ri(1, spp + 1, b), ri(0, spp + 1, b))
+    sample = torch.where(~alive & (rnd(b) < 0.2), spp - 1, sample)
+    bounce = torch.where(rnd(b) < 0.1, mb - 1, ri(0, mb, b))
+    d = torch.randn((b, 3), generator=g)
+    f32 = lambda t: t.to(torch.float32).to(device)
+    L.o = f32(torch.randn((b, 3), generator=g))
+    L.d = f32(d / torch.linalg.vector_norm(d, dim=-1, keepdim=True))
+    L.thr = f32(rnd(b, 3))
+    L.acc = f32(rnd(b, 3) * 2.0)
+    L.alive = alive.to(device)
+    L.sample = sample.to(torch.int32).to(device)
+    L.bounce = bounce.to(torch.int32).to(device)
+    live = torch.nonzero(L.alive | (L.sample < spp)).squeeze(1)
+    n = live.shape[0]
+    res = (f32(rnd(n) * 3.0), (rnd(n) < 0.7).to(device), f32(rnd(n)),
+           f32(rnd(n, 3) * 5.0))
+
+    def edges(lanes, u):
+        return roulette_edges(cfg, lanes.thr[live], res[2],
+                              lanes.bounce[live], u)
+
+    return L, live, res, edges

@@ -298,9 +298,9 @@ def path_statistics(scene, camera, cfg: RenderConfig,
     one that scatters; the throughput decays by the albedo and Russian
     roulette ends paths as in the wavefront.  The count holds [n, N]
     arrays, so n is capped by an element budget."""
-    from gvr_tpu_torch.integrators.multiscatter import _roulette
     from gvr_tpu_torch.integrators.test_hit import pixel_rays
     from gvr_tpu_torch.kernels.rng import BOUNCE_DRAWS
+    from gvr_tpu_torch.kernels.wavefront import roulette
     from gvr_tpu_torch.ops.sampling import dir_from_xi, uniform_planes
     from gvr_tpu_torch.ops.solvers import sample_free_flight
     from gvr_tpu_torch.ops.transmittance import (albedo_at_from_rg,
@@ -332,7 +332,7 @@ def path_statistics(scene, camera, cfg: RenderConfig,
         bounces += int(hits.sum())
         t_pos = torch.clamp(t_sc, min=0.0)
         albedo = albedo_at_from_rg(rg, gmm.albedo, t_pos)
-        thr_n, killed = _roulette(cfg, thr, albedo, bounce, xi[5])
+        thr_n, killed = roulette(cfg, thr, albedo, bounce, xi[5])
         alive = hits & ~killed
         thr = torch.where(alive[:, None], thr_n, thr)
         o = o + t_pos[:, None] * d

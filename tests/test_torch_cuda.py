@@ -18,6 +18,7 @@ from gvr_tpu_torch.accel.grid import build_grid, dda_crossings
 from gvr_tpu_torch.cameras import OrthographicCamera, PinholeCamera
 from gvr_tpu_torch.config import RenderConfig, Solver
 from gvr_tpu_torch.integrators.freeflight import render_single_scatter
+from gvr_tpu_torch.integrators import multiscatter as tms
 from gvr_tpu_torch.integrators.gridscatter import (critical_crossing,
                                                    grid_tau_crossings)
 from gvr_tpu_torch import cli
@@ -36,6 +37,7 @@ from gvr_tpu_torch.kernels import megatrace as tmt
 from gvr_tpu_torch.kernels import pathtrace as tpt
 from gvr_tpu_torch.kernels import pathtrace_big as tpb
 from gvr_tpu_torch.kernels import rng as trng
+from gvr_tpu_torch.kernels import wavefront as twf
 from gvr_tpu_torch.ops import transmittance as tto
 from gvr_tpu_torch.scene.gaussians import GaussianMixture
 from gvr_tpu_torch.scene.generators import (random_gaussian_scene,
@@ -43,7 +45,7 @@ from gvr_tpu_torch.scene.generators import (random_gaussian_scene,
 from gvr_tpu_torch.scene.scene import parse_gmm, parse_smm
 from gvr_tpu_torch.scene.voxels import VoxelGrid
 from gvr_tpu_torch.testing import (BIG_DENSE_BARS, BOUNCE_BARS,
-                                   bake_agreement,
+                                   bake_agreement, random_lanes,
                                    big_kernel_vs_plain, big_rays,
                                    card_cpu_agreement, chunk_agreement,
                                    gif_structure, image_agreement,
@@ -345,16 +347,18 @@ def _step_render(device, cfg):
 
 
 def test_step_render_on_card_matches_cpu(cuda_device):
-    """The step wavefront (K3 and K2 once an iteration) at 32^2 spp 4 on
-    the card against the same render on the CPU (K2's plain version), by
-    image_agreement (CHUNK_BARS: a path whose scatter or RR test sits
-    within rounding of its threshold may flip); no plain version and no
-    megakernel on the card."""
+    """The step wavefront (K8's two launches and K2 once an iteration) at
+    32^2 spp 4 on the card against the same render on the CPU (K2's plain
+    version), by image_agreement (CHUNK_BARS: a path whose scatter or RR
+    test sits within rounding of its threshold may flip); no plain
+    version, no K3 launch and no megakernel on the card."""
     cfg = RenderConfig(width=32, height=32, spp=4)
     want, _ = _step_render("cpu", cfg)
     counters = (tpt.bounce_step, tpt.bounce_core_reference,
-                trng.wave_uniforms, trng.wave_uniforms_reference,
-                tmt.mega_call, tmt.mega_reference)
+                twf.wave_pre, twf.wave_post, twf.wave_pre_reference,
+                twf.wave_post_reference, trng.wave_uniforms,
+                trng.wave_uniforms_reference, tmt.mega_call,
+                tmt.mega_reference)
     for fn in counters:
         fn.launches = 0
     got, stats = _step_render(cuda_device, cfg)
@@ -362,7 +366,7 @@ def test_step_render_on_card_matches_cpu(cuda_device):
     assert res["ok"], res
     it = stats["iterations"]
     assert it > 0
-    assert [fn.launches for fn in counters] == [it, 0, it, 0, 0, 0]
+    assert [fn.launches for fn in counters] == [it, 0, it, it] + [0] * 6
 
 
 def test_step_render_reproducible(cuda_device):
@@ -749,6 +753,93 @@ def test_big_render_launches_the_kernels(cuda_device):
         + [0, 0, 0]
 
 
+# ---- K8, the dense wavefront's glue ----------------------------------------
+
+def _clone_lanes(lanes):
+    return twf.Lanes(**{k: v.clone() if torch.is_tensor(v) else v
+                        for k, v in vars(lanes).items()})
+
+
+def _lanes_equal(a, b):
+    """Names of the lane fields in which a and b differ in any bit (slot
+    and want are the kernel's own)."""
+    return [k for k in ("o", "d", "thr", "acc", "alive", "sample",
+                        "bounce")
+            if not torch.equal(getattr(a, k), getattr(b, k))]
+
+
+@pytest.mark.parametrize("camera", ["pinhole", "orthographic"])
+def test_wave_kernel_matches_plain(cuda_device, camera):
+    """K8 against its plain version run eagerly on the card, bit for bit,
+    on 65,536 random lane states (testing.random_lanes: dead, finished and
+    live lanes, regeneration at the last sample, bounce max_bounces - 1):
+    the pre-bounce launch's gathered rays and draws and its lane state,
+    then the post-bounce launch on one set of random bounce results, Li
+    in both layouts the bounces give, with roulette draws exactly at and
+    one ulp above the survival probability on chosen lanes."""
+    cam = _cameras(cuda_device)[camera == "orthographic"]
+    cfg = RenderConfig(width=320, height=205, spp=9, max_bounces=6,
+                       min_scatter=1, rr_tail_after=3, seed=2**31 + 7)
+    lanes, live, res, edges = random_lanes(cfg, cam, 65_536, cuda_device,
+                                           seed=4)
+    plain = _clone_lanes(lanes)
+    got = twf.wave_pre(lanes, live, cfg)
+    want = twf.wave_pre_reference(plain, live, cfg)
+    for name, g, w in zip(("o", "d", "xi", "xr"), got, want):
+        assert torch.equal(g, w), name
+    assert _lanes_equal(lanes, plain) == []
+    xr = got[3].clone()
+    xr[0] = edges(plain, xr[0])
+    for li_t in (False, True):
+        r = res if not li_t else res[:3] + (res[3].T.contiguous().T,)
+        k, p = _clone_lanes(lanes), _clone_lanes(plain)
+        want_mask = twf.wave_post_reference(p, live, xr, r, 4.0,
+                                            torch.tensor([0.3, 0.5, 0.9],
+                                                         device=cuda_device),
+                                            cfg)
+        got_mask = twf.wave_post(k, live, xr, r, 4.0,
+                                 torch.tensor([0.3, 0.5, 0.9],
+                                              device=cuda_device), cfg)
+        assert torch.equal(got_mask, want_mask)
+        assert _lanes_equal(k, p) == []
+
+
+@pytest.mark.parametrize("engine", ["big", "step", "xla"])
+def test_wavefront_image_same_with_plain_glue(cuda_device, monkeypatch,
+                                              engine):
+    """render_multiscatter at 128^2 spp 16 through the big-N, step and
+    XLA engines on the card: the same bytes with K8 as with its plain
+    version run eagerly on the card (the eager loop K8 replaced)."""
+    n, kw = {"big": (2100, dict(engine="dense")),
+             "step": (250, dict(wavefront="step")),
+             "xla": (250, dict(solver=Solver.BISECTION))}[engine]
+    sc = parse_gmm(random_gaussian_scene(n, seed=0), device=cuda_device)
+    cam = _cameras(cuda_device)[0]
+    cfg = RenderConfig(width=128, height=128, spp=16, **kw)
+    stats = {}
+    got = render_multiscatter(sc, cam, cfg, device=cuda_device, stats=stats)
+    assert stats["kernel"] == engine
+    monkeypatch.setattr(tms, "wave_pre", twf.wave_pre_reference)
+    monkeypatch.setattr(tms, "wave_post", twf.wave_post_reference)
+    before = twf.wave_pre.launches
+    want = render_multiscatter(sc, cam, cfg, device=cuda_device)
+    assert twf.wave_pre.launches == before
+    assert np.isfinite(got).all() and got.std() > 0
+    assert got.tobytes() == want.tobytes()
+
+
+def test_wave_wrappers_refuse_bad_inputs(cuda_device):
+    cfg = RenderConfig(width=16, height=16, spp=4)
+    ids = torch.arange(256, dtype=torch.int32, device=cuda_device)
+    lanes = twf.lanes(ids, _cameras(cuda_device)[0])
+    live = torch.arange(256, device=cuda_device)
+    with pytest.raises(ValueError, match="live"):
+        twf.wave_pre(lanes, live.int(), cfg)
+    lanes.sample = lanes.sample.long()
+    with pytest.raises(ValueError, match="sample"):
+        twf.wave_pre(lanes, live, cfg)
+
+
 def test_big_wrappers_refuse_bad_tables(cuda_device):
     o, d, xi = (torch.from_numpy(a).to(cuda_device)
                 for a in random_rays(64, seed=2))
@@ -807,23 +898,26 @@ def test_tau_coeffs_ignore_the_tf32_flag(cuda_device):
                                     "uniform"])
 def test_xla_engine_on_card_matches_cpu(cuda_device, solver):
     """The XLA engine at 16^2 spp 9 on the card against the CPU
-    (testing.CARD_CPU_BARS), with K3 launched once an iteration and no
-    megakernel or plain version called."""
+    (testing.CARD_CPU_BARS), with K8's two launches once an iteration (its
+    draws inline, no K3 launch) and no megakernel or plain version
+    called."""
     cfg = RenderConfig(width=16, height=16, spp=9, solver=Solver(solver),
                        candidate_k=8 if solver == "uniform" else 0)
     cam = _cameras("cpu")[0]
     want = render_multiscatter(parse_gmm(SCENE24), cam, cfg, device="cpu")
-    counters = (trng.wave_uniforms, trng.wave_uniforms_reference,
-                trng.planes_uniforms, trng.planes_uniforms_reference,
-                tmt.mega_call, tmt.mega_reference)
+    counters = (twf.wave_pre, twf.wave_post, twf.wave_pre_reference,
+                twf.wave_post_reference, trng.wave_uniforms,
+                trng.wave_uniforms_reference, trng.planes_uniforms,
+                trng.planes_uniforms_reference, tmt.mega_call,
+                tmt.mega_reference)
     for fn in counters:
         fn.launches = 0
     stats = {}
     got = render_multiscatter(parse_gmm(SCENE24), cam, cfg,
                               device=cuda_device, stats=stats)
     assert (stats["engine"], stats["kernel"]) == ("dense", "xla")
-    assert [fn.launches for fn in counters] == [stats["iterations"], 0, 0,
-                                                0, 0, 0]
+    it = stats["iterations"]
+    assert [fn.launches for fn in counters] == [it, it] + [0] * 8
     res = card_cpu_agreement(got, want)
     assert res["ok"], res
 

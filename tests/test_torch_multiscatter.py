@@ -20,13 +20,18 @@ from gvr_tpu.scene.scene import parse_gmm as jax_parse_gmm
 from gvr_tpu.scene.scene import parse_smm as jax_parse_smm
 from gvr_tpu_torch import cli
 from gvr_tpu_torch.cameras import OrthographicCamera, PinholeCamera
-from gvr_tpu_torch.config import RenderConfig
+from gvr_tpu_torch.config import RenderConfig, Solver
 from gvr_tpu_torch.integrators import multiscatter as tms
 from gvr_tpu_torch.integrators.multiscatter import (render_multiscatter,
                                                     tile_ids, tile_order)
 from gvr_tpu_torch.io.ppm import quantize, read_ppm
+from gvr_tpu_torch.kernels import wavefront as twf
+from gvr_tpu_torch.kernels.megatrace import INV_4PI, strat_n, strat_uv
+from gvr_tpu_torch.kernels.rng import BOUNCE_DRAWS, wave_uniforms
+from gvr_tpu_torch.ops.sampling import dir_from_xi
 from gvr_tpu_torch.scene.scene import parse_gmm
-from gvr_tpu_torch.testing import image_agreement
+from gvr_tpu_torch.testing import (image_agreement, random_lanes,
+                                   roulette_edges)
 
 SCENE = random_gaussian_scene(24, seed=7, diameter=(0.2, 0.6),
                               density=(0.5, 2.0))
@@ -109,6 +114,140 @@ def test_render_same_with_sorted_order(monkeypatch):
     monkeypatch.setattr(tms, "tile_ids", lambda w, h, device: torch.from_numpy(
         tile_order(w, h)).to(device))
     want = render_multiscatter(parse_gmm(SCENE), tcam, cfg, device="cpu")
+    assert got.std() > 0
+    np.testing.assert_array_equal(got, want)
+
+
+def _eager_iteration(st: dict, live, cfg, camera, env, bounce_fn,
+                     edges=None):
+    """One iteration of the dense wavefront's loop over the lane state
+    ``st`` (ids, o, d, thr, acc, alive, sample, bounce), written out in
+    eager PyTorch as one straight line: the reference of the glue in
+    kernels/wavefront.py.  ``bounce_fn(o, d, xi [n, 5], xi_solve [n])``
+    traces the live lanes; ``edges(thr, bounce, u)``, if given, replaces
+    the live lanes' roulette draws.  Returns the next live read's mask."""
+    ids, b, dev = st["ids"], st["ids"].shape[0], st["ids"].device
+    w, h, spp = cfg.width, cfg.height, cfg.spp
+    o, d, thr, acc = st["o"], st["d"], st["thr"], st["acc"]
+    alive, sample, bounce = st["alive"], st["sample"], st["bounce"]
+    regen = ~alive & (sample < spp)
+    bounce = torch.where(regen, 0, bounce)
+    sample = torch.where(regen, sample + 1, sample)
+    s_cur = torch.clamp(sample, min=1) - 1
+    jit, xi = wave_uniforms(ids, s_cur, bounce, cfg.seed).split(
+        [2, BOUNCE_DRAWS])
+    u, v = strat_uv(ids % w, ids // w, s_cur, strat_n(spp), w, h, jit[0],
+                    jit[1])
+    o_n, d_n = camera.sample_ray(torch.stack([u, v], dim=-1))
+    o = torch.where(regen[:, None], o_n, o)
+    d = torch.where(regen[:, None], d_n, d)
+    thr = torch.where(regen[:, None], 1.0, thr)
+    alive = alive | regen
+    if edges is not None:
+        xi = xi.clone()
+        xi[5, live] = edges(thr[live], bounce[live], xi[5, live])
+    res = bounce_fn(o[live], d[live], xi[:5, live].T, xi[8, live])
+    w_ne = res[4]
+    t_sc, scattered, albedo, li = (
+        torch.zeros((b,) + r.shape[1:], dtype=r.dtype, device=dev)
+        .index_copy_(0, live, r) for r in res[:4])
+    acc = acc + torch.where((alive & ~scattered)[:, None], thr * env, 0.0)
+    alive_n = alive & scattered
+    pos = o + t_sc[:, None] * d
+    acc = acc + torch.where(
+        alive_n[:, None], thr * (albedo * INV_4PI * w_ne)[:, None] * li, 0.0)
+    thr_n, killed = twf.roulette(cfg, thr, albedo, bounce, xi[5])
+    alive = alive_n & ~killed & (bounce + 1 < cfg.max_bounces)
+    o = torch.where(alive[:, None], pos, o)
+    d = torch.where(alive[:, None], dir_from_xi(xi[6:8].T), d)
+    thr = torch.where(alive[:, None], thr_n, thr)
+    bounce = bounce + 1
+    st.update(o=o, d=d, thr=thr, acc=acc, alive=alive, sample=sample,
+              bounce=bounce, inputs=(o[live], d[live], xi[:5, live].T,
+                                     xi[5:, live]))
+    return alive | (sample < spp)
+
+
+def _eager_wavefront(scene, camera, cfg, ids, bounce_fn, stats):
+    """``multiscatter._wavefront`` as the straight-line eager loop
+    (``_eager_iteration``)."""
+    st = {k: getattr(twf.lanes(ids, camera), k)
+          for k in ("ids", "o", "d", "thr", "acc", "alive", "sample",
+                    "bounce")}
+    live = torch.nonzero(st["alive"] | (st["sample"] < cfg.spp)).squeeze(1)
+    it, cap = 0, cfg.spp * cfg.max_bounces + cfg.max_bounces
+    while live.numel():
+        want = _eager_iteration(st, live, cfg, camera, scene.env_color,
+                                bounce_fn)
+        it += 1
+        if it == cap:
+            break
+        live = torch.nonzero(want).squeeze(1)
+    if stats is not None:
+        stats.update(iterations=it, bounce_evals=0)
+    return st["acc"] / cfg.spp
+
+
+@pytest.mark.parametrize("camera", ["pinhole", "orthographic"])
+@pytest.mark.parametrize("seed", [4, 5])
+def test_wave_glue_matches_the_eager_loop(camera, seed):
+    """kernels/wavefront's plain glue (wave_pre_reference, then
+    wave_post_reference) against one eager iteration of the loop, bit for
+    bit, on 4,096 random lanes (testing.random_lanes: dead, finished and
+    live lanes, regeneration at the last sample, bounce max_bounces - 1,
+    roulette draws at and one ulp above the survival probability): the
+    bounce's inputs, every lane's state and the next live read's mask."""
+    cam = (PinholeCamera.create([0, 1, 6], [0, 1, 0], 0.25 * math.pi)
+           if camera == "pinhole"
+           else OrthographicCamera.create([0, 1, 6], [0, 1, 0]))
+    cfg = RenderConfig(width=96, height=75, spp=9, max_bounces=6,
+                       min_scatter=1, rr_tail_after=3, seed=2**31 + seed)
+    lanes, live, res, edges = random_lanes(cfg, cam, 4096, "cpu", seed)
+    env = torch.tensor([0.3, 0.5, 0.9])
+    st = {k: getattr(lanes, k) for k in ("ids", "o", "d", "thr", "acc",
+                                         "alive", "sample", "bounce")}
+    seen = []
+
+    def bounce_fn(o, d, xi, xi_solve):
+        seen.append((o, d, xi, xi_solve))
+        return res + (4.0,)
+
+    want = _eager_iteration(st, live, cfg, cam, env, bounce_fn,
+                            lambda thr, bounce, u: roulette_edges(
+                                cfg, thr, res[2], bounce, u))
+    o, d, xi, xr = twf.wave_pre_reference(lanes, live, cfg)
+    for g, w in zip((o, d, xi, xr[-1]), seen[0]):
+        assert torch.equal(g, w)
+    xr[0] = edges(lanes, xr[0])
+    assert torch.equal(xr, st["inputs"][3])
+    got = twf.wave_post_reference(lanes, live, xr, res, 4.0, env, cfg)
+    assert torch.equal(got, want)
+    for k in ("o", "d", "thr", "acc", "alive", "sample", "bounce"):
+        assert torch.equal(getattr(lanes, k), st[k]), k
+    assert lanes.alive.any() and not lanes.alive.all()
+
+
+@pytest.mark.parametrize("engine", ["big", "step", "xla"])
+def test_wavefront_image_same_as_the_eager_loop(monkeypatch, engine):
+    """render_multiscatter at 24x16 spp 4 in two chunks through the
+    big-N (K4/K5's plain versions), step (K2's) and XLA engines: the same
+    bits as through the straight-line eager loop (_eager_wavefront), which
+    the tests against the JAX package hold (test_torch_big,
+    test_torch_step, test_torch_integrators)."""
+    n, kw = {"big": (2100, dict(engine="dense")),
+             "step": (24, dict(wavefront="step")),
+             "xla": (24, dict(solver=Solver.BISECTION))}[engine]
+    text = random_gaussian_scene(n, seed=7, diameter=(0.2, 0.6),
+                                 density=(0.5, 2.0))
+    tcam = PinholeCamera.create([0, 1, 6], [0, 1, 0], 0.25 * math.pi)
+    cfg = RenderConfig(width=24, height=16, spp=4, max_bounces=8,
+                       ray_chunk=128, **kw)
+    stats = {}
+    got = render_multiscatter(parse_gmm(text), tcam, cfg, device="cpu",
+                              stats=stats)
+    assert (stats["kernel"], stats["chunks"]) == (engine, 2)
+    monkeypatch.setattr(tms, "_wavefront", _eager_wavefront)
+    want = render_multiscatter(parse_gmm(text), tcam, cfg, device="cpu")
     assert got.std() > 0
     np.testing.assert_array_equal(got, want)
 
