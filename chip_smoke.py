@@ -77,14 +77,15 @@ raises, so the exit code is non-zero.
              (random_gaussian_scene(8000, 0, diameter 2-4), 32 chunks),
              nearly all crossing more than MAX_HITS pairs:
              testing.BIG_DENSE_BARS.  Each kernel's box tests admit the
-             chunks and groups the plain tests do, ray for ray.  The share
-             of rays over MAX_HITS, the chunks and groups admitted per ray
-             and per warp
+             chunks and groups the plain tests do, ray for ray, and K4
+             counts the rays over MAX_HITS pairs as the plain count does.
+             The share of rays over MAX_HITS, the chunks and groups
+             admitted per ray
  13 big timing  K4 and K5 device time and dispatch (10 launches) and plain
              ms (CUDA events, 2)
              at one iteration of the big main path: the 65,536 lanes of
              chunk 2 of the 512^2 image, primary rays and after one
-             bounce; the chunks and groups admitted per ray and per warp
+             bounce; the chunks and groups admitted per ray
              (K4 over [0, inf), K5 over [0, tmax]), the chunks holding a
              crossed pair, the pairs each ray crosses (mean, max), the
              share of rays over 32 and 64 of them, and each bound with
@@ -1877,10 +1878,8 @@ def run(dev):
     def cull_line(st, n_c):
         return (f"rays over MAX_HITS={pb.MAX_HITS} pairs "
                 f"{mean(st['crossed'] > pb.MAX_HITS):.4f}, chunks admitted "
-                f"per ray {mean(st['admitted']):.2f} and per warp "
-                f"{mean(st['warp']):.2f} of {n_c}, groups per ray "
-                f"{mean(st['groups']):.2f} and per warp "
-                f"{mean(st['warp_groups']):.2f} of {8 * n_c}")
+                f"per ray {mean(st['admitted']):.2f} of {n_c}, groups per "
+                f"ray {mean(st['groups']):.2f} of {8 * n_c}")
 
     table10k, boxes10k = pb.pack_rows(sc10k.medium), pb.chunk_boxes(
         sc10k.medium)
@@ -1988,15 +1987,11 @@ def run(dev):
             f"{BIG_CHUNK_INDEX} of {GRID_SIZE}^2: K4 kernel {fmt_ms(k4_t)}, "
             f"plain {p4_ms:.3f} ms; K5 kernel {fmt_ms(k5_t)}, plain "
             f"{p5_ms:.3f} ms; K4 chunks admitted per ray "
-            f"{mean(st4['admitted']):.2f} and per warp "
-            f"{mean(st4['warp']):.2f}, holding a crossed pair "
+            f"{mean(st4['admitted']):.2f}, holding a crossed pair "
             f"{mean(st4['hit']):.2f} of {n_c}, groups per ray "
-            f"{mean(st4['groups']):.2f} and per warp "
-            f"{mean(st4['warp_groups']):.2f}; K5 chunks per ray "
-            f"{mean(st5['admitted']):.2f} and per warp "
-            f"{mean(st5['warp']):.2f}, groups per ray "
-            f"{mean(st5['groups']):.2f} and per warp "
-            f"{mean(st5['warp_groups']):.2f}; pairs a ray crosses: mean "
+            f"{mean(st4['groups']):.2f}; K5 chunks per ray "
+            f"{mean(st5['admitted']):.2f}, groups per ray "
+            f"{mean(st5['groups']):.2f}; pairs a ray crosses: mean "
             f"{mean(crossed):.2f}, max {int(crossed.max())}, rays over 32 "
             f"{mean(crossed > 32):.5f} and over 64 {mean(crossed > 64):.5f} "
             f"(MAX_HITS {pb.MAX_HITS}); bounds K4 "

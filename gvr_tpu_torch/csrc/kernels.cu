@@ -634,14 +634,14 @@ int gvr_grid_solve(const float* tab, const int* cell_first,
 int gvr_big_stage1(const float* tab, int np, const float* boxes,
                    const float* o, const float* d, const float* xi, int b,
                    const float* light_rows, int n_lights, int solver_iters,
-                   float* out, int* admitted, void* stream) {
+                   float* out, int* admitted, int* overflow, void* stream) {
   if (b > 0) {
-    gvr::big_stage1_kernel<<<(b + gvr::BIG_BLOCK - 1) / gvr::BIG_BLOCK,
-                             gvr::BIG_BLOCK, 0,
+    gvr::big_stage1_kernel<<<(b + gvr::BIG_WARPS - 1) / gvr::BIG_WARPS,
+                             32 * gvr::BIG_WARPS, 0,
                              static_cast<cudaStream_t>(stream)>>>(
         reinterpret_cast<const float4*>(tab), np,
         reinterpret_cast<const float4*>(boxes), o, d, xi, b, light_rows,
-        n_lights, solver_iters, out, admitted);
+        n_lights, solver_iters, out, admitted, overflow);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -650,8 +650,8 @@ int gvr_big_nee(const float* tab, int np, const float* boxes,
                 const float* stage1, int b, const float* env, float* out,
                 int* admitted, void* stream) {
   if (b > 0) {
-    gvr::big_nee_kernel<<<(b + gvr::BIG_BLOCK - 1) / gvr::BIG_BLOCK,
-                          gvr::BIG_BLOCK, 0,
+    gvr::big_nee_kernel<<<(b + gvr::BIG_WARPS - 1) / gvr::BIG_WARPS,
+                          32 * gvr::BIG_WARPS, 0,
                           static_cast<cudaStream_t>(stream)>>>(
         reinterpret_cast<const float4*>(tab), np,
         reinterpret_cast<const float4*>(boxes), stage1, b, env, out,

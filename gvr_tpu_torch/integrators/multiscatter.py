@@ -464,15 +464,23 @@ def wavefront_pixels_big(scene: Scene, camera, cfg: RenderConfig,
     (int32) by the big-N dense wavefront (``_wavefront``), each bounce of
     the live lanes through K4 and K5.  ``table`` and ``boxes`` are
     ``pack_rows`` and ``chunk_boxes`` of the scene (built here if not
-    given)."""
+    given).  Under ``utils.profiling``'s recorder the chunk also counts
+    ``big_list_overflow``, the lanes traced whose crossed pairs overflowed
+    K4's list (one read of a device counter after the loop)."""
     if table is None:
         table = pack_rows(scene.medium)
     if boxes is None:
         boxes = chunk_boxes(scene.medium)
-    return _table_wavefront(
+    overflow = (torch.zeros(1, dtype=torch.int32, device=table.device)
+                if profiling.recording() else None)
+    out = _table_wavefront(
         scene, camera, cfg, ids, stats,
         lambda o, d, xi, lights, env: bounce_step_big(
-            table, o, d, xi, lights, env, cfg.solver_iters, boxes))
+            table, o, d, xi, lights, env, cfg.solver_iters, boxes,
+            overflow))
+    if overflow is not None:
+        profiling.count("big_list_overflow", int(overflow.item()))
+    return out
 
 
 def wavefront_pixels_step(scene: Scene, camera, cfg: RenderConfig,

@@ -52,7 +52,8 @@ SIGNATURES = {
     "gvr_span_tau": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P, _P,
                      _P, _P, _I, _I, _P, _P],
     "gvr_grid_solve": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
-    "gvr_big_stage1": [_P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P],
+    "gvr_big_stage1": [_P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P,
+                       _P],
     "gvr_big_nee": [_P, _I, _P, _P, _I, _P, _P, _P, _P],
     "gvr_wave_pre": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _U, _U, _P, _P, _P,
                      _P, _P, _P, _P, _P, _P, _P, _P, _P],

@@ -21,15 +21,16 @@ Plain versions (``big_stage1_reference``, ``big_nee_reference``): that
 math on [N, B] tensors with torch.erf (the TPU kernel's A&S erf is within
 1.5e-7 of it), chunked over rays so a 65,536-ray batch fits on the card.
 Kernels (``csrc/big.cuh``, launchers ``gvr_big_stage1`` and
-``gvr_big_nee`` in ``csrc/kernels.cu``): one thread per ray.  Each tests
-its ray against every chunk's box and, in an admitted chunk, against its
+``gvr_big_nee`` in ``csrc/kernels.cu``): one warp per ray.  Its lanes test
+the ray against every chunk's box and, in an admitted chunk, against its
 eight 32-row groups' boxes (``chunk_boxes``: the union of the Gaussians'
 3-sigma AABBs, widened; ``chunk_box_hits_reference`` is that test in
-plain torch), a warp walks a box's rows only where one of its rays' tests
-admits it, and a division-free pre-test (``may_cross_reference``) spares
-most rows the pair test.  K4's first pass lists the pairs its ray
-crosses, and its Newton and albedo passes walk only those (the chunks
-that held them where a ray crosses more than MAX_HITS).  Both give the
+plain torch), then walk the admitted groups a row a lane, where a
+division-free pre-test (``may_cross_reference``) spares most rows the
+pair test.  K4's first pass lists the pairs its ray crosses, a pair a
+lane, and its Newton and albedo passes walk only those (the groups that
+held them where a ray crosses more than MAX_HITS).  Every sum is taken
+in row order, so both give the bits of a sweep over every row, and the
 plain versions' results, as every pair they skip adds 0.  The source note
 in ``big.cuh`` says what bounds them.
 """
@@ -52,7 +53,6 @@ G = 256                  # Gaussians a chunk
 GROUP = 32               # Gaussians a group, the finer box (BIG_GROUP)
 MAX_CHUNKS = 96          # the JAX package's ceiling (24,576 Gaussians)
 MAX_HITS = 32            # K4's crossed-pair list (csrc/big.cuh BIG_MAX_HITS)
-WARP = 32                # rays that vote together on walking a box
 STAGE1_ROWS = 16         # K4's output rows, csrc/big.cuh BigRow
 BOX_COLS = 8             # a box: min x y z, pad, max x y z, pad
 # A box is widened by BOX_REL of its largest extent plus BOX_ABS of
@@ -266,16 +266,22 @@ def _admitted_out(admitted, b: int, dev) -> int:
 
 
 def big_stage1(table, o, d, xi, lights, solver_iters: int = 12, boxes=None,
-               admitted=None):
+               admitted=None, overflow=None):
     """K4's [16, B] rows; the arguments of ``big_stage1_reference``, and
     ``boxes``, the scene's ``chunk_boxes``, which the kernel needs.  A CPU
     tensor takes the plain version (which needs no boxes); a CUDA tensor
     launches K4 or raises.  ``admitted``, an int32 [2, B] tensor if
     given, receives the chunks and the groups each ray's box tests
-    admitted (on the CPU from ``admitted_counts_reference``)."""
+    admitted (on the CPU from ``admitted_counts_reference``).
+    ``overflow``, an int32 [1] tensor if given, is incremented by the rays
+    that cross more than MAX_HITS pairs, whose passes recompute their
+    pairs (on the CPU from ``culling_stats``' 'crossed')."""
     if table.device.type == "cpu":
         if admitted is not None:
             admitted.copy_(admitted_counts_reference(boxes, o, d))
+        if overflow is not None:
+            overflow += (culling_stats(table, boxes, o, d)["crossed"]
+                         > MAX_HITS).sum().int()
         return big_stage1_reference(table, o, d, xi, lights, solver_iters)
     dev = table.device
     b = o.shape[0]
@@ -286,12 +292,15 @@ def big_stage1(table, o, d, xi, lights, solver_iters: int = 12, boxes=None,
     _build.check(xi5, "xi", torch.float32, (b, 5), dev)
     _build.check(lights, "lights", torch.float32, (None, 6), dev)
     check_chunk_boxes(boxes, table, dev)
+    if overflow is not None:
+        _build.check(overflow, "overflow", torch.int32, (1,), dev)
     out = torch.empty((STAGE1_ROWS, b), dtype=torch.float32, device=dev)
     _build.launch(
         "gvr_big_stage1", _build.ptr(table), table.shape[0],
         _build.ptr(boxes), _build.ptr(o), _build.ptr(d), _build.ptr(xi5), b,
         _build.ptr(lights), lights.shape[0], solver_iters, _build.ptr(out),
-        _admitted_out(admitted, b, dev), device=dev)
+        _admitted_out(admitted, b, dev),
+        0 if overflow is None else overflow.data_ptr(), device=dev)
     big_stage1.launches += 1
     return out
 
@@ -328,31 +337,27 @@ big_nee.launches = 0
 
 
 def bounce_step_big(table, o, d, xi, lights, env, solver_iters: int = 12,
-                    boxes=None):
+                    boxes=None, overflow=None):
     """One bounce through K4 and K5, the contract of the JAX package's
     ``bounce_step_pallas_big``: (t_sc [B], scattered bool [B], albedo [B],
     li [B,3], tau_tot [B]); table from ``pack_rows``, boxes (needed on the
-    card) from ``chunk_boxes``."""
-    s1 = big_stage1(table, o, d, xi, lights, solver_iters, boxes)
+    card) from ``chunk_boxes``; ``overflow`` as for ``big_stage1``."""
+    s1 = big_stage1(table, o, d, xi, lights, solver_iters, boxes,
+                    overflow=overflow)
     return s1[0], s1[1] > 0.5, s1[2], big_nee(table, s1, env, boxes), s1[3]
 
 
 def culling_stats(table, boxes, o, d, tmax=None) -> dict:
     """What K4 (``tmax`` None: each ray over [0, inf)) or K5 (each segment
-    [0, tmax]) walks, in plain torch, for measurements; int64 tensors:
-    'admitted' and 'groups' [B] the chunks and the groups each ray's box
-    tests admit; 'warp' and 'warp_groups' [ceil(B / WARP)] those each warp
-    of consecutive rays walks (the ones some ray of it admits); 'hit' [B]
-    the chunks that hold a pair the ray crosses; 'crossed' [B] those pairs
-    (with tmax, the pairs whose interval starts before it)."""
+    [0, tmax]) walks, in plain torch, for measurements; int64 tensors [B]:
+    'admitted' and 'groups' the chunks and the groups each ray's box tests
+    admit; 'hit' the chunks that hold a pair the ray crosses; 'crossed'
+    those pairs (with tmax, the pairs whose interval starts before it)."""
     col = lambda f: table[:, f:f + 1]
     n_c = table.shape[0] // G
-    step = max(WARP, (PAIR_BUDGET // table.shape[0]) // WARP * WARP)
-    keys = ("admitted", "groups", "warp", "warp_groups", "hit", "crossed")
+    step = max(1, PAIR_BUDGET // table.shape[0])
+    keys = ("admitted", "groups", "hit", "crossed")
     out = {k: [] for k in keys}
-    warps = lambda x: torch.nn.functional.pad(
-        x.float(), (0, 0, 0, -x.shape[0] % WARP)).view(
-        -1, WARP, x.shape[1]).amax(1).sum(1)
     for s in range(0, o.shape[0], step):
         sl = slice(s, s + step)
         ray = [v[sl, k][None, :] for v in (o, d) for k in range(3)]
@@ -366,6 +371,4 @@ def culling_stats(table, boxes, o, d, tmax=None) -> dict:
         groups = groups.flatten(1)
         out["admitted"].append(chunks.sum(1))
         out["groups"].append(groups.sum(1))
-        out["warp"].append(warps(chunks))
-        out["warp_groups"].append(warps(groups))
     return {k: torch.cat(v).long() for k, v in out.items()}

@@ -526,13 +526,17 @@ def big_kernel_vs_plain(table, boxes, o, d, xi, lights, env,
     rays; and the chunks and groups each kernel's box tests admitted
     against ``admitted_counts_reference`` on the same rays, which must be
     equal ray for ray (the same float32 operations): 'k4_admitted' and
-    'k5_admitted' are the means per ray (chunks, groups), 'ok' also needs
-    the equality."""
+    'k5_admitted' are the means per ray (chunks, groups); and K4's
+    overflow count against the rays that cross more than MAX_HITS pairs
+    (``culling_stats``), 'overflow' the two.  'ok' also needs both
+    equalities."""
     pb = pathtrace_big
     b = o.shape[0]
     adm4, adm5 = (torch.empty((2, b), dtype=torch.int32, device=o.device)
                   for _ in range(2))
-    s1 = pb.big_stage1(table, o, d, xi, lights, solver_iters, boxes, adm4)
+    over = torch.zeros(1, dtype=torch.int32, device=o.device)
+    s1 = pb.big_stage1(table, o, d, xi, lights, solver_iters, boxes, adm4,
+                       over)
     s1_plain = pb.big_stage1_reference(table, o, d, xi, lights, solver_iters)
     li, li_plain = (pb.big_nee(table, s1, env, boxes, adm5),
                     pb.big_nee_reference(table, s1, env))
@@ -543,10 +547,13 @@ def big_kernel_vs_plain(table, boxes, o, d, xi, lights, env,
     want5 = pb.admitted_counts_reference(boxes, s1[4:7].T, s1[7:10].T,
                                          s1[10])
     means = lambda a: [float(x) for x in a.float().mean(1)]
+    crossed = pb.culling_stats(table, boxes, o, d)["crossed"]
     res.update(k4_admitted=means(adm4), k5_admitted=means(adm5),
                admitted_equal=bool(torch.equal(adm4, want4)
-                                   and torch.equal(adm5, want5)))
-    res["ok"] = res["ok"] and res["admitted_equal"]
+                                   and torch.equal(adm5, want5)),
+               overflow=[int(over), int((crossed > pb.MAX_HITS).sum())])
+    res["ok"] = (res["ok"] and res["admitted_equal"]
+                 and res["overflow"][0] == res["overflow"][1])
     return res
 
 

@@ -167,12 +167,18 @@ class _OpenSpan:
         return False
 
 
+def recording() -> bool:
+    """Whether spans and counters are recorded now (a torch.profiler runs,
+    or a RenderStats collects)."""
+    return _profiler._is_profiler_enabled or bool(_State.collectors)
+
+
 def span(name: str, **attrs):
     """A context manager that times its body as the span ``name`` while
     recording is on (a torch.profiler runs, or a RenderStats collects),
     and a shared null context otherwise; ``as sp`` gives
     ``sp.set(**attrs)`` for attributes known only inside."""
-    if not (_profiler._is_profiler_enabled or _State.collectors):
+    if not recording():
         return _NULL
     return _OpenSpan(name, attrs)
 
@@ -180,7 +186,7 @@ def span(name: str, **attrs):
 def count(name: str, n: int) -> None:
     """Add n, a number the host holds, to the render's counter ``name``
     while recording is on."""
-    if not (_profiler._is_profiler_enabled or _State.collectors):
+    if not recording():
         return
     if _profiler._is_profiler_enabled:
         per = _RECORDING.counters.setdefault(_State.render, {})

@@ -32,7 +32,9 @@ checkout, loaded by path, so older trees are timed alike).  Sections:
   tile-order chunk 4 of 512^2 and their 32,768 NEE rays; u and the NEE
   draws from seed 10);
 - big: K4 and K5 on chip_smoke phases 12 and 13's rays of the 10k scene
-  and on the S_CAP_MAX fallback scene's rays;
+  (the 65,536 lanes after one bounce also cut to their first 24,576 and
+  4,096, the live lanes of a typical and of a late iteration) and on the
+  S_CAP_MAX fallback scene's rays;
 - renders (first turn of each tree): the 10k scene at 512^2 spp 16 with
   engine auto (the grid) and with engine dense (the big-N engine), the
   images and render seconds.
@@ -279,6 +281,10 @@ def _big(dev, res, tensors):
         "10k primary lanes": (sc10k, o13, d13, xi13[0]),
         "10k lanes after one bounce": (sc10k, o13b, d13b.contiguous(),
                                        xi13[1]),
+        "10k 24,576 lanes after one bounce": (
+            sc10k, o13b[:24576], d13b[:24576].contiguous(), xi13[1, :24576]),
+        "10k 4,096 lanes after one bounce": (
+            sc10k, o13b[:4096], d13b[:4096].contiguous(), xi13[1, :4096]),
         "fallback rays": (sc_fb, *testing.big_rays(sc_fb.medium, 8192, 12,
                                                    dev)),
     }

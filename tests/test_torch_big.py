@@ -155,22 +155,18 @@ def test_big_bars_admit_float64_rounding():
 
 
 def test_culling_stats_count_the_vote():
-    """Per warp of 32 consecutive rays, the chunks and groups some ray of
-    it admits (the kernels' __any_sync votes): at least those of any one
-    of its rays, at most all; per ray, the admitted chunks include every
-    chunk with a crossed pair, and a segment cut at tmax admits and crosses
-    no more.  The CPU wrappers report the same admitted chunks and
+    """Per ray, the chunks and groups its box tests admit (the kernels'
+    ballots): the admitted chunks include every chunk with a crossed pair,
+    each admits at most its 8 groups, and a segment cut at tmax admits and
+    crosses no more.  The CPU wrappers report the same admitted chunks and
     groups."""
     sc = parse_gmm(_text(2100))
     table, boxes = tpb.pack_rows(sc.medium), tpb.chunk_boxes(sc.medium)
     o, d, xi = (torch.from_numpy(a) for a in random_rays(256, seed=1))
     st = tpb.culling_stats(table, boxes, o, d)
     n_c = table.shape[0] // tpb.G
-    assert st["warp"].shape == (8,) and st["admitted"].shape == (256,)
-    for key, warp, top in (("admitted", "warp", n_c),
-                           ("groups", "warp_groups", 8 * n_c)):
-        assert (st[warp] >= st[key].view(8, 32).amax(1)).all()
-        assert (st[warp] <= top).all()
+    assert all(v.shape == (256,) for v in st.values())
+    assert (st["admitted"] <= n_c).all()
     assert (st["groups"] <= 8 * st["admitted"]).all()
     assert (st["admitted"] >= st["hit"]).all()
     assert (st["hit"] <= st["crossed"]).all() and int(st["crossed"].sum()) > 0

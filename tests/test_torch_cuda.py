@@ -595,6 +595,40 @@ def test_big_kernels_match_plain(cuda_device, scene10k, lights):
     assert res["ok"] and res["n_both"] > 1000, str(res)
 
 
+@pytest.mark.parametrize("n", [1, 31, 33, 4095, 65_536])
+def test_big_kernels_at_ray_counts(cuda_device, scene10k, n):
+    """K4 and K5 at ray counts around a warp and a block of warps (a
+    padded last block) up to a chunk's 65,536 lanes, on the first n of
+    65,536 big_rays: the whole batch against the plain versions at
+    BIG_BARS; fewer rays the same bits as the whole batch's first n, the
+    chunks and groups each kernel admitted equal to
+    admitted_counts_reference, and K4's overflow count equal to the rays
+    that cross more than MAX_HITS pairs."""
+    sc = scene10k.to(cuda_device)
+    table, boxes = _big_inputs(sc)
+    o, d, xi = big_rays(sc.medium, 32_768, seed=5, device=cuda_device)
+    if n == 65_536:
+        res = big_kernel_vs_plain(table, boxes, o, d, xi, sc.lights(),
+                                  sc.env_color)
+        assert res["ok"] and res["n_both"] > 10_000, str(res)
+        return
+    s1_all = tpb.big_stage1(table, o, d, xi, sc.lights(), boxes=boxes)
+    li_all = tpb.big_nee(table, s1_all, sc.env_color, boxes)
+    o, d, xi = o[:n], d[:n], xi[:n]
+    adm4, adm5 = (torch.zeros((2, n), dtype=torch.int32, device=cuda_device)
+                  for _ in range(2))
+    over = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    s1 = tpb.big_stage1(table, o, d, xi, sc.lights(), boxes=boxes,
+                        admitted=adm4, overflow=over)
+    li = tpb.big_nee(table, s1, sc.env_color, boxes, adm5)
+    assert torch.equal(s1, s1_all[:, :n]) and torch.equal(li, li_all[:n])
+    assert torch.equal(adm4, tpb.admitted_counts_reference(boxes, o, d))
+    assert torch.equal(adm5, tpb.admitted_counts_reference(
+        boxes, s1[4:7].T, s1[7:10].T, s1[10]))
+    crossed = tpb.culling_stats(table, boxes, o, d)["crossed"]
+    assert int(over) == int((crossed > tpb.MAX_HITS).sum())
+
+
 @pytest.fixture(scope="module")
 def fallback_scene():
     """The S_CAP_MAX fallback scene: 8,000 Gaussians of diameter 2-4, 32
@@ -606,7 +640,9 @@ def fallback_scene():
 def test_big_kernels_match_plain_fallback(cuda_device, fallback_scene):
     """K4 and K5 against their plain versions on the fallback scene, where
     nearly every ray crosses more than MAX_HITS pairs, so K4's Newton and
-    albedo passes walk its chunk mask: at testing.BIG_DENSE_BARS."""
+    albedo passes recompute the rows of its marked groups: at
+    testing.BIG_DENSE_BARS, with K4's overflow count equal to those
+    rays."""
     sc = fallback_scene.to(cuda_device)
     table, boxes = _big_inputs(sc)
     o, d, xi = big_rays(sc.medium, 2048, seed=4, device=cuda_device)

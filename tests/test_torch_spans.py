@@ -18,6 +18,7 @@ from benchmark_torch import spec
 from gvr_tpu_torch.cameras import PinholeCamera
 from gvr_tpu_torch.config import RenderConfig
 from gvr_tpu_torch.integrators.multiscatter import render_multiscatter
+from gvr_tpu_torch.kernels import pathtrace_big as tpb
 from gvr_tpu_torch.scene.generators import random_gaussian_scene
 from gvr_tpu_torch.scene.scene import parse_gmm
 from gvr_tpu_torch.utils import profiling
@@ -132,6 +133,29 @@ def test_a_traced_render_records_its_spans_and_counters(path):
         grids = named("grid_for")
         assert grids and grids[-1].extra == {"built": False}
         assert all(by_id[g.parent].name == "render.prepare" for g in grids)
+
+
+@pytest.mark.parametrize("max_hits", [tpb.MAX_HITS, 0])
+def test_a_recorded_big_render_counts_the_list_overflow(monkeypatch,
+                                                        max_hits):
+    """A big-N render under the profiler counts big_list_overflow, the
+    lanes traced whose crossed pairs overflow K4's list (on the CPU,
+    culling_stats' 'crossed' above MAX_HITS, once an iteration): at most
+    lanes_traced, and with a list of 0 pairs each lane that crossed one;
+    an unrecorded render computes and records nothing of it."""
+    monkeypatch.setattr(tpb, "MAX_HITS", max_hits)
+    calls, real = [], tpb.culling_stats
+    monkeypatch.setattr(tpb, "culling_stats",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    profiling.recorded().clear()
+    _render("big", {})
+    assert calls == [] and profiling.recorded().counters == {}
+    stats, rec, _ = _traced("big")
+    (counters,) = rec.counters.values()
+    assert len(calls) == stats["iterations"] > 0
+    assert 0 <= counters["big_list_overflow"] <= counters["lanes_traced"]
+    if max_hits == 0:
+        assert counters["big_list_overflow"] > 0
 
 
 @pytest.mark.parametrize("path", ["step", "grid"])
