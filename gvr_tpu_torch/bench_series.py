@@ -37,12 +37,12 @@ def bench_row(name: str, scene, camera, cfg, device="cuda") -> dict:
     with ``cfg`` on ``device``, warm."""
     from gvr_tpu_torch.accel.grid import H
     from gvr_tpu_torch.integrators.gridscatter import grid_for
-    from gvr_tpu_torch.integrators.multiscatter import (engine_for,
-                                                        render_multiscatter)
+    from gvr_tpu_torch.integrators.multiscatter import render_multiscatter
     from gvr_tpu_torch.utils.profiling import path_statistics
 
     rpp = path_statistics(scene, camera, cfg, device=device)["rays_per_path"]
-    render_multiscatter(scene, camera, cfg, device=device)
+    warm = {}              # the path the render takes (``render_path``)
+    render_multiscatter(scene, camera, cfg, device=device, stats=warm)
     t0 = time.time()
     img = render_multiscatter(scene, camera, cfg, device=device)
     dt = time.time() - t0
@@ -52,9 +52,8 @@ def bench_row(name: str, scene, camera, cfg, device="cuda") -> dict:
     row = {"scene": name, "gaussians": scene.medium.n,
            "rays_per_path": round(rpp, 2), "seconds": round(dt, 2),
            "mrays_per_sec": round(mrays, 3)}
-    engine = engine_for(cfg, scene.medium)
-    row.update(engine=engine)
-    if engine == "grid":
+    row.update(engine=warm["engine"])
+    if warm["kernel"] == "grid":
         g = grid_for(scene.medium)
         row.update(grid_side=g.side[0], slices=-(-g.n_entries // H),
                    s_cap=g.s_cap)

@@ -138,7 +138,7 @@ def wavefront_pixels_grid_pooled(scene: Scene, grid: GridIndex, camera,
     slot, one add per slot per ``index_add_`` (dead lanes add into the
     dummy row pool_n), and a pixel sums its slots in sample order, so the
     result does not depend on the chunk.  ``stats``, if given, receives
-    'iterations' and 'ext_rays' (extension rays traced).  Under
+    'iterations' and 'bounce_evals' (the extension rays traced).  Under
     ``utils.profiling``'s recorder each iteration is a
     ``wavefront.iteration`` span, its closing read a
     ``wavefront.live_read``, and the chunk counts ``lanes_traced`` (the
@@ -240,7 +240,7 @@ def wavefront_pixels_grid_pooled(scene: Scene, grid: GridIndex, camera,
     count("lanes_traced", lanes)
     count("lane_slots", b * it)
     if stats is not None:
-        stats.update(iterations=it, ext_rays=int(ext_rays))
+        stats.update(iterations=it, bounce_evals=int(ext_rays))
     return slots[:pool_n].reshape(b, spp, 3).sum(dim=1) / spp
 
 

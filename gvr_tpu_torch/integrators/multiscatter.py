@@ -8,8 +8,10 @@ isotropic phase, throughput *= albedo, and Russian roulette after
 
 ``render_multiscatter`` walks the pixels in 16x8 screen tiles, in chunks,
 keeps every result on the device and copies the image to the host once at
-the end.  ``engine_for`` picks the engine as the JAX package does: the
-dense engine up to GRID_MIN_N Gaussians, the pooled grid wavefront
+the end.  ``render_path`` picks its path, and the path's entry in
+``_PATHS`` builds the path's inputs once and renders each chunk.
+``engine_for`` picks the engine as the JAX package does: the dense engine
+up to GRID_MIN_N Gaussians, the pooled grid wavefront
 (``integrators/gridscatter``, chunks of at most 2^15 pixels) above, and
 the dense engine again where the grid's densest cell spans more than
 S_CAP_MAX slices.  The dense engine runs the megakernel (one
@@ -38,6 +40,7 @@ the ranks (``parallel/sharding``).
 
 from __future__ import annotations
 
+import functools
 import time
 
 import numpy as np
@@ -74,10 +77,10 @@ from gvr_tpu_torch.utils import profiling
 
 __all__ = ["GRID_CHUNK", "GRID_MIN_N", "dense_kernel", "diff_uniforms",
            "engine_for", "mc_camera_rays", "multiscatter_radiance",
-           "multiscatter_radiance_diff", "render_multiscatter", "strat_n",
-           "strat_uv", "tile_ids", "tile_order", "wavefront_pixels",
-           "wavefront_pixels_big", "wavefront_pixels_step",
-           "wavefront_pixels_xla"]
+           "multiscatter_radiance_diff", "render_multiscatter",
+           "render_path", "strat_n", "strat_uv", "tile_ids",
+           "wavefront_pixels", "wavefront_pixels_big",
+           "wavefront_pixels_step", "wavefront_pixels_xla"]
 
 # The JAX package's threshold: above it engine='auto' takes the grid engine.
 GRID_MIN_N = 2000
@@ -130,26 +133,26 @@ def dense_kernel(cfg: RenderConfig, n: int) -> str:
     return "mega" if n <= MEGA_MAX_GAUSSIANS else "big"
 
 
-def tile_order(w: int, h: int, tw: int = 16, th: int = 8) -> np.ndarray:
-    """Pixel ids permuted into tw x th screen tiles, so each 128-pixel
-    kernel block covers one spatially coherent tile."""
-    ys, xs = np.mgrid[0:h, 0:w]
-    key = ((ys // th).astype(np.int64) * ((w + tw - 1) // tw)
-           + (xs // tw)) * (tw * th) \
-        + (ys % th) * tw + (xs % tw)
-    return np.argsort(key.reshape(-1), kind="stable").astype(np.int32)
+def render_path(cfg: RenderConfig, gmm) -> str:
+    """The path ``render_multiscatter`` takes for the mixture ``gmm``:
+    'grid' or 'xla' where ``engine_for`` resolves that engine, else the
+    dense engine's kernel path by ``dense_kernel``: 'mega', 'step' or
+    'big'.  The only place that combines the two."""
+    engine = engine_for(cfg, gmm)
+    return dense_kernel(cfg, gmm.n) if engine == "dense" else engine
 
 
 def tile_ids(w: int, h: int, device, tw: int = 16,
              th: int = 8) -> torch.Tensor:
-    """``tile_order(w, h, tw, th)`` made on ``device`` without a sort:
-    int32 [w*h].  Tiles run row-major over the tile grid and pixels
-    row-major inside each tile, so each band of th rows (the last one
-    shorter where th does not divide h) is its full tiles, then its
-    partial tile on the right.  Each of these at most four blocks of
-    equal tiles is a strided view of the row-major pixel ids, copied into
-    the slice of the order it fills: one arange and at most four copies,
-    whatever the size."""
+    """Pixel ids [w*h] (int32, on ``device``) permuted into tw x th screen
+    tiles, so each 128-pixel kernel block covers one spatially coherent
+    tile: the JAX package's ``tile_order``, made without a sort.  Tiles
+    run row-major over the tile grid and pixels row-major inside each
+    tile, so each band of th rows (the last one shorter where th does not
+    divide h) is its full tiles, then its partial tile on the right.
+    Each of these at most four blocks of equal tiles is a strided view of
+    the row-major pixel ids, copied into the slice of the order it fills:
+    one arange and at most four copies, whatever the size."""
     n = w * h
     assert n < 2 ** 31, (w, h)
     ids = torch.arange(n, dtype=torch.int32, device=device).view(h, w)
@@ -171,12 +174,6 @@ def tile_ids(w: int, h: int, device, tw: int = 16,
     return out
 
 
-def _mega_inputs(scene: Scene, camera):
-    """(camera vector, table, lights, env, pinhole) for mega_call."""
-    return (camera_vector(camera), pack_table(scene.medium), scene.lights(),
-            scene.env_color, isinstance(camera, PinholeCamera))
-
-
 def wavefront_pixels(scene: Scene, camera, cfg: RenderConfig,
                      ids: torch.Tensor) -> torch.Tensor:
     """Mean radiance [B,3] over the spp samples of each pixel id [B]
@@ -184,13 +181,8 @@ def wavefront_pixels(scene: Scene, camera, cfg: RenderConfig,
     that ``dense_kernel`` picks: the megakernel, the step wavefront or the
     big-N one, as the JAX package's ``wavefront_pixels`` follows
     ``cfg.wavefront``."""
-    kernel = dense_kernel(cfg, scene.medium.n)
-    if kernel == "step":
-        return wavefront_pixels_step(scene, camera, cfg, ids)
-    if kernel == "big":
-        return wavefront_pixels_big(scene, camera, cfg, ids)
-    cam, table, lights, env, pinhole = _mega_inputs(scene, camera)
-    return mega_call(cam, table, ids, cfg, lights, env, pinhole)[0] / cfg.spp
+    return _pixels(dense_kernel(cfg, scene.medium.n), scene, camera, cfg,
+                   ids)
 
 
 def _nee(scene: Scene, gmm, pos, xi_choice, xi_light, xi_env2):
@@ -458,19 +450,19 @@ def _table_wavefront(scene: Scene, camera, cfg: RenderConfig,
 
 def wavefront_pixels_big(scene: Scene, camera, cfg: RenderConfig,
                          ids: torch.Tensor, stats: dict | None = None,
-                         table: torch.Tensor | None = None,
-                         boxes: torch.Tensor | None = None) -> torch.Tensor:
+                         inputs: tuple | None = None) -> torch.Tensor:
     """Mean radiance [B,3] over the spp samples of each pixel id [B]
     (int32) by the big-N dense wavefront (``_wavefront``), each bounce of
-    the live lanes through K4 and K5.  ``table`` and ``boxes`` are
-    ``pack_rows`` and ``chunk_boxes`` of the scene (built here if not
-    given).  Under ``utils.profiling``'s recorder the chunk also counts
-    ``big_list_overflow``, the lanes traced whose crossed pairs overflowed
-    K4's list (one read of a device counter after the loop)."""
-    if table is None:
-        table = pack_rows(scene.medium)
-    if boxes is None:
-        boxes = chunk_boxes(scene.medium)
+    the live lanes through K4 and K5.  ``inputs`` is the path's
+    (``pack_rows``, ``chunk_boxes``) of the scene, which the render's
+    'big' entry builds once and passes to each chunk's call of this
+    function (the per-chunk entry that ``benchmark_torch``'s big-N cell
+    names); built here if not given.  Under ``utils.profiling``'s
+    recorder the chunk also counts ``big_list_overflow``, the lanes traced
+    whose crossed pairs overflowed K4's list (one read of a device counter
+    after the loop)."""
+    table, boxes = inputs if inputs is not None else (
+        pack_rows(scene.medium), chunk_boxes(scene.medium))
     overflow = (torch.zeros(1, dtype=torch.int32, device=table.device)
                 if profiling.recording() else None)
     out = _table_wavefront(
@@ -484,23 +476,16 @@ def wavefront_pixels_big(scene: Scene, camera, cfg: RenderConfig,
 
 
 def wavefront_pixels_step(scene: Scene, camera, cfg: RenderConfig,
-                          ids: torch.Tensor, stats: dict | None = None,
-                          table: torch.Tensor | None = None) -> torch.Tensor:
+                          ids: torch.Tensor,
+                          stats: dict | None = None) -> torch.Tensor:
     """Mean radiance [B,3] over the spp samples of each pixel id [B]
     (int32) by the step wavefront (``_wavefront``), each bounce of the
     live lanes through one launch of the fused bounce kernel K2
     (``bounce_step``; its plain version on a CPU tensor): the JAX
     package's ``_wavefront_planes_step``
     (``gvr_tpu/integrators/multiscatter.py:338-449``), which traces every
-    lane in [R, 128] planes where this traces the live ones.  ``table`` is
-    ``pack_table`` of the scene (built here if not given)."""
-    if table is None:
-        table = pack_table(scene.medium)
-    return _table_wavefront(
-        scene, camera, cfg, ids, stats,
-        lambda o, d, xi, lights, env: bounce_step(
-            table, o, d, xi, lights, env, cfg.solver_iters,
-            cfg.solver_finisher))
+    lane in [R, 128] planes where this traces the live ones."""
+    return _pixels("step", scene, camera, cfg, ids, stats)
 
 
 def wavefront_pixels_xla(scene: Scene, camera, cfg: RenderConfig,
@@ -510,9 +495,98 @@ def wavefront_pixels_xla(scene: Scene, camera, cfg: RenderConfig,
     (int32) by the dense XLA engine: the wavefront (``_wavefront``) with
     each bounce of the live lanes in plain PyTorch (``_xla_bounce``), the
     JAX package's XLA branch.  Any solver; ``candidate_k`` applies."""
-    return _wavefront(scene, camera, cfg, ids,
-                      lambda o, d, xi, xi_solve: _xla_bounce(
-                          scene, cfg, o, d, xi, xi_solve), stats)
+    return _pixels("xla", scene, camera, cfg, ids, stats)
+
+
+# ---- the paths: one entry each ---------------------------------------------
+#
+# An entry takes (scene, camera, cfg, device, found), moves what its path
+# needs to the device, builds the path's inputs there once, and returns
+# run(ids, stats) -> the mean radiance [B,3] of the pixel ids [B] (int32,
+# on the device).  ``found`` is what the path's ``find`` took from the
+# mixture before the render's clock started (the grid's).  ``stats``, if
+# given, receives 'bounce_evals' (K1's evaluations, a device tensor; the
+# live lanes or extension rays traced) and, on the wavefronts,
+# 'iterations'.
+
+def _mega(scene: Scene, camera, cfg: RenderConfig, device, found):
+    """K1 once a chunk (``mega_call``); its counts are summed only where
+    ``stats`` is asked for."""
+    scene, camera = scene.to(device), camera.to(device)
+    cam, table = camera_vector(camera), pack_table(scene.medium)
+    lights, env = scene.lights(), scene.env_color
+    pinhole = isinstance(camera, PinholeCamera)
+
+    def run(ids, stats):
+        sums, counts = mega_call(cam, table, ids, cfg, lights, env, pinhole)
+        if stats is not None:
+            stats["bounce_evals"] = counts.sum()
+        return sums / cfg.spp
+
+    return run
+
+
+def _step(scene: Scene, camera, cfg: RenderConfig, device, found):
+    """The step wavefront: K2 (``bounce_step``) on ``pack_table``'s rows."""
+    scene, camera = scene.to(device), camera.to(device)
+    table = pack_table(scene.medium)
+    bounce = lambda o, d, xi, lights, env: bounce_step(
+        table, o, d, xi, lights, env, cfg.solver_iters, cfg.solver_finisher)
+    return lambda ids, stats: _table_wavefront(scene, camera, cfg, ids,
+                                               stats, bounce)
+
+
+def _big(scene: Scene, camera, cfg: RenderConfig, device, found):
+    """The big-N wavefront on ``pack_rows``' rows and ``chunk_boxes``'
+    boxes, through ``wavefront_pixels_big(inputs=)`` once a chunk: the
+    benchmark's big-N cell names that function as the render's per-chunk
+    entry, so ``inputs=`` can go when the benchmark no longer does."""
+    scene, camera = scene.to(device), camera.to(device)
+    inputs = pack_rows(scene.medium), chunk_boxes(scene.medium)
+    return lambda ids, stats: wavefront_pixels_big(scene, camera, cfg, ids,
+                                                   stats, inputs)
+
+
+def _xla(scene: Scene, camera, cfg: RenderConfig, device, found):
+    """The dense XLA engine: plain PyTorch over [rays, N] arrays."""
+    scene, camera = scene.to(device), camera.to(device)
+    bounce = lambda o, d, xi, xi_solve: _xla_bounce(scene, cfg, o, d, xi,
+                                                    xi_solve)
+    return lambda ids, stats: _wavefront(scene, camera, cfg, ids, bounce,
+                                         stats)
+
+
+def _grid(scene: Scene, camera, cfg: RenderConfig, device, found):
+    """The pooled grid wavefront on the scene's grid ``found`` (by
+    ``grid_for``, which ``engine_for`` built)."""
+    grid = found.to(device)
+    scene, camera = scene.to(device), camera.to(device)
+    return lambda ids, stats: wavefront_pixels_grid_pooled(
+        scene, grid, camera, cfg, ids, stats)
+
+
+# path: (stats['engine'], the chunk rule (cfg, n, device) -> the pixels a
+# chunk takes at most, the entry, and ``find`` (mixture) -> the entry's
+# ``found``).  The XLA engine's [chunk, N] arrays keep its chunk within
+# pick_chunk's element budget on any device.
+_FIND_NOTHING = lambda gmm: None
+_PATHS = {
+    "mega": ("dense", pick_chunk, _mega, _FIND_NOTHING),
+    "step": ("dense", pick_chunk, _step, _FIND_NOTHING),
+    "big": ("dense", pick_chunk, _big, _FIND_NOTHING),
+    "xla": ("dense", functools.partial(pick_chunk, dense=True), _xla,
+            _FIND_NOTHING),
+    "grid": ("grid", lambda cfg, n, device: min(cfg.ray_chunk, GRID_CHUNK),
+             _grid, grid_for)}
+
+
+def _pixels(path: str, scene: Scene, camera, cfg: RenderConfig,
+            ids: torch.Tensor, stats: dict | None = None) -> torch.Tensor:
+    """The mean radiance [B,3] of pixel ids [B] through ``path``'s entry,
+    its inputs built for this call alone."""
+    _, _, entry, find = _PATHS[path]
+    return entry(scene, camera, cfg, ids.device, find(scene.medium))(ids,
+                                                                     stats)
 
 
 def render_multiscatter(scene: Scene, camera, cfg: RenderConfig,
@@ -537,27 +611,27 @@ def render_multiscatter(scene: Scene, camera, cfg: RenderConfig,
     returns the whole image.  Radiance is keyed by pixel id, so it is the
     one-process image.
 
-    ``stats``, if given, receives the engine, the kernel ('mega', 'step'
-    or 'big' by ``dense_kernel``, 'grid', or 'xla' for the dense XLA
-    engine), the render's seconds (host clock, after the engine choice and
-    grid build, ending with the copy to the host), the seconds of the
-    engine choice with the grid build (``grid_seconds``; a cached grid
-    costs only its content hash),
-    paths, bounce evaluations (the megakernel's count; on the wavefronts
-    the live lanes or extension rays traced; summed over the ranks), the
-    chunk and the chunks, wavefront iterations (this rank's), Gaussian
-    count, the shard count and the assembly's seconds.
+    ``stats``, if given, receives the engine ('grid' on the grid, else
+    'dense'), the kernel (the path by ``render_path``: 'mega', 'step',
+    'big', 'grid' or 'xla'), the render's seconds (host clock, after the
+    path's choice, ending with the copy to the host), the seconds of the
+    path's choice with the grid build (``grid_seconds``; a cached grid
+    costs only its content hash), paths, bounce evaluations (the
+    megakernel's count; on the wavefronts the live lanes or extension rays
+    traced; summed over the ranks), the chunk and the chunks, wavefront
+    iterations (this rank's), Gaussian count, the shard count and the
+    assembly's seconds.
 
     The render is the root span ``render_multiscatter`` of
     ``utils.profiling``, which records while a torch.profiler runs or a
     ``RenderStats`` is given as ``stats``: inside it ``render.prepare``
-    (from entry to the first chunk: the engine choice with ``grid_for``,
-    the moves to the device, the tile order, the chunk size and the
-    tables), a ``chunk`` span a chunk (the host's enqueue: nothing
-    waits for the device), the wavefronts' ``wavefront.iteration`` spans
-    with their ``wavefront.live_read`` and counters (``_wavefront``,
-    ``gridscatter.wavefront_pixels_grid_pooled``), and
-    ``render.readback`` (the all-reduce, the copy to the host)."""
+    (from entry to the first chunk: the path's choice with ``grid_for``,
+    the tile order, and the path's entry: the moves to the device, the
+    chunk size and the tables), a ``chunk`` span a chunk (the host's
+    enqueue: nothing waits for the device), the wavefronts'
+    ``wavefront.iteration`` spans with their ``wavefront.live_read`` and
+    counters (``_wavefront``, ``gridscatter.wavefront_pixels_grid_pooled``),
+    and ``render.readback`` (the all-reduce, the copy to the host)."""
     with profiling.render("render_multiscatter", stats) as root:
         return _render(scene, camera, cfg, device, progress, stats, mesh,
                        root)
@@ -571,36 +645,17 @@ def _render(scene: Scene, camera, cfg: RenderConfig, device, progress,
     n_shards = mesh.shape[RAY_AXIS]
     with profiling.span("render.prepare"):
         t_build = time.perf_counter()
-        engine = engine_for(cfg, scene.medium)
-        if engine == "grid":
-            kernel = "grid"
-            grid = grid_for(scene.medium)
-        elif engine == "xla":
-            kernel, engine = "xla", "dense"
-        else:
-            kernel = dense_kernel(cfg, scene.medium.n)
+        path = render_path(cfg, scene.medium)
+        engine, chunk_for, entry, find = _PATHS[path]
+        found = find(scene.medium)
         t0 = time.perf_counter()
-        scene = scene.to(device)
-        camera = camera.to(device)
         w, h = cfg.width, cfg.height
         order = tile_ids(w, h, device)
         img = torch.zeros((w * h, 3), dtype=torch.float32, device=device)
         evals = torch.zeros((), dtype=torch.int64, device=device)
         n_chunks = iterations = 0
-        if kernel == "grid":
-            grid = grid.to(device)
-            chunk = min(cfg.ray_chunk, GRID_CHUNK)
-        else:
-            chunk = pick_chunk(cfg, scene.medium.n, device,
-                               dense=kernel == "xla")
-            if kernel == "mega":
-                cam, table, lights, env, pinhole = _mega_inputs(scene,
-                                                                camera)
-            elif kernel == "step":
-                table = pack_table(scene.medium)
-            else:
-                table = pack_rows(scene.medium)
-                boxes = chunk_boxes(scene.medium)
+        run = entry(scene, camera, cfg, device, found)
+        chunk = chunk_for(cfg, scene.medium.n, device)
         chunk = min(chunk, ((w * h + 255) // 256) * 256)
         q = 256 * n_shards if chunk >= 256 * n_shards else n_shards
         chunk = -(-chunk // q) * q
@@ -609,34 +664,15 @@ def _render(scene: Scene, camera, cfg: RenderConfig, device, progress,
         # this rank's slice of the chunk; the last chunk's may be short
         # or empty
         ids = order[start + lo:min(start + hi, w * h)]
-        st = {}
+        st = {} if stats is not None else None
         with profiling.span("chunk", pixels=ids.numel(),
                             paths=ids.numel() * cfg.spp, engine=engine,
-                            kernel=kernel, shards=n_shards):
-            if ids.numel() == 0:
-                pass
-            elif kernel == "mega":
-                sums, counts = mega_call(cam, table, ids, cfg, lights, env,
-                                         pinhole)
-                img[ids] = sums / cfg.spp
-                if stats is not None:
-                    evals += counts.sum()
-            elif kernel == "step":
-                img[ids] = wavefront_pixels_step(scene, camera, cfg, ids, st,
-                                                 table)
-                evals += st["bounce_evals"]
-            elif kernel == "big":
-                img[ids] = wavefront_pixels_big(scene, camera, cfg, ids, st,
-                                                table, boxes)
-                evals += st["bounce_evals"]
-            elif kernel == "xla":
-                img[ids] = wavefront_pixels_xla(scene, camera, cfg, ids, st)
-                evals += st["bounce_evals"]
-            else:
-                img[ids] = wavefront_pixels_grid_pooled(scene, grid, camera,
-                                                        cfg, ids, st)
-                evals += st["ext_rays"]
-        iterations += st.get("iterations", 0)
+                            kernel=path, shards=n_shards):
+            if ids.numel():
+                img[ids] = run(ids, st)
+                if st is not None:
+                    evals += st["bounce_evals"]
+                    iterations += st.get("iterations", 0)
         n_chunks += 1
         if progress:
             print(f"  pixels {min(start + chunk, w * h)}/{w * h}")
@@ -652,13 +688,13 @@ def _render(scene: Scene, camera, cfg: RenderConfig, device, progress,
         out = img.cpu().numpy().reshape(h, w, 3)
     t_end = time.perf_counter()
     if stats is not None:
-        stats.update(engine=engine, kernel=kernel, seconds=t_end - t0,
+        stats.update(engine=engine, kernel=path, seconds=t_end - t0,
                      grid_seconds=t0 - t_build,
                      paths=w * h * cfg.spp, bounce_evals=int(evals),
                      chunk=chunk, chunks=n_chunks, iterations=iterations,
                      n=scene.medium.n, device=str(device), shards=n_shards,
                      assemble_seconds=t_end - t_assemble)
-    root.set(engine=engine, kernel=kernel, shards=n_shards,
+    root.set(engine=engine, kernel=path, shards=n_shards,
              n=scene.medium.n, paths=w * h * cfg.spp,
              mpaths_per_s=round(profiling.mrays_per_sec(w * h * cfg.spp,
                                                         t_end - t0), 3))

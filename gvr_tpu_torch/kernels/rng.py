@@ -18,7 +18,8 @@ megakernel (K1) inlines them.  The grid and big-N wavefronts launch
 keys a lane's path once and writes the jitter pair and the bounce's draws
 in one launch, where two launches paid their host dispatch twice.
 ``planes_uniforms`` (``kernels.cu:gvr_uniforms``, one key an element)
-stays for the tests and chip_smoke.py.
+draws for the other integrators and the inverse renderer
+(``ops/sampling.uniform_planes``).
 """
 
 from __future__ import annotations

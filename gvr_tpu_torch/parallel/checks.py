@@ -5,9 +5,9 @@ eight gloo ranks on the CPU run the data-parallel renders and gradient
 over sub-meshes of 2, 4 and 8 ranks and the tensor-parallel paths over
 the (1 x 8), (2 x 4) and (4 x 2) meshes, and return numpy results that
 the test holds against the one-process port and the JAX package.
-``card_suite`` is that of ``chip_smoke.py``'s phases 24-26: ranks that
-share one card run the data-parallel renders of the main path's
-engines, the tensor-parallel render and gradient, and the
+``card_suite`` is that of the card tests (``tests/test_torch_cuda.py``):
+two gloo ranks that share one card run the data-parallel renders of the
+main path's engines, the tensor-parallel render and gradient, and the
 data-parallel fit.  Scenes arrive as numpy arrays (``scene/convert``), so
 every rank and the caller's reference start from the same bits.  A
 failed case is returned as its traceback, so the other cases still
@@ -19,7 +19,6 @@ from __future__ import annotations
 import math
 import os
 import tempfile
-import time
 import traceback
 
 import numpy as np
@@ -82,11 +81,6 @@ def _host(x):
     return x.detach().cpu().numpy()
 
 
-def _sync(dev) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
 def cpu_suite(dev, inp: dict) -> dict:
     """The CPU tests' cases on one rank of an 8-rank job; ``inp`` holds
     the scenes' arrays ('scene1', 'scene24', 'scene37', 'scene40',
@@ -95,7 +89,7 @@ def cpu_suite(dev, inp: dict) -> dict:
     directory and the render's and fit's arguments.  Returns {case:
     result}."""
     from gvr_tpu_torch.integrators.multiscatter import (
-        multiscatter_radiance, render_multiscatter, tile_order,
+        multiscatter_radiance, render_multiscatter, tile_ids,
         wavefront_pixels_xla)
     from gvr_tpu_torch.inverse.fit import fit_loss
     from gvr_tpu_torch.ops.transmittance import (far_bound, sigma_t_at,
@@ -122,8 +116,7 @@ def cpu_suite(dev, inp: dict) -> dict:
         last = shard_last_arg(
             lambda s, cam, i: wavefront_pixels_xla(s, cam, xla, i), mesh, 3)
         _case(out, f"dp_last_arg_{k}", lambda: _host(last(
-            sc["scene1"], camera(dev), torch.from_numpy(
-                tile_order(16, 16)).to(dev))))
+            sc["scene1"], camera(dev), tile_ids(16, 16, dev))))
         for name, (key, kw) in DP_RENDERS.items():
             st = {}
             _case(out, f"dp_{name}_{k}", lambda: render_multiscatter(
@@ -227,84 +220,59 @@ def counted_kernels():
 
 
 def card_suite(dev, inp: dict) -> dict:
-    """chip_smoke's phases 24-26 on one rank of a 4-rank job on the card.
+    """The card tests' parallel cases on one rank of a 2-rank gloo job on
+    one card (NCCL refuses ranks that share a card).
 
     'dp': each of ``inp['dp']`` (label, scene arrays, RenderConfig
-    fields) rendered by ``render_multiscatter`` over ranks 0-1, with its
-    seconds (device synchronised), stats, and this rank's kernel launches, every
-    count set to 0 just before; rank 0 also returns the images.  'tp':
+    fields) rendered by ``render_multiscatter`` over both ranks, with its
+    stats and this rank's kernel launches (``counted_kernels``, every
+    count set to 0 just before); rank 0 also returns the image.  'tp':
     ``render_multiscatter_tp`` of ``inp['tp_scene']`` at ``inp['tp_cfg']``
-    over a (1 x 2) mesh, with its seconds and all-reduces, then
-    ``fit_value_and_grad_tp`` over a (2 x 2) mesh on ``inp['fit_params']``
-    and 16^2 pixel rays.  'fit': ``fit_gaussians`` over ranks 0-1 from
-    ``inp['fit_init']`` toward ``inp['fit_target']`` for
-    ``inp['fit_iters']`` iterations of ``inp['fit_batch']`` pixels
-    (``logged_fit``)."""
+    (rank 0 returns the image) and ``fit_value_and_grad_tp`` on
+    ``inp['fit_params']`` and 16^2 pixel rays (loss and gathered
+    gradient), both over a (1 x 2) mesh.  'fit': ``logged_fit`` over both
+    ranks from ``inp['fit_init']`` toward ``inp['fit_target']`` for
+    ``inp['fit_iters']`` iterations of ``inp['fit_batch']`` pixels."""
     from gvr_tpu_torch.integrators.multiscatter import render_multiscatter
-    from gvr_tpu_torch.utils.profiling import RenderStats
 
     rank = dist.get_rank()
     counters = counted_kernels()
-    out = {"dp": {}, "tp": {}, "fit": {}}
-    pair = make_mesh(range(2))
+    out = {"dp": {}}
     for label, arrays, kw in inp["dp"]:
-        if rank >= 2:
-            continue
         sc = scene_from_numpy(arrays, dev)
-        cfg = RenderConfig(**kw)
-        render_multiscatter(sc, camera(dev), cfg.replace(width=64, height=64,
-                                                         spp=1),
-                            device=dev, mesh=pair)      # warm: grid, build
         for fn in counters:
             fn.launches = 0
-        stats = RenderStats()
-        _sync(dev)
-        t0 = time.perf_counter()
-        img = render_multiscatter(sc, camera(dev), cfg, device=dev,
-                                  stats=stats, mesh=pair)
-        seconds = time.perf_counter() - t0
+        stats = {}
+        img = render_multiscatter(sc, camera(dev), RenderConfig(**kw),
+                                  device=dev, stats=stats)
         out["dp"][label] = dict(
-            seconds=seconds, stats=dict(stats), report=stats.report(),
-            launches={fn.__name__: fn.launches for fn in counters},
+            stats=stats, launches={fn.__name__: fn.launches
+                                   for fn in counters},
             image=img if rank == 0 else None)
 
-    m12 = make_mesh_2d(1, 2)
-    if rank < 2:
-        sc = scene_from_numpy(inp["tp_scene"], dev)
-        cfg = RenderConfig(**inp["tp_cfg"])
-        gaxis.all_reduce.calls = 0
-        _sync(dev)
-        t0 = time.perf_counter()
-        img = render_multiscatter_tp(sc, camera(dev), cfg, m12)
-        _sync(dev)
-        out["tp"]["render"] = dict(
-            seconds=time.perf_counter() - t0,
-            allreduces=gaxis.all_reduce.calls,
-            image=_host(img) if rank == 0 else None)
-    m22 = make_mesh_2d(2, 2)
+    mesh = make_mesh_2d(1, 2)
+    img = render_multiscatter_tp(scene_from_numpy(inp["tp_scene"], dev),
+                                 camera(dev), RenderConfig(**inp["tp_cfg"]),
+                                 mesh)
+    out["tp_render"] = _host(img) if rank == 0 else None
     sc10 = scene_from_numpy(inp["fit_scene"], dev)
     o, d, ids = pixel_rays(16, 16, dev)
-    f = fit_value_and_grad_tp(m22, n_bounces=2)
-    t0 = time.perf_counter()
-    val, grad = f(params_from_numpy(inp["fit_params"], dev), sc10.lights_p,
-                  sc10.lights_i, sc10.env_color, o, d, ids,
-                  torch.full((256, 3), 0.4, device=dev), inp["fit_seed"])
-    out["tp"]["fit"] = dict(seconds=time.perf_counter() - t0,
-                            loss=float(val),
-                            grad=_host(gather_gauss(grad, m22)))
-
-    if rank < 2:
-        out["fit"] = logged_fit(scene_from_numpy(inp["fit_init"], dev),
-                                inp["fit_target"], inp["fit_iters"],
-                                inp["fit_batch"], pair)
+    val, grad = fit_value_and_grad_tp(mesh, n_bounces=2)(
+        params_from_numpy(inp["fit_params"], dev), sc10.lights_p,
+        sc10.lights_i, sc10.env_color, o, d, ids,
+        torch.full((256, 3), 0.4, device=dev), inp["fit_seed"])
+    out["tp_fit"] = dict(loss=float(val), grad=_host(gather_gauss(grad,
+                                                                  mesh)))
+    out["fit"] = logged_fit(scene_from_numpy(inp["fit_init"], dev),
+                            inp["fit_target"], inp["fit_iters"],
+                            inp["fit_batch"], make_mesh())
     return out
 
 
 def logged_fit(scene, target, iters: int, batch: int, mesh=None) -> dict:
     """``fit_gaussians`` of ``scene`` toward ``target`` for ``iters``
-    iterations of ``batch`` pixels, logging every one: its seconds (the
-    device synchronised), the logged losses and the packed parameters
-    after each iteration."""
+    iterations of ``batch`` pixels, logging every one: the logged losses
+    and the packed parameters after each iteration."""
     from gvr_tpu_torch.inverse.fit import fit_gaussians
 
     dev = scene.env_color.device
@@ -315,14 +283,10 @@ def logged_fit(scene, target, iters: int, batch: int, mesh=None) -> dict:
             losses.append(float(msg.split()[4]))
 
     with tempfile.TemporaryDirectory() as tmp:
-        _sync(dev)
-        t0 = time.perf_counter()
         fit_gaussians(scene, camera(dev), target,
                       FitConfig(max_iters=iters, save_every=1,
                                 out_dir=os.path.join(tmp, "fit")),
                       batch_pixels=batch, mesh=mesh, log=log,
                       save_snapshot=lambda it, sc: params.append(
                           _host(sc.medium.pack_parameters())))
-        _sync(dev)
-        seconds = time.perf_counter() - t0
-    return dict(seconds=seconds, losses=losses, params=params)
+    return dict(losses=losses, params=params)

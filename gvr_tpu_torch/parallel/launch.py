@@ -8,8 +8,8 @@ one process group (``sharding.init_process_group`` over
 ``fn(device, *args)``, picklable values.  Every wait has a deadline: the
 group's collectives time out after ``timeout`` seconds, and the parent
 kills the ranks and raises once the job has run ``deadline`` seconds, or
-as soon as one rank failed.  Ranks on the CPU run one thread each.  ``torchrun`` is the launcher across hosts; this one serves
-the tests and ``chip_smoke.py``.
+as soon as one rank failed.  Ranks on the CPU run one thread each.
+``torchrun`` is the launcher across hosts; this one serves the tests.
 """
 
 from __future__ import annotations

@@ -24,7 +24,7 @@ chunk, wavefront.iteration and its wavefront.live_read,
 render.readback...) by their self time, with their counters.  On the
 marchers "iterations" are the march steps.
 
-``--fit`` profiles chip_smoke's fit cell instead: the scene's packed
+``--fit`` profiles one fit iteration instead: the scene's packed
 parameters perturbed by N(0, 0.1) (numpy seed 7), a 4,096-pixel batch of
 the size^2 image, 4 bounces, the 'l2_dual' loss at spp 2 and an Adam
 step, as one iteration of ``inverse/fit.fit_gaussians`` at the CLI's

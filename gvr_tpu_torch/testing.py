@@ -1,5 +1,6 @@
 """Agreement measures for holding a kernel against its plain version (or
-the JAX package), shared by the tests and ``chip_smoke.py``."""
+the JAX package), shared by the CPU tests, the card tests and
+``scripts/ab_kernels.py``."""
 
 from __future__ import annotations
 
@@ -9,7 +10,7 @@ import numpy as np
 import torch
 
 from gvr_tpu_torch.cameras import PinholeCamera
-from gvr_tpu_torch.integrators.multiscatter import tile_order
+from gvr_tpu_torch.integrators.multiscatter import tile_ids
 from gvr_tpu_torch.kernels import pathtrace_big, wavefront
 
 # Bars for two bounce results, from gvr_tpu's tests/test_pallas_kernels.py
@@ -19,7 +20,7 @@ from gvr_tpu_torch.kernels import pathtrace_big, wavefront
 # boundary may legitimately land on the other side on a few rays).
 BOUNCE_BARS = dict(agree=0.995, tau_rtol=1e-3, tau_atol=1e-4, t=1e-3,
                    albedo=1e-3, li=2e-2)
-# BOUNCE_BARS on the step wavefront's own rays (chip_smoke phase 28):
+# BOUNCE_BARS on the step wavefront's own rays:
 # camera rays from 5-6 units away cross some Gaussians at the edge of the
 # R_CUT clip, where the interval's width sqrt((R_CUT^2 - m2) / a) grows a
 # relative rounding of m2 by m2 / (2 (R_CUT^2 - m2)), a thousandfold at
@@ -97,7 +98,7 @@ def mega_agreement(outs, refs, spp: int) -> dict:
 # the chunk and the evaluation total.  On an NVIDIA H100 80GB HBM3 at
 # 700.00 W the headline's chunk 9, kernel vs plain, measured max_path_diff
 # 2.67 (spp 4) and 4.29 (spp 64), off_frac 1.2e-3 and 3.7e-3, mean_diff
-# 2.3e-5 and 1.8e-5, evals_rel 8.7e-6 and 1.1e-6 (chip_smoke phase 5).
+# 2.3e-5 and 1.8e-5, evals_rel 8.7e-6 and 1.1e-6.
 CHUNK_BARS = dict(max_path_diff=8.0, off_frac=1e-2, mean_diff=1e-4,
                   evals_rel=1e-4)
 
@@ -363,8 +364,9 @@ def scene_text(scene) -> str:
 # The resolution term only admits the few slots of the thinnest Gaussians,
 # so at most beyond_share of the live slots may exceed atol + rtol |tau|.
 # On an NVIDIA H100 80GB HBM3 at 700.00 W the kernel measured at most 43 %
-# of this bound and 1.4e-4 of the slots beyond the base (chip_smoke phase
-# 10); float32 vs float64 of the plain version 3.8 % and none.
+# of this bound and 1.4e-4 of the slots beyond the base (at one grid
+# iteration's shapes of the 10k scene's 512^2 render); float32 vs float64
+# of the plain version 3.8 % and none.
 K6_BARS = dict(atol=1e-4, rtol=1e-3, resolution=4 * 2.0 ** -23,
                beyond_share=1e-3)
 
@@ -400,8 +402,8 @@ def span_tau_agreement(got, want, grid, cells, t_out) -> dict:
 # the t bar, and of those the same share the albedo bar (a root at a
 # support end may count that Gaussian in one version only).  On an NVIDIA
 # H100 80GB HBM3 at 700.00 W the kernel left 1 of 16,395 and 1 of 28,776
-# rays outside the t bar and 0 and 2 outside the albedo bar (chip_smoke
-# phases 8 and 10).
+# rays outside the t bar and 0 and 2 outside the albedo bar (random rays,
+# and one grid iteration's shapes of the 10k scene's 512^2 render).
 K7_BARS = dict(t_atol=1e-5, t_rtol=1e-4, albedo=1e-3, share=0.999)
 
 
@@ -502,7 +504,7 @@ def big_rays(medium, n: int, seed: int, device):
     medium, then n rays from uniform points inside the box of the Gaussian
     means in uniform directions; xi [2n, 5] uniforms.  All from numpy seed
     ``seed``, float32 on ``device``."""
-    ids = tile_order(512, 512)[31 * 4096:31 * 4096 + n].astype(np.int64)
+    ids = tile_ids(512, 512, "cpu")[31 * 4096:31 * 4096 + n].long().numpy()
     uv = np.stack([(ids % 512 + 0.5) / 512, (ids // 512 + 0.5) / 512], -1)
     cam = PinholeCamera.create([0, 1, 6], [0, 1, 0], math.radians(45.0),
                                device=device)

@@ -2,7 +2,7 @@
 """A/B of the CUDA kernels of several checkouts on one card.
 
     python scripts/ab_kernels.py TREE [TREE ...]
-        [--only k1,k2,k3,grid,big,renders] [--out FILE]
+        [--only k1,k2,k3,k8,grid,big,renders] [--out FILE]
 
 Each TREE is a directory that holds a ``gvr_tpu_torch`` package: a
 checkout of this repository (for example an older commit unpacked with
@@ -21,20 +21,26 @@ checkout, loaded by path, so older trees are timed alike).  Sections:
   two renders after a warm-up), and the RR-tail case of the card tests
   (16 Gaussians, seed 9, orthographic camera, 8^2 spp 4, max_bounces 10,
   RR from bounce 1, the tail cap from bounce 3);
-- k2: K2 on chip_smoke phase 3's 65,536 random rays at N = 250, finisher
-  off and on;
+- k2: K2 on 65,536 random rays (numpy seed 1) at N = 250, finisher off
+  and on;
 - k3: K3 as a wavefront iteration launches it, on 65,536 lanes: one
   ``wave_uniforms`` launch where the tree has it, else the two
   ``planes_uniforms`` launches (the jitter pair, the bounce's nine draws)
   it replaces; the [2 + 9, B] planes;
-- grid: K6 and K7 at one grid iteration's shapes, built as chip_smoke
-  phase 10 builds them (the 10k scene's grid, 32,768 camera rays of
-  tile-order chunk 4 of 512^2 and their 32,768 NEE rays; u and the NEE
-  draws from seed 10);
-- big: K4 and K5 on chip_smoke phases 12 and 13's rays of the 10k scene
-  (the 65,536 lanes after one bounce also cut to their first 24,576 and
-  4,096, the live lanes of a typical and of a late iteration) and on the
-  S_CAP_MAX fallback scene's rays;
+- k8: K8's two launches, ``wave_pre`` and ``wave_post``, on 65,536 random
+  lanes of the 512^2 spp 16 image (``testing.random_lanes``, seed 29),
+  where the tree has ``kernels/wavefront``: the pre-bounce launch repeated
+  on the lanes it has started, the post-bounce launch on the lane state
+  restored before each call; their outputs of the first call;
+- grid: K6 and K7 at one grid iteration's shapes, their inputs from the
+  plain versions (the 10k scene's grid, 32,768 camera rays of tile-order
+  chunk 4 of 512^2 and their 32,768 NEE rays; u and the NEE draws from
+  seed 10);
+- big: K4 and K5 on ``testing.big_rays`` of the 10k scene (8,192
+  tile-order camera rays and 8,192 from inside the medium), on the 65,536
+  lanes of tile-order chunk 2 of 512^2, primary and after one bounce (also
+  cut to their first 24,576 and 4,096, the live lanes of a typical and of
+  a late iteration), and on the S_CAP_MAX fallback scene's rays;
 - renders (first turn of each tree): the 10k scene at 512^2 spp 16 with
   engine auto (the grid) and with engine dense (the big-N engine), the
   images and render seconds.
@@ -43,7 +49,9 @@ outputs with the first tree's: K1's evaluation counts pixel for pixel and
 its radiance at this checkout's ``testing.CHUNK_BARS`` (the order of its
 sums changes from run to run), every other output bit for bit; ``--out``
 also writes them as JSON.  A tree whose ``kernels/pathtrace_big`` has no
-``chunk_boxes`` is called without boxes.
+``chunk_boxes`` is called without boxes, and one whose
+``integrators/multiscatter`` has no ``tile_ids`` gives its numpy
+``tile_order``.
 
 Needs a CUDA card; imports neither JAX nor the JAX package.
 """
@@ -58,7 +66,7 @@ import subprocess
 import sys
 import tempfile
 
-SECTIONS = ("k1", "k2", "k3", "grid", "big", "renders")
+SECTIONS = ("k1", "k2", "k3", "k8", "grid", "big", "renders")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -84,13 +92,26 @@ def _timed(res, key, fn, kernel, reps, per_call=1):
     return out
 
 
+def _tile_chunk(w: int, h: int, k: int, n: int, dev):
+    """Pixel ids [k n, (k + 1) n) of the w x h tile order on ``dev``: the
+    tree's ``tile_ids``, or its numpy ``tile_order`` where it predates
+    it."""
+    import torch
+
+    from gvr_tpu_torch.integrators import multiscatter
+
+    if hasattr(multiscatter, "tile_ids"):
+        return multiscatter.tile_ids(w, h, dev)[k * n:(k + 1) * n]
+    return torch.from_numpy(
+        multiscatter.tile_order(w, h)[k * n:(k + 1) * n]).to(dev)
+
+
 def _k1(dev, res, tensors):
     import torch
 
     from gvr_tpu_torch.cameras import OrthographicCamera, PinholeCamera
     from gvr_tpu_torch.config import RenderConfig
-    from gvr_tpu_torch.integrators.multiscatter import (render_multiscatter,
-                                                        tile_order)
+    from gvr_tpu_torch.integrators.multiscatter import render_multiscatter
     from gvr_tpu_torch.kernels import megatrace, pathtrace
     from gvr_tpu_torch.scene.generators import random_gaussian_scene
     from gvr_tpu_torch.scene.scene import parse_gmm
@@ -111,8 +132,7 @@ def _k1(dev, res, tensors):
     sc = parse_gmm(random_gaussian_scene(250, seed=0), device=dev)
     cam = PinholeCamera.create([0, 1, 6], [0, 1, 0], math.radians(45.0),
                                device=dev)
-    chunk = torch.from_numpy(tile_order(1024, 1024)[9 * 65536:10 * 65536]
-                             ).to(dev)
+    chunk = _tile_chunk(1024, 1024, 9, 65536, dev)
     takes_phases = "phases" in inspect.signature(
         megatrace.mega_call).parameters
     for spp, reps in ((4, 10), (64, 4)):
@@ -188,6 +208,47 @@ def _k3(dev, res, tensors):
     tensors["K3 planes [2 + 9, 65536]"] = planes.cpu()
 
 
+def _k8(dev, res, tensors):
+    import torch
+
+    from gvr_tpu_torch import testing
+    from gvr_tpu_torch.cameras import PinholeCamera
+    from gvr_tpu_torch.config import RenderConfig
+
+    try:
+        from gvr_tpu_torch.kernels import wavefront as wf
+    except ImportError:               # a tree from before K8
+        return
+    cam = PinholeCamera.create([0, 1, 6], [0, 1, 0], math.radians(45.0),
+                               device=dev)
+    cfg = RenderConfig(width=512, height=512, spp=16, min_scatter=1,
+                       rr_tail_after=3)
+    env = torch.tensor([0.3, 0.5, 0.9], device=dev)
+    lanes, live, bounce_res, edges = testing.random_lanes(cfg, cam, 65536,
+                                                          dev, 29)
+    fields = ("o", "d", "thr", "acc", "alive", "sample", "bounce")
+    pre = wf.wave_pre(lanes, live, cfg)
+    for name, t in zip(("o", "d", "xi", "xr"), pre):
+        tensors[f"K8 wave_pre {name}"] = t.cpu()
+    xr = pre[3].clone()
+    xr[0] = edges(lanes, xr[0])
+    after_pre = {k: getattr(lanes, k).clone() for k in fields}
+
+    def post():
+        for k in fields:
+            getattr(lanes, k).copy_(after_pre[k])
+        return wf.wave_post(lanes, live, xr, bounce_res, 4.0, env, cfg)
+
+    tensors["K8 wave_post mask"] = post().cpu()
+    for k in fields:
+        tensors[f"K8 wave_post {k}"] = getattr(lanes, k).cpu()
+    _timed(res, "k8_post_ms", post, "wave_post_kernel", 20)
+    for k in fields:
+        getattr(lanes, k).copy_(after_pre[k])
+    _timed(res, "k8_pre_ms", lambda: wf.wave_pre(lanes, live, cfg),
+           "wave_pre_kernel", 20)
+
+
 def _grid(dev, res, tensors):
     import numpy as np
     import torch
@@ -195,7 +256,6 @@ def _grid(dev, res, tensors):
     from gvr_tpu_torch.accel.grid import build_grid, dda_crossings
     from gvr_tpu_torch.cameras import PinholeCamera
     from gvr_tpu_torch.integrators import gridscatter
-    from gvr_tpu_torch.integrators.multiscatter import tile_order
     from gvr_tpu_torch.kernels import gridtrace
     from gvr_tpu_torch.scene.generators import random_gaussian_scene
     from gvr_tpu_torch.scene.scene import parse_gmm
@@ -205,7 +265,7 @@ def _grid(dev, res, tensors):
     cam = PinholeCamera.create([0, 1, 6], [0, 1, 0], math.radians(45.0),
                                device=dev)
     n = 32768
-    px = torch.from_numpy(tile_order(512, 512)[4 * n:5 * n]).to(dev)
+    px = _tile_chunk(512, 512, 4, n, dev)
     uv = torch.stack([(px % 512 + 0.5) / 512, (px // 512 + 0.5) / 512],
                      dim=-1).float()
     o, d = cam.sample_ray(uv)
@@ -222,7 +282,7 @@ def _grid(dev, res, tensors):
                           "grid_solve_kernel", 20)
     tensors["K7 t_sc"] = t_sc.cpu()
     tensors["K7 albedo"] = albedo.cpu()
-    # K6 over the camera rays and their NEE rays, as chip_smoke phase 10
+    # K6 over the camera rays and their NEE rays
     t_sc = gridtrace.solve_reference(*args)[0]
     pos = o + torch.clamp(t_sc, min=0.0)[:, None] * d
     wi, tmax_n, _, _ = gridscatter._nee_select(sc, pos, xi[:, 1], xi[:, 2],
@@ -243,7 +303,6 @@ def _big(dev, res, tensors):
 
     from gvr_tpu_torch import testing
     from gvr_tpu_torch.cameras import PinholeCamera
-    from gvr_tpu_torch.integrators.multiscatter import tile_order
     from gvr_tpu_torch.kernels import pathtrace_big as pb
     from gvr_tpu_torch.ops.sampling import dir_from_xi
     from gvr_tpu_torch.scene.generators import random_gaussian_scene
@@ -264,7 +323,7 @@ def _big(dev, res, tensors):
     sc10k = parse_gmm(random_gaussian_scene(10_000, seed=0), device=dev)
     sc_fb = parse_gmm(random_gaussian_scene(8000, seed=0,
                                             diameter=(2.0, 4.0)), device=dev)
-    lanes = torch.from_numpy(tile_order(512, 512)[2 * 65536:3 * 65536]).to(dev)
+    lanes = _tile_chunk(512, 512, 2, 65536, dev)
     uv = torch.stack([(lanes % 512 + 0.5) / 512,
                       (lanes // 512 + 0.5) / 512], dim=-1).float()
     o13, d13 = cam.sample_ray(uv)
@@ -276,7 +335,7 @@ def _big(dev, res, tensors):
     o13b = torch.where(moved, o13 + s1[0][:, None] * d13, o13)
     d13b = torch.where(moved, dir_from_xi(xi13[1, :, 3:5]), d13)
     cases = {
-        "10k phase-12 rays": (sc10k, *testing.big_rays(sc10k.medium, 8192,
+        "10k big_rays": (sc10k, *testing.big_rays(sc10k.medium, 8192,
                                                        12, dev)),
         "10k primary lanes": (sc10k, o13, d13, xi13[0]),
         "10k lanes after one bounce": (sc10k, o13b, d13b.contiguous(),
@@ -338,8 +397,8 @@ def _worker(tree: str, out: str, render: bool, only) -> None:
            "device": torch.cuda.get_device_name(0), "times": {},
            "dispatch_us": {}, "recorded": {}}
     tensors = {}
-    sections = {"k1": _k1, "k2": _k2, "k3": _k3, "grid": _grid, "big": _big,
-                "renders": _renders}
+    sections = {"k1": _k1, "k2": _k2, "k3": _k3, "k8": _k8, "grid": _grid,
+                "big": _big, "renders": _renders}
     for name in only:
         if name != "renders" or render:
             sections[name](dev, res, tensors)

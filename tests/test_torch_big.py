@@ -322,11 +322,11 @@ def test_pre_test_passes_every_ok_pair(n):
 @pytest.mark.parametrize("n", [250, 2048])
 def test_group_boxes_are_conservative(n, kind):
     """``megatrace.group_boxes`` (the 32-row groups of K1's table in Morton
-    order, over which chip_smoke counts K1's bound): they hold each valid
-    row once, and every group that holds a pair a ray crosses by
-    ``_interval`` (for a NEE segment: one that starts before tmax) meets
-    the ray, so the count charges every pair the kernel must find; and a
-    ray meets few of them."""
+    order, over which ``mega_reference(counts=)`` counts K1's work): they
+    hold each valid row once, and every group that holds a pair a ray
+    crosses by ``_interval`` (for a NEE segment: one that starts before
+    tmax) meets the ray, so the count charges every pair the kernel must
+    find; and a ray meets few of them."""
     medium = parse_gmm(random_gaussian_scene(n, **PRE_SCENES[n])).medium
     table = tpt.pack_table(medium)
     boxes, rows = tmt.group_boxes(table)

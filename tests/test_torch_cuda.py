@@ -1,4 +1,6 @@
-"""The CUDA kernels against their plain versions on the card.
+"""The CUDA kernels against their plain versions on the card, and the
+port on the card: each path through the CLI at the size it serves, the
+trace, and the parallel layer on two ranks that share the card.
 
 Every test here needs a CUDA card and skips without one.  The file imports
 neither JAX nor gvr_tpu, so on a machine with a card and no JAX it runs as
@@ -7,7 +9,12 @@ neither JAX nor gvr_tpu, so on a machine with a card and no JAX it runs as
 
 (--noconftest: tests/conftest.py sets up JAX for the rest of the suite)."""
 
+import json
 import math
+import os
+import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -19,12 +26,13 @@ from gvr_tpu_torch.cameras import OrthographicCamera, PinholeCamera
 from gvr_tpu_torch.config import RenderConfig, Solver
 from gvr_tpu_torch.integrators.freeflight import render_single_scatter
 from gvr_tpu_torch.integrators import multiscatter as tms
-from gvr_tpu_torch.integrators.gridscatter import (critical_crossing,
+from gvr_tpu_torch.integrators.gridscatter import (_nee_select,
+                                                   critical_crossing,
                                                    grid_tau_crossings)
 from gvr_tpu_torch import cli
 from gvr_tpu_torch.integrators.multiscatter import (
     diff_uniforms, multiscatter_radiance_diff, render_multiscatter,
-    tile_order, wavefront_pixels_big)
+    wavefront_pixels_big)
 from gvr_tpu_torch.integrators.raymarch import (render_pure_raymarch,
                                                 render_raymarch_gaussians,
                                                 render_raymarch_spheres)
@@ -38,23 +46,30 @@ from gvr_tpu_torch.kernels import pathtrace as tpt
 from gvr_tpu_torch.kernels import pathtrace_big as tpb
 from gvr_tpu_torch.kernels import rng as trng
 from gvr_tpu_torch.kernels import wavefront as twf
+from gvr_tpu_torch.parallel import checks
+from gvr_tpu_torch.parallel.launch import spawn
 from gvr_tpu_torch.ops import transmittance as tto
+from gvr_tpu_torch.scene.convert import (MIXTURE_FIELDS, SCENE_FIELDS,
+                                         params_from_numpy, scene_from_numpy)
 from gvr_tpu_torch.scene.gaussians import GaussianMixture
 from gvr_tpu_torch.scene.generators import (random_gaussian_scene,
                                             random_sphere_scene)
 from gvr_tpu_torch.scene.scene import parse_gmm, parse_smm
 from gvr_tpu_torch.scene.voxels import VoxelGrid
 from gvr_tpu_torch.testing import (BIG_DENSE_BARS, BOUNCE_BARS,
-                                   bake_agreement, random_lanes,
+                                   PATH_BOUNCE_BARS, bake_agreement,
+                                   bounce_agreement, random_lanes,
                                    big_kernel_vs_plain, big_rays,
                                    card_cpu_agreement, chunk_agreement,
                                    gif_structure, image_agreement,
                                    fit_agreement, mega_agreement,
                                    solve_agreement, solve_fd_agreement,
-                                   span_tau_agreement)
-from gvr_tpu_torch.utils.profiling import path_statistics
+                                   span_tau_agreement, tp_agreement)
+from gvr_tpu_torch.utils.profiling import TRACE_FILE, path_statistics
 
 pytestmark = pytest.mark.gpu
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 # 24 Gaussians under the generator's 3 point lights
 SCENE24 = random_gaussian_scene(24, seed=7, diameter=(0.2, 0.6),
@@ -281,16 +296,47 @@ def test_mega_kernel_crowded_rays(cuda_device, scene):
                                      max_bounces=4), ids)
 
 
-def test_mega_kernel_reproducible(cuda_device):
-    """K1 five times on the headline's chunk 9 (the 250-Gaussian scene,
-    1024^2, 65,536 pixels through the medium) at spp 64: the same bits
-    each time, the radiance and the evaluation counts."""
-    sc = parse_gmm(random_gaussian_scene(250, seed=0), device=cuda_device)
+def _headline_chunk(device, spp):
+    """K1's arguments for the headline's chunk 9: the 250-Gaussian scene
+    at 1024^2, the 65,536 pixels of rows 576-639 in tile order, which
+    cross the medium and have the most bounce evaluations of its 16."""
+    sc = parse_gmm(random_gaussian_scene(250, seed=0), device=device)
     cam = PinholeCamera.create([0, 1, 6], [0, 1, 0], math.radians(45.0),
-                               device=cuda_device)
-    chunk = torch.from_numpy(tile_order(1024, 1024)[9 * 65536:10 * 65536])
-    args = _mega_args(sc, cam, RenderConfig(width=1024, height=1024, spp=64),
-                      chunk.to(cuda_device))
+                               device=device)
+    chunk = tms.tile_ids(1024, 1024, device)[9 * 65536:10 * 65536]
+    return _mega_args(sc, cam, RenderConfig(width=1024, height=1024,
+                                            spp=spp), chunk)
+
+
+@pytest.mark.parametrize("spp", [4, 64])
+def test_mega_kernel_headline_chunk_matches_plain(cuda_device, spp):
+    """K1 on the headline's chunk 9 at spp 4 and at the headline's spp 64
+    against the plain version at testing.CHUNK_BARS."""
+    args = _headline_chunk(cuda_device, spp)
+    res = chunk_agreement(tmt.mega_call(*args), tmt.mega_reference(*args),
+                          spp)
+    assert res["ok"], res
+
+
+def test_mega_kernel_headline_scene_matches_plain(cuda_device):
+    """K1 on the headline's 250-Gaussian scene at 64^2 spp 16, every pixel
+    in tile order, against the plain version: the image means within 1 %,
+    the per-pixel mean |diff| below 1e-3."""
+    sc = parse_gmm(random_gaussian_scene(250, seed=0), device=cuda_device)
+    cfg = RenderConfig(width=64, height=64, spp=16)
+    args = _mega_args(sc, _cameras(cuda_device)[0], cfg,
+                      tms.tile_ids(64, 64, cuda_device))
+    got, want = tmt.mega_call(*args), tmt.mega_reference(*args)
+    res = mega_agreement(got, want, cfg.spp)
+    m_got, m_want = (float(x[0].mean()) / cfg.spp for x in (got, want))
+    assert res["finite"] and res["mean_diff"] < 1e-3, res
+    assert abs(m_got - m_want) <= 0.01 * abs(m_want), (m_got, m_want)
+
+
+def test_mega_kernel_reproducible(cuda_device):
+    """K1 five times on the headline's chunk 9 at spp 64: the same bits
+    each time, the radiance and the evaluation counts."""
+    args = _headline_chunk(cuda_device, 64)
     first = tmt.mega_call(*args)
     for _ in range(4):
         again = tmt.mega_call(*args)
@@ -553,6 +599,41 @@ def test_grid_engine_matches_megakernel(cuda_device):
     assert launches[0] > 0 and launches[1] > 0 and launches[2:] == [0, 0, 0]
     assert np.isfinite(img_g).all() and img_g.std() > 0
     np.testing.assert_allclose(img_g.mean(), img_d.mean(), rtol=1e-2)
+
+
+def test_grid_kernels_at_the_main_paths_shapes(cuda_device, scene10k):
+    """K6 and K7 at one iteration of the grid main path, the 10k scene at
+    512^2: K7 on the critical cells of the GRID_CHUNK camera rays of
+    tile-order chunk 4 (rows 256-319, the centre) at testing.K7_BARS, and
+    K6 over the crossings of those rays and of their NEE rays from the
+    scatter points at testing.K6_BARS."""
+    sc = scene10k.to(cuda_device)
+    grid = build_grid(sc.medium)
+    n = tms.GRID_CHUNK
+    cam = PinholeCamera.create([0, 1, 6], [0, 1, 0], math.radians(45.0),
+                               device=cuda_device)
+    px = tms.tile_ids(512, 512, cuda_device)[4 * n:5 * n]
+    o, d = cam.sample_ray(torch.stack([(px % 512 + 0.5) / 512,
+                                       (px // 512 + 0.5) / 512], -1).float())
+    xi = torch.from_numpy(np.random.default_rng(1).uniform(
+        size=(n, 5)).astype(np.float32)).to(cuda_device)
+    scattered, _, cells, t_in, t_out, resid = critical_crossing(
+        grid, *grid_tau_crossings(grid, o, d), xi[:, 0])
+    args = (grid, o, d, t_in, t_out, resid, cells, 6)
+    got, want = tgt.solve_pass(*args), tgt.solve_reference(*args)
+    res = solve_agreement(got, want, cells)
+    assert res["n"] > 1000 and res["ok"], res
+    pos = o + torch.clamp(got[0], min=0.0)[:, None] * d
+    wi, tmax_nee, _, _ = _nee_select(sc, pos, xi[:, 1], xi[:, 2], xi[:, 3:5])
+    o2, d2 = torch.cat([o, pos]), torch.cat([d, wi])
+    tmax = torch.cat([torch.full((n,), 1e8, device=cuda_device),
+                      torch.where(scattered, tmax_nee, 0.0)])
+    cells2, _, t_out2 = dda_crossings(grid, o2, d2, tmax)
+    got = tgt.span_tau_pass(grid, o2, d2, tmax, cells2)
+    want = tgt.span_tau_reference(grid, o2, d2, tmax, cells2)
+    torch.cuda.synchronize()
+    res = span_tau_agreement(got, want, grid, cells2, t_out2)
+    assert res["slots"] > 1000 and res["ok"], res
 
 
 def test_grid_wrappers_refuse_bad_inputs(cuda_device):
@@ -1222,3 +1303,275 @@ def test_cli_animate_multiscatter_on_card(cuda_device, tmp_path):
     assert res["backend"] == "native" and res["frames"] == 3
     assert gif_structure((tmp_path / "a.gif").read_bytes()) == dict(
         signature=True, width=32, height=32, frames=3, trailer=True)
+
+
+# ---- the paths at the cells' sizes, through the CLI ------------------------
+
+# case: (random_gaussian_scene's keys, size, spp, CLI arguments, the path,
+# the kernels it launches)
+AT_SIZE = {
+    "mega": (dict(n=250, seed=0), 1024, 64, [], "mega", ("mega_call",)),
+    "grid": (dict(n=10_000, seed=0), 512, 16, [], "grid",
+             ("wave_uniforms", "span_tau_pass", "solve_pass")),
+    "big": (dict(n=10_000, seed=0), 512, 16, ["--engine", "dense"], "big",
+            ("wave_pre", "wave_post", "big_stage1", "big_nee")),
+    "fallback": (dict(n=8000, seed=0, diameter=(2.0, 4.0)), 128, 4, [],
+                 "big", ("wave_pre", "wave_post", "big_stage1", "big_nee")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(AT_SIZE))
+def test_cli_render_at_size(cuda_device, tmp_path, case):
+    """`cli render` through each path at the size it serves: the headline
+    (250 Gaussians, 1024^2 spp 64) through K1; the 10k scene at 512^2 spp
+    16 through the grid under engine auto and through the big-N kernels
+    under --engine dense; the S_CAP_MAX fallback scene (8,000 Gaussians of
+    diameter 2-4, 128^2 spp 4), whose grid engine auto refuses, through
+    the big-N kernels.  Each: the image finite and not constant, the
+    path's kernels launched (K3 once a grid iteration, K8's two launches
+    once a dense-wavefront iteration), no plain version called, and a
+    second render's PPM the same bytes."""
+    kw, size, spp, args, path, kernels = AT_SIZE[case]
+    scene = tmp_path / "scene.txt"
+    scene.write_text(random_gaussian_scene(**kw))
+    counters = checks.counted_kernels()
+    ppm = []
+    for k in range(2):
+        for fn in counters:
+            fn.launches = 0
+        out = tmp_path / f"out{k}.ppm"
+        stats = cli.main(["render", str(scene), "-o", str(out), "--width",
+                          str(size), "--height", str(size), "--spp",
+                          str(spp), "--stats", "--device", str(cuda_device)]
+                         + args)
+        ppm.append(out.read_bytes())
+        launches = {fn.__name__: fn.launches for fn in counters}
+        assert stats["kernel"] == path
+        assert all(launches[k] for k in kernels), launches
+        assert not any(v for k, v in launches.items()
+                       if k.endswith("_reference")), launches
+        if path == "grid":
+            assert launches["wave_uniforms"] == stats["iterations"]
+        if "wave_pre" in kernels:
+            assert launches["wave_pre"] == launches["wave_post"] \
+                == stats["iterations"]
+    img = read_ppm(str(out))
+    assert img.shape == (size, size, 3) and img.std() > 0
+    assert ppm[0] == ppm[1]
+
+
+def test_cli_trace_on_card(cuda_device, tmp_path):
+    """`cli render --trace DIR --stats` of the headline's scene at 256^2
+    spp 4, in a process of its own (late in a long process torch.profiler
+    may record none of a short run's launches): the Chrome trace holds
+    K1's kernel and the render's spans, and the report prints the chunk
+    and render_multiscatter spans."""
+    scene = tmp_path / "scene.txt"
+    scene.write_text(random_gaussian_scene(250, seed=0))
+    run = subprocess.run(
+        [sys.executable, "-m", "gvr_tpu_torch.cli", "render", str(scene),
+         "-o", str(tmp_path / "o.ppm"), "--width", "256", "--height", "256",
+         "--spp", "4", "--trace", str(tmp_path / "trace"), "--stats",
+         "--device", "cuda"], cwd=ROOT, capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=str(ROOT)), timeout=600)
+    assert run.returncode == 0, run.stderr[-4000:]
+    trace = json.loads((tmp_path / "trace" / TRACE_FILE).read_text())
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    # a kernel's event is named by its demangled signature
+    # ("void gvr::mega_kernel<false>(...)")
+    assert any("gvr::mega_kernel" in n for n in names), \
+        sorted(n for n in names if "gvr" in n or "kernel" in n)[:20]
+    assert {"render.prepare", "chunk", "render.readback"} <= names
+    assert "[gvr] chunk:" in run.stdout
+    assert "[gvr] render_multiscatter:" in run.stdout
+
+
+def test_bounce_kernel_on_the_step_paths_rays(cuda_device, monkeypatch):
+    """K2 on its own inputs on the step path: the first iteration of the
+    headline's chunk 9 (65,536 camera rays through the medium) and its
+    first with at most 1,024 live lanes, against the plain version at
+    PATH_BOUNCE_BARS (camera rays that graze a Gaussian's R_CUT clip part
+    float32 from float64: tests/test_torch_step.py)."""
+    sc = parse_gmm(random_gaussian_scene(250, seed=0), device=cuda_device)
+    cam = PinholeCamera.create([0, 1, 6], [0, 1, 0], math.radians(45.0),
+                               device=cuda_device)
+    cfg = RenderConfig(width=1024, height=1024, spp=64, wavefront="step")
+    ids = tms.tile_ids(1024, 1024, cuda_device)[9 * 65536:10 * 65536]
+    picked, real = {}, tms.bounce_step
+
+    def record(*args):
+        key = "tail" if picked else "full"
+        if key not in picked and (key == "full" or args[1].shape[0] <= 1024):
+            picked[key] = tuple(a.clone() if torch.is_tensor(a) else a
+                                for a in args)
+        return real(*args)
+
+    monkeypatch.setattr(tms, "bounce_step", record)
+    tms.wavefront_pixels_step(sc, cam, cfg, ids)
+    assert set(picked) == {"full", "tail"}
+    assert picked["full"][1].shape[0] == 65536
+    for key, args in picked.items():
+        res = bounce_agreement(tpt.bounce_step(*args),
+                               tpt.bounce_core_reference(*args),
+                               PATH_BOUNCE_BARS)
+        assert res["ok"], (key, res)
+
+
+# ---- the parallel layer: two gloo ranks that share the card ----------------
+
+# label: (scene, RenderConfig's fields, the kernels each rank launches)
+DP_CARD = {
+    "mega": ("250", dict(width=1024, height=1024, spp=64), ("mega_call",)),
+    "step": ("250", dict(width=512, height=512, spp=16, wavefront="step"),
+             ("wave_pre", "wave_post", "bounce_step")),
+    "grid": ("10k", dict(width=512, height=512, spp=16),
+             ("wave_uniforms", "span_tau_pass", "solve_pass")),
+    "big": ("10k", dict(width=256, height=256, spp=4, engine="dense"),
+            ("wave_pre", "wave_post", "big_stage1", "big_nee")),
+}
+TP_CARD = dict(width=128, height=128, spp=4, max_bounces=3)
+# the data-parallel fit against one process: tests/test_gauss_sharded.py's
+# trajectory bars (losses within rtol 1e-4 beyond the log's 5 decimals,
+# parameters within 1e-3 |p| + 1e-5) after each of FIT_HELD iterations: the
+# two ranks sum the batch's gradient in another order than one process,
+# and Adam's normalised step parts the trajectories after that
+FIT_HELD, FIT_LOSS_RTOL, FIT_RTOL, FIT_ATOL = 2, 1e-4, 1e-3, 1e-5
+
+
+def _arrays(sc) -> dict:
+    """A Scene as numpy arrays, which every rank and every reference
+    start from."""
+    out = {k: getattr(sc.medium, k).detach().cpu().numpy()
+           for k in MIXTURE_FIELDS}
+    out.update({k: getattr(sc, k).cpu().numpy() for k in SCENE_FIELDS})
+    return out
+
+
+@pytest.fixture(scope="module")
+def card_ranks():
+    """(inputs, each rank's result) of ``parallel.checks.card_suite`` on
+    two gloo ranks that share the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is false)")
+    dev = torch.device("cuda", 0)
+    scenes = {"250": _arrays(parse_gmm(random_gaussian_scene(250, seed=0))),
+              "10k": _arrays(parse_gmm(random_gaussian_scene(10_000,
+                                                             seed=0))),
+              "10": _arrays(parse_gmm(SCENE10))}
+    true = parse_gmm(random_gaussian_scene(250, seed=0))
+    p = true.medium.pack_parameters().numpy()
+    p = p + np.random.default_rng(7).normal(0, 0.1, p.shape) \
+        .astype(np.float32)
+    target = render_multiscatter(
+        scene_from_numpy(scenes["250"], dev), checks.camera(dev),
+        RenderConfig(width=128, height=128, spp=1024), device=dev)
+    inp = dict(dp=[(label, scenes[key], kw)
+                   for label, (key, kw, _) in DP_CARD.items()],
+               tp_scene=scenes["250"], tp_cfg=TP_CARD,
+               fit_scene=scenes["10"],
+               fit_params=parse_gmm(SCENE10).medium.pack_parameters().numpy(),
+               fit_seed=5,
+               fit_init=_arrays(true.with_medium(
+                   GaussianMixture.from_parameters(torch.from_numpy(p)))),
+               fit_target=target, fit_iters=FIT_HELD, fit_batch=4096)
+    ranks = spawn(checks.card_suite, 2, inp, device="cuda", timeout=300.0,
+                  deadline=900.0)
+    return inp, ranks
+
+
+@pytest.mark.parametrize("label", sorted(DP_CARD))
+def test_dp_render_on_card_is_one_process(cuda_device, card_ranks, label):
+    """render_multiscatter over two ranks that share the card, through
+    each engine's path: the assembled image equal to the one-process
+    image bit for bit, and each rank launched its path's kernels (K2 and
+    K8 once an iteration) and no plain version."""
+    inp, ranks = card_ranks
+    key, kw, kernels = DP_CARD[label]
+    scene = dict((lb, arrays) for lb, arrays, _ in inp["dp"])[label]
+    cfg = RenderConfig(**kw)
+    one = render_multiscatter(scene_from_numpy(scene, cuda_device),
+                              checks.camera(cuda_device), cfg,
+                              device=cuda_device)
+    assert np.array_equal(ranks[0]["dp"][label]["image"], one)
+    for r in ranks:
+        st, launches = r["dp"][label]["stats"], r["dp"][label]["launches"]
+        assert st["kernel"] == label and st["shards"] == 2
+        assert all(launches[k] for k in kernels), launches
+        assert not any(v for k, v in launches.items()
+                       if k.endswith("_reference")), launches
+        for k in ("bounce_step", "wave_pre", "wave_post"):
+            assert launches[k] in (0, st["iterations"]), (k, launches)
+
+
+def test_tp_on_card_matches_one_device(cuda_device, card_ranks):
+    """render_multiscatter_tp over a (1 rays x 2 gauss) mesh on the card
+    against the one-device sample loop (mc_camera_rays and
+    multiscatter_radiance) at TP_BARS, and fit_value_and_grad_tp's loss
+    and gathered gradient against fit_loss and its backward at FIT_BARS,
+    the same on both ranks."""
+    inp, ranks = card_ranks
+    sc = scene_from_numpy(inp["tp_scene"], cuda_device)
+    cam = checks.camera(cuda_device)
+    cfg = RenderConfig(**inp["tp_cfg"])
+    ids = torch.arange(cfg.width * cfg.height, dtype=torch.int32,
+                       device=cuda_device)
+    acc = torch.zeros((ids.shape[0], 3), device=cuda_device)
+    for s in range(cfg.spp):
+        o, d, rid = tms.mc_camera_rays(sc, cam, cfg, ids, s)
+        acc = acc + tms.multiscatter_radiance(sc, o, d, rid, cfg, sample=s)
+    res = tp_agreement(ranks[0]["tp_render"], (acc / cfg.spp).cpu().numpy())
+    assert res["ok"], res
+    sc10 = scene_from_numpy(inp["fit_scene"], cuda_device)
+    o, d, ids = checks.pixel_rays(16, 16, cuda_device)
+    p = params_from_numpy(inp["fit_params"], cuda_device) \
+        .requires_grad_(True)
+    val = tfit.fit_loss(p, sc10, o, d, ids,
+                        torch.full((256, 3), 0.4, device=cuda_device),
+                        n_bounces=2, seed=inp["fit_seed"])
+    val.backward()
+    tp = [r["tp_fit"] for r in ranks]
+    res = fit_agreement(tp[0]["loss"], tp[0]["grad"], val, p.grad)
+    assert res["ok"], res
+    assert np.array_equal(tp[0]["grad"], tp[1]["grad"])
+
+
+def test_dp_fit_on_card_matches_one_process(cuda_device, card_ranks):
+    """fit_gaussians over two ranks that share the card, from the
+    headline scene's parameters perturbed by N(0, 0.1) toward its 128^2
+    spp 1024 render, against one process: the losses and parameters after
+    each of the first FIT_HELD iterations within the trajectory bars, and
+    the same parameters on both ranks."""
+    inp, ranks = card_ranks
+    one = checks.logged_fit(scene_from_numpy(inp["fit_init"], cuda_device),
+                            inp["fit_target"], FIT_HELD, inp["fit_batch"])
+    fit = ranks[0]["fit"]
+    assert len(fit["params"]) == len(one["params"]) == FIT_HELD
+    for a, b in zip(fit["params"], one["params"]):
+        assert np.max(np.abs(a - b) - FIT_RTOL * np.abs(b)) <= FIT_ATOL
+    for a, b in zip(fit["losses"], one["losses"]):
+        assert max(abs(a - b) - 1e-5, 0.0) / abs(b) <= FIT_LOSS_RTOL
+    assert all(np.array_equal(a, b) for a, b in zip(
+        fit["params"], ranks[1]["fit"]["params"]))
+
+
+def test_torchrun_cli_render_over_nccl(cuda_device, tmp_path):
+    """`torchrun --nproc-per-node 1 -m gvr_tpu_torch.cli render` of the
+    headline's scene at 256^2 spp 16 joins a one-rank job over NCCL and
+    writes the same PPM bytes as a render in this process."""
+    scene = tmp_path / "s.txt"
+    scene.write_text(random_gaussian_scene(250, seed=0))
+    args = ["render", str(scene), "--width", "256", "--height", "256",
+            "--spp", "16"]
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "1", "-m", "gvr_tpu_torch.cli"] + args
+        + ["-o", str(tmp_path / "run.ppm"), "--device", "cuda"], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT)), capture_output=True,
+        text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-4000:]
+    banner = [x for x in run.stdout.splitlines() if "[gvr] rank" in x]
+    assert banner and "nccl" in banner[0], run.stdout
+    cli.main(args + ["-o", str(tmp_path / "one.ppm"), "--device",
+                     str(cuda_device)])
+    assert (tmp_path / "run.ppm").read_bytes() \
+        == (tmp_path / "one.ppm").read_bytes()

@@ -292,7 +292,7 @@ def test_pooled_grid_wavefront_matches_jax(jscene, jgrid, grid):
     diff = np.abs(got - want).max(axis=-1)
     assert (diff <= 1e-3).mean() >= 0.99
     assert np.abs(got - want).mean() <= 1e-4
-    assert stats["iterations"] > 4 and stats["ext_rays"] >= 16 * 16 * 4
+    assert stats["iterations"] > 4 and stats["bounce_evals"] >= 16 * 16 * 4
 
 
 def test_grid_render_is_chunk_invariant(grid):

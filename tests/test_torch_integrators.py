@@ -102,7 +102,7 @@ def test_xla_engine_newton_candidate_k_matches_jax(camera):
     cfg = dict(XLA_KW, candidate_k=8, solver_finisher=True)
     want = jms.render_multiscatter(jax_parse_gmm(SCENE24), jcam,
                                    JConfig(**cfg))
-    ids = torch.from_numpy(tms.tile_order(16, 16))
+    ids = tms.tile_ids(16, 16, "cpu")
     img = torch.zeros((256, 3))
     img[ids] = tms.wavefront_pixels_xla(parse_gmm(SCENE24), tcam,
                                         RenderConfig(**cfg), ids)

@@ -618,7 +618,8 @@ def test_cli_fit_on_the_cpu(tmp_path, capsys):
 
 def test_scene_text_parses_back():
     """testing.scene_text writes a Scene that parses to the same
-    mixture (what chip_smoke's fit phase writes its initial scene with)."""
+    mixture (how a fit's perturbed initial scene is written as GMM
+    text)."""
     sc = parse_gmm(SCENE10)
     p = sc.medium.pack_parameters()
     sc = sc.with_medium(tg.GaussianMixture.from_parameters(p + 0.05))

@@ -99,8 +99,9 @@ def test_camera_vector_layout():
 
 
 def test_mega_agreement_counts_one_diverged_path():
-    """mega_agreement, the measure chip_smoke holds K1 to: one path of one
-    pixel that took another branch shows as that path's radiance / spp."""
+    """mega_agreement, the measure the card tests hold K1 to: one path of
+    one pixel that took another branch shows as that path's radiance /
+    spp."""
     from gvr_tpu_torch.testing import mega_agreement
     sc, cam, kw = _mega_config()
     args, tcfg = _port_mega(sc, cam, kw)
@@ -204,7 +205,8 @@ def test_mega_phases_only_on_the_card():
 
 
 def test_mega_reference_counts_the_work():
-    """``mega_reference``'s optional counts (chip_smoke's bound of K1):
+    """``mega_reference``'s optional counts (the work K1's paths need, which
+    the benchmark's copy is held against):
     the evaluations equal the returned ones, the rays that scatter are
     fewer, every pair of a ray that scatters is a pair of an extension
     ray, each extension ray and shadow-ray segment meets at most every

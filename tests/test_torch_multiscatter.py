@@ -1,6 +1,7 @@
 """The slice end to end: the port's render_multiscatter and render CLI on
 the CPU against gvr_tpu's render_multiscatter (CPU, XLA path)."""
 
+import functools
 import math
 
 import numpy as np
@@ -11,10 +12,13 @@ import _torch_common  # noqa: F401  (sets torch threads)
 from gvr_tpu.cameras import OrthographicCamera as JOrtho
 from gvr_tpu.cameras import PinholeCamera as JPinhole
 from gvr_tpu.config import RenderConfig as JConfig
+from gvr_tpu.config import Solver as JSolver
+from gvr_tpu.integrators import multiscatter as jms
 from gvr_tpu.integrators.multiscatter import \
     render_multiscatter as jax_render
 from gvr_tpu.integrators.multiscatter import tile_order as jax_tile_order
 from gvr_tpu.integrators.raymarch import render_raymarch_spheres
+from gvr_tpu.kernels.pathtrace import mega_supported_n, pallas_supported_n
 from gvr_tpu.scene.generators import random_gaussian_scene
 from gvr_tpu.scene.scene import parse_gmm as jax_parse_gmm
 from gvr_tpu.scene.scene import parse_smm as jax_parse_smm
@@ -23,7 +27,7 @@ from gvr_tpu_torch.cameras import OrthographicCamera, PinholeCamera
 from gvr_tpu_torch.config import RenderConfig, Solver
 from gvr_tpu_torch.integrators import multiscatter as tms
 from gvr_tpu_torch.integrators.multiscatter import (render_multiscatter,
-                                                    tile_ids, tile_order)
+                                                    render_path, tile_ids)
 from gvr_tpu_torch.io.ppm import quantize, read_ppm
 from gvr_tpu_torch.kernels import wavefront as twf
 from gvr_tpu_torch.kernels.megatrace import INV_4PI, strat_n, strat_uv
@@ -83,11 +87,6 @@ def test_render_chunk_invariance():
     assert res["ok"], res
 
 
-def test_tile_order_matches_jax():
-    for w, h in ((32, 32), (48, 24), (17, 9)):
-        assert np.array_equal(tile_order(w, h), jax_tile_order(w, h))
-
-
 @pytest.mark.parametrize("w,h,tile", [
     (1024, 1024, (16, 8)), (512, 512, (16, 8)), (256, 256, (16, 8)),
     (17, 9, (16, 8)), (100, 37, (16, 8)), (15, 7, (16, 8)),
@@ -102,9 +101,87 @@ def test_tile_ids_matches_tile_order(w, h, tile):
     assert np.array_equal(got.numpy(), jax_tile_order(w, h, tw, th))
 
 
+@functools.cache
+def _mixtures(n: int):
+    """(the JAX package's, the port's) parse of random_gaussian_scene(n,
+    seed=0)'s mixture."""
+    text = random_gaussian_scene(n, seed=0)
+    return jax_parse_gmm(text).medium, parse_gmm(text).medium
+
+
+@pytest.mark.parametrize("solver", [Solver.ANALYTIC_NEWTON, Solver.BISECTION],
+                         ids=["kernel", "bisection"])
+@pytest.mark.parametrize("wavefront", ["mega", "step"])
+@pytest.mark.parametrize("engine", ["auto", "dense", "grid"])
+@pytest.mark.parametrize("n", [250, 2100, 2500])
+def test_render_path_follows_jax(n, engine, wavefront, solver):
+    """render_path as the JAX package picks the path on its accelerator
+    (pallas='interpret'): engine_for's grid; else its XLA branch where
+    the kernels are off (a solver they do not implement); else the kernel
+    path of its wavefront_pixels (gvr_tpu/integrators/multiscatter.py:
+    488-503).  Where the JAX package refuses the configuration, the port
+    refuses it too."""
+    jm, tm = _mixtures(n)
+    jcfg = JConfig(engine=engine, wavefront=wavefront,
+                   solver=JSolver(solver.value), pallas="interpret")
+    cfg = RenderConfig(engine=engine, wavefront=wavefront, solver=solver)
+    try:
+        jax_engine = jms.engine_for(jcfg, jm)[0]
+    except ValueError:
+        with pytest.raises(ValueError):
+            render_path(cfg, tm)
+        return
+    if jax_engine == "grid":
+        want = "grid"
+    elif not jms._pallas_enabled(jcfg):
+        want = "xla"
+    elif wavefront == "mega" and mega_supported_n(n):
+        want = "mega"
+    else:
+        want = "step" if pallas_supported_n(n) else "big"
+    assert render_path(cfg, tm) == want
+
+
+# path: (Gaussians, RenderConfig's keys) that take it
+PATH_CASES = {"mega": (24, {}), "step": (24, dict(wavefront="step")),
+              "big": (2100, dict(engine="dense")),
+              "xla": (24, dict(solver=Solver.BISECTION)),
+              "grid": (24, dict(engine="grid"))}
+
+
+@pytest.mark.parametrize("path", sorted(PATH_CASES))
+def test_render_is_its_paths_entry(path):
+    """render_multiscatter through each path on the CPU (the plain
+    versions), 16x8 spp 2 in one chunk: the same bits as the path's own
+    entry called once on every pixel in tile order, and stats holding the
+    engine ('grid' on the grid, else 'dense'), the kernel (the path), and
+    the iterations and bounce evaluations the entry reported."""
+    n, kw = PATH_CASES[path]
+    sc = parse_gmm(random_gaussian_scene(n, seed=7, diameter=(0.2, 0.6),
+                                         density=(0.5, 2.0)))
+    cam = PinholeCamera.create([0, 1, 6], [0, 1, 0], 0.25 * math.pi)
+    cfg = RenderConfig(width=16, height=8, spp=2, **kw)
+    stats = {}
+    got = render_multiscatter(sc, cam, cfg, device="cpu", stats=stats)
+    assert render_path(cfg, sc.medium) == path and stats["chunks"] == 1
+    engine, _, entry, find = tms._PATHS[path]
+    run = entry(sc, cam, cfg, "cpu", find(sc.medium))
+    ids, st = tile_ids(16, 8, "cpu"), {}
+    img = torch.zeros((128, 3))
+    img[ids] = run(ids, st)
+    assert got.std() > 0
+    np.testing.assert_array_equal(got, img.numpy().reshape(8, 16, 3))
+    assert engine == ("grid" if path == "grid" else "dense")
+    assert (stats["engine"], stats["kernel"]) == (engine, path)
+    assert stats["bounce_evals"] == int(st["bounce_evals"]) > 0
+    assert stats["iterations"] == st.get("iterations", 0)
+    assert (stats["iterations"] > 0) == (path != "mega")
+
+
 def test_render_same_with_sorted_order(monkeypatch):
-    """A render whose chunks take the numpy order is the same bits:
-    partial tiles and four chunks of at most 256 pixels, every pixel once."""
+    """A render whose chunks take the JAX package's sorted numpy order is
+    the same bits: partial tiles and four chunks of at most 256 pixels,
+    every pixel once."""
     tcam = PinholeCamera.create([0, 1, 6], [0, 1, 0], 0.25 * math.pi)
     cfg = RenderConfig(width=40, height=21, spp=2, ray_chunk=256)
     stats = {}
@@ -112,7 +189,7 @@ def test_render_same_with_sorted_order(monkeypatch):
                               stats=stats)
     assert stats["chunks"] == 4
     monkeypatch.setattr(tms, "tile_ids", lambda w, h, device: torch.from_numpy(
-        tile_order(w, h)).to(device))
+        jax_tile_order(w, h)).to(device))
     want = render_multiscatter(parse_gmm(SCENE), tcam, cfg, device="cpu")
     assert got.std() > 0
     np.testing.assert_array_equal(got, want)

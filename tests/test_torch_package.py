@@ -17,8 +17,10 @@ from gvr_tpu_torch.scene.generators import random_gaussian_scene
 from gvr_tpu_torch.scene.scene import parse_gmm
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+# the package and the port's kernel A/B tool, which runs on the card's
+# machine, where there is no JAX
 PORT_FILES = sorted((ROOT / "gvr_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "scripts" / "ab_kernels.py"]
 
 
 def _forbidden(module: str) -> bool:

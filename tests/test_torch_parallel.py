@@ -53,7 +53,7 @@ from gvr_tpu.utils.profiling import path_statistics as jax_path_statistics
 from gvr_tpu_torch import bench_series, cli, parallel
 from gvr_tpu_torch.config import RenderConfig
 from gvr_tpu_torch.integrators.multiscatter import (
-    mc_camera_rays, multiscatter_radiance, render_multiscatter, tile_order,
+    mc_camera_rays, multiscatter_radiance, render_multiscatter, tile_ids,
     wavefront_pixels_xla)
 from gvr_tpu_torch.inverse.fit import fit_loss
 from gvr_tpu_torch.io.ppm import write_ppm
@@ -418,7 +418,7 @@ def test_shard_last_arg_matches_one_process(suite, k):
     """shard_last_arg around the dense XLA engine's wavefront (scene and
     camera replicated, the tile-ordered ids sharded): every rank returns
     the one-process radiance bit for bit."""
-    ids = torch.from_numpy(tile_order(16, 16))
+    ids = tile_ids(16, 16, "cpu")
     cfg = RenderConfig(**checks.DP_RENDERS["xla"][1])
     one = wavefront_pixels_xla(port("scene1"), checks.camera(), cfg, ids)
     for rank in range(k):

@@ -29,7 +29,7 @@ from gvr_tpu_torch.config import RenderConfig
 from gvr_tpu_torch.integrators import multiscatter as tms
 from gvr_tpu_torch.integrators.multiscatter import (dense_kernel,
                                                     render_multiscatter,
-                                                    tile_order,
+                                                    tile_ids,
                                                     wavefront_pixels,
                                                     wavefront_pixels_step)
 from gvr_tpu_torch.kernels import megatrace as tmt
@@ -167,7 +167,7 @@ def test_profile_render_takes_the_step_path():
 
 def test_grazing_pairs_part_float32_from_float64(monkeypatch):
     """Why K2 is held to PATH_BOUNCE_BARS on the step path's own rays
-    (chip_smoke phase 28): on the inputs of its first launch on the
+    (test_torch_cuda.py): on the inputs of its first launch on the
     headline's chunk 9 (65,536 camera rays) the plain version in float32
     against itself in float64 misses BOUNCE_BARS' every-ray tau bar, so no
     two float32 versions can be held to it there.  Every ray beyond that
@@ -178,8 +178,7 @@ def test_grazing_pairs_part_float32_from_float64(monkeypatch):
     sc = parse_gmm(random_gaussian_scene(250, seed=0))
     cam = PinholeCamera.create([0, 1, 6], [0, 1, 0], math.radians(45.0))
     cfg = RenderConfig(width=1024, height=1024, spp=64, wavefront="step")
-    ids = torch.from_numpy(tile_order(1024, 1024)[9 * 65536:10 * 65536]
-                           .copy())
+    ids = tile_ids(1024, 1024, "cpu")[9 * 65536:10 * 65536]
     calls = []
 
     class First(Exception):
