@@ -309,13 +309,17 @@ __device__ __forceinline__ void for_each_crossed(
   }
 }
 
-// K4: one warp per ray.  xi [b, 5] uniforms (target, NEE choice, light
-// index, env direction x2); out [16, b] (BigRow); admitted [2, b] (or
-// null): the chunks and the groups the ray's box tests admitted; overflow
-// (or null): a count, to which each ray with more crossed pairs than
-// BIG_MAX_HITS adds one.
+// K4: one warp per ray, rays 0 .. n_rays - 1 (or 0 .. *count - 1 where
+// count is not null: a live list's count on the card, n_rays >= it sizing
+// the grid).
+// o, d [b, 3]; xi [b, 5] uniforms (target, NEE choice, light index, env
+// direction x2); out [16, b] (BigRow); admitted [2, b] (or null): the
+// chunks and the groups the ray's box tests admitted; overflow (or null):
+// a count, to which each ray with more crossed pairs than BIG_MAX_HITS
+// adds one.
 __global__ void __launch_bounds__(32 * BIG_WARPS, BIG_K4_BLOCKS)
-    big_stage1_kernel(const float4* __restrict__ tab, int np,
+    big_stage1_kernel(int n_rays, const int* __restrict__ count,
+                      const float4* __restrict__ tab, int np,
                       const float4* __restrict__ boxes,
                       const float* __restrict__ o, const float* __restrict__ d,
                       const float* __restrict__ xi, int b,
@@ -325,7 +329,7 @@ __global__ void __launch_bounds__(32 * BIG_WARPS, BIG_K4_BLOCKS)
   __shared__ float lists[BIG_WARPS][PAIR_FIELDS * BIG_MAX_HITS];
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * BIG_WARPS + (threadIdx.x >> 5);
-  if (i >= b) return;  // the whole warp
+  if (i >= (count ? min(*count, n_rays) : n_rays)) return;  // the warp
   const PairList list = {lists[threadIdx.x >> 5]};
   const Ray r = {o[3 * i], o[3 * i + 1], o[3 * i + 2],
                  d[3 * i], d[3 * i + 1], d[3 * i + 2]};
@@ -443,18 +447,19 @@ __device__ __forceinline__ bool nee_term(const float4* __restrict__ tab,
   return true;
 }
 
-// K5: one warp per NEE ray of stage 1's rows; out [3, b] Li; admitted
-// [2, b] (or null): the chunks and the groups the segment's box tests
-// admitted.
+// K5: one warp per NEE ray of stage 1's rows [16, b], rays as K4's
+// (n_rays, count); out [3, b] Li; admitted [2, b] (or null): the chunks
+// and the groups the segment's box tests admitted.
 __global__ void __launch_bounds__(32 * BIG_WARPS)
-    big_nee_kernel(const float4* __restrict__ tab, int np,
+    big_nee_kernel(int n_rays, const int* __restrict__ count,
+                   const float4* __restrict__ tab, int np,
                    const float4* __restrict__ boxes,
                    const float* __restrict__ s1, int b,
                    const float* __restrict__ env, float* __restrict__ out,
                    int* __restrict__ admitted) {
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * BIG_WARPS + (threadIdx.x >> 5);
-  if (i >= b) return;  // the whole warp
+  if (i >= (count ? min(*count, n_rays) : n_rays)) return;  // the warp
   const auto at = [&](int k) { return s1[static_cast<size_t>(k) * b + i]; };
   const Ray s = {at(kPx), at(kPx + 1), at(kPx + 2),
                  at(kWx), at(kWx + 1), at(kWx + 2)};

@@ -631,72 +631,85 @@ int gvr_grid_solve(const float* tab, const int* cell_first,
   return static_cast<int>(cudaGetLastError());
 }
 
-int gvr_big_stage1(const float* tab, int np, const float* boxes,
-                   const float* o, const float* d, const float* xi, int b,
-                   const float* light_rows, int n_lights, int solver_iters,
-                   float* out, int* admitted, int* overflow, void* stream) {
-  if (b > 0) {
-    gvr::big_stage1_kernel<<<(b + gvr::BIG_WARPS - 1) / gvr::BIG_WARPS,
+int gvr_big_stage1(int n, const int* count, const float* tab, int np,
+                   const float* boxes, const float* o, const float* d,
+                   const float* xi, int b, const float* light_rows,
+                   int n_lights, int solver_iters, float* out, int* admitted,
+                   int* overflow, void* stream) {
+  if (n > 0) {
+    gvr::big_stage1_kernel<<<(n + gvr::BIG_WARPS - 1) / gvr::BIG_WARPS,
                              32 * gvr::BIG_WARPS, 0,
                              static_cast<cudaStream_t>(stream)>>>(
-        reinterpret_cast<const float4*>(tab), np,
+        n, count, reinterpret_cast<const float4*>(tab), np,
         reinterpret_cast<const float4*>(boxes), o, d, xi, b, light_rows,
         n_lights, solver_iters, out, admitted, overflow);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-int gvr_big_nee(const float* tab, int np, const float* boxes,
-                const float* stage1, int b, const float* env, float* out,
-                int* admitted, void* stream) {
-  if (b > 0) {
-    gvr::big_nee_kernel<<<(b + gvr::BIG_WARPS - 1) / gvr::BIG_WARPS,
+int gvr_big_nee(int n, const int* count, const float* tab, int np,
+                const float* boxes, const float* stage1, int b,
+                const float* env, float* out, int* admitted, void* stream) {
+  if (n > 0) {
+    gvr::big_nee_kernel<<<(n + gvr::BIG_WARPS - 1) / gvr::BIG_WARPS,
                           32 * gvr::BIG_WARPS, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-        reinterpret_cast<const float4*>(tab), np,
+        n, count, reinterpret_cast<const float4*>(tab), np,
         reinterpret_cast<const float4*>(boxes), stage1, b, env, out,
         admitted);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-
-int gvr_wave_pre(const long long* live, int n, const int* ids,
-                 const float* cam, int w, int h, int n_strat, int pinhole,
-                 int spp, uint32_t seed_mix, uint32_t seed_raw, float* o,
-                 float* d, float* thr, bool* alive, int* sample, int* bounce,
-                 int* slot, float* o_c, float* d_c, float* xi5, float* xr,
-                 void* stream) {
+// K8 before the bounce over live[0 .. n) (or, where count is not null,
+// over live[0 .. *count), n >= *count sizing the grid); xr's planes are
+// stride apart.
+int gvr_wave_pre(const long long* live, int n, const int* count, int stride,
+                 const int* ids, const float* cam, int w, int h, int n_strat,
+                 int pinhole, int spp, uint32_t seed_mix, uint32_t seed_raw,
+                 float* o, float* d, float* thr, bool* alive, int* sample,
+                 int* bounce, int* slot, float* o_c, float* d_c, float* xi5,
+                 float* xr, void* stream) {
   const gvr::Film film = {w, h, n_strat, pinhole != 0};
   const gvr::WaveLanes L = {o, d, thr, nullptr, alive, sample, bounce, slot};
   if (n > 0) {
     gvr::wave_pre_kernel<<<(n + gvr::WAVE_BLOCK - 1) / gvr::WAVE_BLOCK,
                            gvr::WAVE_BLOCK, 0,
                            static_cast<cudaStream_t>(stream)>>>(
-        live, n, ids, cam, film, spp, seed_mix, seed_raw, L, o_c, d_c, xi5,
-        xr);
+        live, n, count, stride, ids, cam, film, spp, seed_mix, seed_raw, L,
+        o_c, d_c, xi5, xr);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-int gvr_wave_post(int b, float* o, float* d, float* thr, float* acc,
-                  bool* alive, int* sample, int* bounce, int* slot,
-                  const float* t_sc, const bool* scattered,
+// K8 after the bounce.  Host mode (live null): over the n lanes of the
+// chunk, writing want.  List mode: over live[0 .. *count) (n >= *count
+// sizing the grid), appending to next and *next_count.  scattered or,
+// where it is null, scattered_f > 0.5 is the scatter flag.
+int gvr_wave_post(const long long* live, int n, const int* count,
+                  long long* next, int* next_count, float* o, float* d,
+                  float* thr, float* acc, bool* alive, int* sample,
+                  int* bounce, int* slot, const float* t_sc,
+                  const bool* scattered, const float* scattered_f,
                   const float* albedo, const float* li, int li_lane,
-                  int li_chan, const float* xr, int n, const float* env,
+                  int li_chan, const float* xr, int stride, const float* env,
                   float inv_4pi, float w_ne, int min_scatter, float rr_cap,
                   int rr_tail_after, float rr_cap_tail, int max_bounces,
                   int spp, bool* want, void* stream) {
   const gvr::WaveLanes L = {o, d, thr, acc, alive, sample, bounce, slot};
-  const gvr::WaveResults R = {t_sc, scattered, albedo, li, li_lane, li_chan};
+  const gvr::WaveResults R = {t_sc, scattered, scattered_f, albedo,
+                              li,   li_lane,   li_chan};
   const gvr::WaveParams P = {
       env, inv_4pi, w_ne,
       {min_scatter, rr_cap, rr_tail_after, rr_cap_tail}, max_bounces, spp};
-  if (b > 0) {
-    gvr::wave_post_kernel<<<(b + gvr::WAVE_BLOCK - 1) / gvr::WAVE_BLOCK,
-                            gvr::WAVE_BLOCK, 0,
-                            static_cast<cudaStream_t>(stream)>>>(b, L, R, xr,
-                                                                 n, P, want);
+  const int blocks = (n + gvr::WAVE_BLOCK - 1) / gvr::WAVE_BLOCK;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n > 0 && live == nullptr) {
+    gvr::wave_post_kernel<<<blocks, gvr::WAVE_BLOCK, 0, st>>>(n, L, R, xr,
+                                                             stride, P, want);
+  } else if (n > 0) {
+    gvr::wave_post_list_kernel<<<blocks, gvr::WAVE_BLOCK, 0, st>>>(
+        live, n, count, L, R, xr, stride, P, next, next_count);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,7 +18,8 @@ S_CAP_MAX slices.  The dense engine runs the megakernel (one
 ``kernels/megatrace.mega_call`` launch per chunk of ``pick_chunk``
 pixels) up to MEGA_MAX_GAUSSIANS Gaussians and the big-N wavefront
 (``wavefront_pixels_big``: K4 and K5 of ``kernels/pathtrace_big`` each
-iteration) above, up to 96 chunks of 256 Gaussians.  With
+iteration, its live lanes and their count kept on the device) above, up
+to 96 chunks of 256 Gaussians.  With
 ``cfg.wavefront='step'`` it runs the step wavefront instead
 (``wavefront_pixels_step``: the fused bounce kernel K2 of
 ``kernels/pathtrace`` each iteration) up to MAX_PALLAS_GAUSSIANS, and the
@@ -40,6 +41,7 @@ the ranks (``parallel/sharding``).
 
 from __future__ import annotations
 
+import collections
 import functools
 import time
 
@@ -58,12 +60,16 @@ from gvr_tpu_torch.kernels.megatrace import (INV_4PI, camera_vector,
 from gvr_tpu_torch.kernels.pathtrace import (FOUR_PI, MAX_PALLAS_GAUSSIANS,
                                              MEGA_MAX_GAUSSIANS, bounce_step,
                                              pack_table, padded_n)
-from gvr_tpu_torch.kernels.pathtrace_big import (bounce_step_big,
+from gvr_tpu_torch.kernels.pathtrace_big import (bind_big_nee,
+                                                 bind_big_stage1,
+                                                 bounce_step_big,
                                                  chunk_boxes, n_chunks_for,
                                                  pack_rows, plan)
 from gvr_tpu_torch.kernels.rng import BOUNCE_DRAWS, JITTER_TAG
-from gvr_tpu_torch.kernels.wavefront import (lanes, roulette, wave_post,
-                                             wave_pre)
+from gvr_tpu_torch.kernels.wavefront import (bind_wave_post, bind_wave_pre,
+                                             lanes, roulette, wave_post,
+                                             wave_post_reference, wave_pre,
+                                             wave_pre_reference)
 from gvr_tpu_torch.ops.sampling import dir_from_xi, uniform_planes
 from gvr_tpu_torch.ops.solvers import (sample_free_flight,
                                        solve_conditional_free_flight)
@@ -381,8 +387,10 @@ def mc_camera_rays(scene: Scene, camera, cfg: RenderConfig, ids, sample_idx):
 def _wavefront(scene: Scene, camera, cfg: RenderConfig, ids: torch.Tensor,
                bounce_fn, stats: dict | None) -> torch.Tensor:
     """Mean radiance [B,3] over the spp samples of each pixel id [B]
-    (int32) by the dense wavefront
-    (``gvr_tpu/integrators/multiscatter.py:528-611``): one lane per pixel;
+    (int32) by the dense wavefront of the step and XLA engines
+    (``gvr_tpu/integrators/multiscatter.py:528-611``; the big-N engine's
+    is ``_big_wavefront``, which keeps the live lanes on the device): one
+    lane per pixel;
     a lane whose path ended starts its pixel's next sample, until every
     lane has traced spp samples or the loop has run spp * max_bounces +
     max_bounces iterations.  Each iteration is three steps over the live
@@ -397,7 +405,8 @@ def _wavefront(scene: Scene, camera, cfg: RenderConfig, ids: torch.Tensor,
     and masks the finished ones; tracing only the live lanes gives the
     same results, as a lane's bounce does not depend on the others, and
     took less time on the card in the big-N engine (PERF.md, the A/B of
-    compacted and every lane).  ``stats``, if given, receives
+    compacted and every lane).  The XLA bounce's eager ops take their
+    shapes from the host's count.  ``stats``, if given, receives
     'iterations' and 'bounce_evals' (live lanes traced).  Under
     ``utils.profiling``'s recorder each iteration is a
     ``wavefront.iteration`` span, its closing read a
@@ -438,7 +447,8 @@ def _table_wavefront(scene: Scene, camera, cfg: RenderConfig,
                      bounce) -> torch.Tensor:
     """``_wavefront`` with each bounce of the live lanes through one call
     ``bounce(o, d, xi [B,5], lights, env)`` of a bounce kernel's launcher
-    (K2, or K4 and K5), NEE weighted by L + 1 (1 with no lights)."""
+    (K2 on the step path; K4 and K5 where the tests hold the big-N loop
+    to it), NEE weighted by L + 1 (1 with no lights)."""
     lights, env = scene.lights(), scene.env_color
     w_ne = float(lights.shape[0] + 1) if lights.shape[0] else 1.0
 
@@ -452,27 +462,202 @@ def wavefront_pixels_big(scene: Scene, camera, cfg: RenderConfig,
                          ids: torch.Tensor, stats: dict | None = None,
                          inputs: tuple | None = None) -> torch.Tensor:
     """Mean radiance [B,3] over the spp samples of each pixel id [B]
-    (int32) by the big-N dense wavefront (``_wavefront``), each bounce of
-    the live lanes through K4 and K5.  ``inputs`` is the path's
+    (int32) by the big-N dense wavefront (``_big_wavefront``), each bounce
+    of the live lanes through K4 and K5.  ``inputs`` is the path's
     (``pack_rows``, ``chunk_boxes``) of the scene, which the render's
     'big' entry builds once and passes to each chunk's call of this
     function (the per-chunk entry that ``benchmark_torch``'s big-N cell
-    names); built here if not given.  Under ``utils.profiling``'s
-    recorder the chunk also counts ``big_list_overflow``, the lanes traced
-    whose crossed pairs overflowed K4's list (one read of a device counter
-    after the loop)."""
+    names); built here if not given."""
     table, boxes = inputs if inputs is not None else (
         pack_rows(scene.medium), chunk_boxes(scene.medium))
-    overflow = (torch.zeros(1, dtype=torch.int32, device=table.device)
-                if profiling.recording() else None)
-    out = _table_wavefront(
-        scene, camera, cfg, ids, stats,
-        lambda o, d, xi, lights, env: bounce_step_big(
-            table, o, d, xi, lights, env, cfg.solver_iters, boxes,
-            overflow))
-    if overflow is not None:
-        profiling.count("big_list_overflow", int(overflow.item()))
-    return out
+    return _big_wavefront(scene, camera, cfg, ids, stats, table, boxes)
+
+
+# Iterations the big-N loop enqueues past the newest live count it has
+# read before it waits for one (PERF.md: chosen on the card).
+LIVE_READ_LEAD = 8
+
+
+class _LiveCounts:
+    """The live counts of a chunk's iterations on their way to the host.
+    After iteration t the card copies counts[t + 1] (the lanes left for
+    iteration t + 1) into a pinned slot and records an event; the host
+    reads the slots in order, each once its event has completed, and
+    waits for one only when asked (``wait``).  ``bound`` is the newest
+    count read (an upper bound on every later one, as the live set only
+    shrinks), ``live`` the iterations with live lanes once a count of 0
+    has been read (None before), ``waits`` the waits.  On the CPU nothing
+    runs behind the host: a count is read only when waited for, the
+    card's worst case, so the CPU loop runs ``lead`` iterations ahead and
+    ends with spare ones as the card's may."""
+
+    def __init__(self, counts: torch.Tensor, bound: int, lead: int):
+        self.counts, self.bound = counts, bound
+        self.card = counts.device.type == "cuda"
+        self.ring = lead + 1          # slots: one more than the unread
+        if self.card:
+            ring = torch.empty(self.ring, dtype=torch.int32,
+                               pin_memory=True)
+            self.host = ring.numpy()
+            self.slots = list(ring)
+            self.events = [torch.cuda.Event() for _ in range(self.ring)]
+            self.stream = torch.cuda.current_stream(counts.device)
+        self.pending = collections.deque()   # iterations sent, not read
+        self.live, self.waits = None, 0
+
+    def sent(self, t: int) -> None:
+        """Iteration t has been enqueued."""
+        if self.card:
+            k = t % self.ring
+            self.slots[k].copy_(self.counts[t + 1], non_blocking=True)
+            self.events[k].record(self.stream)
+        self.pending.append(t)
+
+    def _read(self) -> None:
+        t = self.pending.popleft()
+        n = int(self.host[t % self.ring] if self.card
+                else self.counts[t + 1])
+        if n == 0:
+            self.live = t + 1
+        else:
+            self.bound = n
+
+    def poll(self) -> None:
+        """Read every count whose copy has landed, without waiting."""
+        while (self.card and self.live is None and self.pending
+               and self.events[self.pending[0] % self.ring].query()):
+            self._read()
+
+    def wait(self) -> None:
+        """Wait for the oldest count sent and read it."""
+        with profiling.span("wavefront.live_read"):
+            if self.card:
+                self.events[self.pending[0] % self.ring].synchronize()
+            self._read()
+        self.waits += 1
+
+
+def _big_kernel_step(lane, lists, counts, table, boxes, lights, env, w_ne,
+                     cfg, overflow):
+    """step(t, n): enqueue iteration t of the big-N loop on the card: K8
+    pre, K4, K5 and K8 post over lists[t % 2]'s first counts[t] lanes,
+    appending the lanes left to lists[1 - t % 2] and counts[t + 1]; n >=
+    counts[t] sizes the grids.  The four launches are bound once, to
+    buffers of the chunk's B lanes, which they keep."""
+    pre, (o, d, xi, xr) = bind_wave_pre(lane, cfg)
+    k4, s1 = bind_big_stage1(table, o, d, xi, lights, cfg.solver_iters,
+                             boxes, overflow)
+    k5, li = bind_big_nee(table, s1, env, boxes)
+    post = bind_wave_post(lane, xr, (s1[0], s1[1], s1[2], li.T), w_ne, env,
+                          cfg)
+    ptrs = [x.data_ptr() for x in lists]
+    c0 = counts.data_ptr()
+
+    def step(t: int, n: int) -> None:
+        live, nxt = ptrs[t % 2], ptrs[1 - t % 2]
+        count = c0 + 4 * t
+        pre(live, n, count)
+        k4(n, count)
+        k5(n, count)
+        post(live, n, count, nxt, count + 4)
+
+    return step
+
+
+def _big_plain_step(lane, lists, counts, table, boxes, lights, env, w_ne,
+                    cfg, overflow):
+    """``_big_kernel_step``'s contract over the plain glue
+    (``wave_pre_reference``, ``wave_post_reference``) and
+    ``bounce_step_big`` (K4 and K5's plain versions on a CPU tensor):
+    the CPU's step, and the card's reference.  It reads counts[t] and
+    writes the next list in lane order; an iteration of no lanes does
+    nothing."""
+
+    def step(t: int, n: int) -> None:
+        m = int(counts[t])
+        if m == 0:
+            return
+        live = lists[t % 2][:m]
+        o, d, xi, xr = wave_pre_reference(lane, live, cfg)
+        res = bounce_step_big(table, o, d, xi, lights, env,
+                              cfg.solver_iters, boxes, overflow)
+        want = wave_post_reference(lane, live, xr, res[:4], w_ne, env, cfg)
+        nxt = torch.nonzero(want).squeeze(1)
+        lists[1 - t % 2][:nxt.numel()] = nxt
+        counts[t + 1] = nxt.numel()
+
+    return step
+
+
+def _big_wavefront(scene: Scene, camera, cfg: RenderConfig,
+                   ids: torch.Tensor, stats: dict | None, table,
+                   boxes) -> torch.Tensor:
+    """``_wavefront`` for the big-N engine with its live lanes kept on
+    the device: the same lanes, iterations and image, bit for bit, with
+    no host read an iteration.  Each iteration t runs the lanes of a live
+    list lists[t % 2] [B] (int64), of which the first counts[t] are live
+    (int32 [cap + 1] on the device), and K8's post appends the lanes left
+    to the other list and counts[t + 1] (``_big_kernel_step``; on a CPU
+    tensor ``_big_plain_step``).  The host sizes each launch by the newest
+    count it has read (``_LiveCounts``), enqueues up to LIVE_READ_LEAD
+    iterations past it, and stops once it reads a count of 0 or at cap =
+    spp * max_bounces + max_bounces iterations; those it enqueued past
+    the end ("spare") find a count of 0 and change nothing.  The list's
+    order is K8's, not the lanes', which changes no lane's result.
+
+    ``stats``, if given, receives 'iterations' (with live lanes),
+    'spare_iterations' and 'bounce_evals' (live lanes traced, a device
+    tensor).  Under ``utils.profiling``'s recorder each iteration is a
+    ``wavefront.iteration`` span, with a ``wavefront.live_read`` child
+    where the host waited for a count, and the chunk counts
+    ``lanes_traced``, ``lane_slots`` (lanes x iterations),
+    ``wavefront_spare_iterations``, ``wavefront_host_waits`` and
+    ``big_list_overflow`` (the lanes traced whose crossed pairs overflowed
+    K4's list), read from the device once, after the loop."""
+    b, dev = ids.shape[0], ids.device
+    lights, env = scene.lights(), scene.env_color
+    w_ne = float(lights.shape[0] + 1) if lights.shape[0] else 1.0
+    lane = lanes(ids, camera)
+    cap = cfg.spp * cfg.max_bounces + cfg.max_bounces
+    counts = torch.zeros(cap + 1, dtype=torch.int32, device=dev)
+    counts[0] = b
+    lists = (torch.arange(b, dtype=torch.int64, device=dev),
+             torch.empty(b, dtype=torch.int64, device=dev))
+    recording = profiling.recording()
+    overflow = (torch.zeros(1, dtype=torch.int32, device=dev)
+                if recording else None)
+    make = _big_kernel_step if dev.type == "cuda" else _big_plain_step
+    step = make(lane, lists, counts, table, boxes, lights, env, w_ne, cfg,
+                overflow)
+    reader = _LiveCounts(counts, b, LIVE_READ_LEAD)
+    it = 0
+    while reader.live is None and it < cap:
+        with profiling.span("wavefront.iteration"):
+            step(it, reader.bound)
+            reader.sent(it)
+            it += 1
+            reader.poll()
+            if (reader.live is None and it < cap
+                    and len(reader.pending) >= LIVE_READ_LEAD):
+                reader.wait()
+    if stats is None and not recording:
+        return lane.acc / cfg.spp
+    live = reader.live
+    if live is None:
+        # at cap without a count of 0 read: the iterations with lanes
+        live = int((counts[:it] > 0).sum())
+    evals = counts[:it].sum(dtype=torch.int64)
+    if recording:
+        traced, over = torch.stack([evals, overflow[0].long()]).tolist()
+        profiling.count("lanes_traced", traced)
+        profiling.count("lane_slots", b * live)
+        profiling.count("wavefront_spare_iterations", it - live)
+        profiling.count("wavefront_host_waits", reader.waits)
+        profiling.count("big_list_overflow", over)
+    if stats is not None:
+        stats.update(iterations=live, spare_iterations=it - live,
+                     bounce_evals=evals)
+    return lane.acc / cfg.spp
 
 
 def wavefront_pixels_step(scene: Scene, camera, cfg: RenderConfig,
@@ -596,8 +781,9 @@ def render_multiscatter(scene: Scene, camera, cfg: RenderConfig,
     """Full MC render on ``device``: [H, W, 3] float32 on the host.
 
     Results are scattered into a device image that is copied to the host
-    once (the megakernel's launches are asynchronous; the wavefronts read
-    one value per iteration).  ``progress`` prints the pixels done after
+    once (the megakernel's launches are asynchronous; the step, XLA and
+    grid wavefronts read one value per iteration, the big-N one a live
+    count now and then, late).  ``progress`` prints the pixels done after
     each chunk.
 
     In a distributed job each pixel chunk is sharded over the ranks of
@@ -619,8 +805,9 @@ def render_multiscatter(scene: Scene, camera, cfg: RenderConfig,
     costs only its content hash), paths, bounce evaluations (the
     megakernel's count; on the wavefronts the live lanes or extension rays
     traced; summed over the ranks), the chunk and the chunks, wavefront
-    iterations (this rank's), Gaussian count, the shard count and the
-    assembly's seconds.
+    iterations with live lanes (this rank's) and the big-N loop's spare
+    ones (enqueued past a chunk's end, ``spare_iterations``), Gaussian
+    count, the shard count and the assembly's seconds.
 
     The render is the root span ``render_multiscatter`` of
     ``utils.profiling``, which records while a torch.profiler runs or a
@@ -630,8 +817,9 @@ def render_multiscatter(scene: Scene, camera, cfg: RenderConfig,
     chunk size and the tables), a ``chunk`` span a chunk (the host's
     enqueue: nothing waits for the device), the wavefronts'
     ``wavefront.iteration`` spans with their ``wavefront.live_read`` and
-    counters (``_wavefront``, ``gridscatter.wavefront_pixels_grid_pooled``),
-    and ``render.readback`` (the all-reduce, the copy to the host)."""
+    counters (``_wavefront``, ``_big_wavefront``,
+    ``gridscatter.wavefront_pixels_grid_pooled``), and
+    ``render.readback`` (the all-reduce, the copy to the host)."""
     with profiling.render("render_multiscatter", stats) as root:
         return _render(scene, camera, cfg, device, progress, stats, mesh,
                        root)
@@ -653,7 +841,7 @@ def _render(scene: Scene, camera, cfg: RenderConfig, device, progress,
         order = tile_ids(w, h, device)
         img = torch.zeros((w * h, 3), dtype=torch.float32, device=device)
         evals = torch.zeros((), dtype=torch.int64, device=device)
-        n_chunks = iterations = 0
+        n_chunks = iterations = spare = 0
         run = entry(scene, camera, cfg, device, found)
         chunk = chunk_for(cfg, scene.medium.n, device)
         chunk = min(chunk, ((w * h + 255) // 256) * 256)
@@ -673,6 +861,7 @@ def _render(scene: Scene, camera, cfg: RenderConfig, device, progress,
                 if st is not None:
                     evals += st["bounce_evals"]
                     iterations += st.get("iterations", 0)
+                    spare += st.get("spare_iterations", 0)
         n_chunks += 1
         if progress:
             print(f"  pixels {min(start + chunk, w * h)}/{w * h}")
@@ -692,6 +881,7 @@ def _render(scene: Scene, camera, cfg: RenderConfig, device, progress,
                      grid_seconds=t0 - t_build,
                      paths=w * h * cfg.spp, bounce_evals=int(evals),
                      chunk=chunk, chunks=n_chunks, iterations=iterations,
+                     spare_iterations=spare,
                      n=scene.medium.n, device=str(device), shards=n_shards,
                      assemble_seconds=t_end - t_assemble)
     root.set(engine=engine, kernel=path, shards=n_shards,

@@ -52,14 +52,14 @@ SIGNATURES = {
     "gvr_span_tau": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P, _P,
                      _P, _P, _I, _I, _P, _P],
     "gvr_grid_solve": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
-    "gvr_big_stage1": [_P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P,
-                       _P],
-    "gvr_big_nee": [_P, _I, _P, _P, _I, _P, _P, _P, _P],
-    "gvr_wave_pre": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _U, _U, _P, _P, _P,
-                     _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "gvr_wave_post": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                      _I, _P, _I, _P, _F, _F, _I, _F, _I, _F, _I, _I, _P,
-                      _P],
+    "gvr_big_stage1": [_I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _P,
+                       _P, _P, _P],
+    "gvr_big_nee": [_I, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P],
+    "gvr_wave_pre": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _U, _U, _P,
+                     _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "gvr_wave_post": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _P, _P, _P, _P, _I, _I, _P, _I, _P, _F, _F, _I, _F, _I,
+                      _F, _I, _I, _P, _P],
 }
 
 
@@ -186,12 +186,41 @@ def check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name}: not contiguous")
 
 
-def launch(name: str, *args, device: torch.device) -> None:
-    """Call C entry point ``name`` on the current stream of ``device``
-    and raise if the launch reported a CUDA error."""
-    lib = library()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(lib, name)(*args, ctypes.c_void_p(stream))
+def _c_args(args) -> tuple:
+    """``args`` with each tensor passed as its data pointer."""
+    return tuple(ptr(a) if isinstance(a, torch.Tensor) else a for a in args)
+
+
+def _raise_on(lib, name: str, rc: int) -> None:
     if rc != 0:
         msg = lib.gvr_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def launch(name: str, *args, device: torch.device) -> None:
+    """Call C entry point ``name`` on the current stream of ``device``
+    (a tensor in ``args`` passed as its data pointer) and raise if the
+    launch reported a CUDA error."""
+    lib = library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    _raise_on(lib, name,
+              getattr(lib, name)(*_c_args(args), ctypes.c_void_p(stream)))
+
+
+def bind(name: str, *args, device: torch.device):
+    """``launch`` with the trailing arguments ``args`` bound once, for a
+    loop that launches one kernel over the same buffers many times:
+    returns ``call(*lead)``, which calls ``name(*lead, *args)`` on the
+    stream current on ``device`` now and raises if the launch reported a
+    CUDA error.  A tensor in ``args`` is passed as its data pointer and
+    kept alive as long as ``call``."""
+    lib = library()
+    fn = getattr(lib, name)
+    tail = _c_args(args) + (ctypes.c_void_p(
+        torch.cuda.current_stream(device).cuda_stream),)
+
+    def call(*lead):
+        _raise_on(lib, name, fn(*lead, *tail))
+
+    call.tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    return call

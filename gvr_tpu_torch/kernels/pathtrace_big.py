@@ -32,7 +32,9 @@ lane, and its Newton and albedo passes walk only those (the groups that
 held them where a ray crosses more than MAX_HITS).  Every sum is taken
 in row order, so both give the bits of a sweep over every row, and the
 plain versions' results, as every pair they skip adds 0.  The source note
-in ``big.cuh`` says what bounds them.
+in ``big.cuh`` says what bounds them.  ``bind_big_stage1`` and
+``bind_big_nee`` bind a launch once to a chunk's buffers for the big-N
+loop, whose live count stays on the card, where the kernels read it.
 """
 
 from __future__ import annotations
@@ -258,11 +260,30 @@ def big_nee_reference(table, stage1, env):
 big_nee_reference.launches = 0
 
 
-def _admitted_out(admitted, b: int, dev) -> int:
-    if admitted is None:
-        return 0
-    _build.check(admitted, "admitted", torch.int32, (2, b), dev)
-    return admitted.data_ptr()
+def _admitted_out(admitted, b: int, dev):
+    if admitted is not None:
+        _build.check(admitted, "admitted", torch.int32, (2, b), dev)
+    return admitted
+
+
+def _stage1_tail(table, o, d, xi, lights, solver_iters, boxes, out,
+                 admitted, overflow) -> tuple:
+    """``gvr_big_stage1``'s arguments after (n, count), checked: rays o,
+    d [b, 3] and xi [b, 5], out [16, b]."""
+    dev = table.device
+    b = o.shape[0]
+    check_big_table(table, dev)
+    _build.check(o, "o", torch.float32, (b, 3), dev)
+    _build.check(d, "d", torch.float32, (b, 3), dev)
+    _build.check(xi, "xi", torch.float32, (b, 5), dev)
+    _build.check(lights, "lights", torch.float32, (None, 6), dev)
+    check_chunk_boxes(boxes, table, dev)
+    _build.check(out, "out", torch.float32, (STAGE1_ROWS, b), dev)
+    if overflow is not None:
+        _build.check(overflow, "overflow", torch.int32, (1,), dev)
+    return (table, table.shape[0], boxes, o, d, xi, b, lights,
+            lights.shape[0], solver_iters, out,
+            _admitted_out(admitted, b, dev), overflow)
 
 
 def big_stage1(table, o, d, xi, lights, solver_iters: int = 12, boxes=None,
@@ -283,29 +304,54 @@ def big_stage1(table, o, d, xi, lights, solver_iters: int = 12, boxes=None,
             overflow += (culling_stats(table, boxes, o, d)["crossed"]
                          > MAX_HITS).sum().int()
         return big_stage1_reference(table, o, d, xi, lights, solver_iters)
-    dev = table.device
     b = o.shape[0]
-    xi5 = xi[:, :5].contiguous()
-    check_big_table(table, dev)
-    _build.check(o, "o", torch.float32, (b, 3), dev)
-    _build.check(d, "d", torch.float32, (b, 3), dev)
-    _build.check(xi5, "xi", torch.float32, (b, 5), dev)
-    _build.check(lights, "lights", torch.float32, (None, 6), dev)
-    check_chunk_boxes(boxes, table, dev)
-    if overflow is not None:
-        _build.check(overflow, "overflow", torch.int32, (1,), dev)
-    out = torch.empty((STAGE1_ROWS, b), dtype=torch.float32, device=dev)
-    _build.launch(
-        "gvr_big_stage1", _build.ptr(table), table.shape[0],
-        _build.ptr(boxes), _build.ptr(o), _build.ptr(d), _build.ptr(xi5), b,
-        _build.ptr(lights), lights.shape[0], solver_iters, _build.ptr(out),
-        _admitted_out(admitted, b, dev),
-        0 if overflow is None else overflow.data_ptr(), device=dev)
+    out = torch.empty((STAGE1_ROWS, b), dtype=torch.float32,
+                      device=table.device)
+    _build.launch("gvr_big_stage1", b, None,
+                  *_stage1_tail(table, o, d, xi[:, :5].contiguous(), lights,
+                                solver_iters, boxes, out, admitted,
+                                overflow), device=table.device)
     big_stage1.launches += 1
     return out
 
 
 big_stage1.launches = 0
+
+
+def bind_big_stage1(table, o, d, xi, lights, solver_iters: int, boxes,
+                    overflow=None):
+    """K4 for a loop whose live list stays on the card, bound once to the
+    chunk's buffers of B rays (o, d [B, 3], xi [B, 5]).  Returns (``k4(n,
+    count)``, out): each call traces rays 0 .. *count - 1 into the first
+    columns of out [16, B], count a device pointer (int) to an int32 and
+    n >= it sizing the grid; ``overflow`` as for ``big_stage1``.  Each
+    call counts in ``big_stage1.launches``."""
+    out = torch.empty((STAGE1_ROWS, o.shape[0]), dtype=torch.float32,
+                      device=table.device)
+    call = _build.bind("gvr_big_stage1",
+                       *_stage1_tail(table, o, d, xi, lights, solver_iters,
+                                     boxes, out, None, overflow),
+                       device=table.device)
+
+    def k4(n: int, count: int) -> None:
+        call(n, count)
+        big_stage1.launches += 1
+
+    return k4, out
+
+
+def _nee_tail(table, stage1, env, boxes, out, admitted) -> tuple:
+    """``gvr_big_nee``'s arguments after (n, count), checked: K4's rows
+    [16, b], out [3, b]."""
+    dev = table.device
+    b = stage1.shape[1]
+    check_big_table(table, dev)
+    _build.check(stage1, "stage1", torch.float32, (STAGE1_ROWS, b), dev)
+    _build.check(env, "env", torch.float32, (3,), dev)
+    check_chunk_boxes(boxes, table, dev)
+    _build.check(out, "out", torch.float32, (3, b), dev)
+    return (table, table.shape[0], boxes, stage1, b, env, out,
+            _admitted_out(admitted, b, dev))
 
 
 def big_nee(table, stage1, env, boxes=None, admitted=None):
@@ -318,22 +364,35 @@ def big_nee(table, stage1, env, boxes=None, admitted=None):
             admitted.copy_(admitted_counts_reference(
                 boxes, stage1[4:7].T, stage1[7:10].T, stage1[10]))
         return big_nee_reference(table, stage1, env)
-    dev = table.device
     b = stage1.shape[1]
-    check_big_table(table, dev)
-    _build.check(stage1, "stage1", torch.float32, (STAGE1_ROWS, b), dev)
-    _build.check(env, "env", torch.float32, (3,), dev)
-    check_chunk_boxes(boxes, table, dev)
-    out = torch.empty((3, b), dtype=torch.float32, device=dev)
-    _build.launch("gvr_big_nee", _build.ptr(table), table.shape[0],
-                  _build.ptr(boxes), _build.ptr(stage1), b, _build.ptr(env),
-                  _build.ptr(out), _admitted_out(admitted, b, dev),
-                  device=dev)
+    out = torch.empty((3, b), dtype=torch.float32, device=table.device)
+    _build.launch("gvr_big_nee", b, None,
+                  *_nee_tail(table, stage1, env, boxes, out, admitted),
+                  device=table.device)
     big_nee.launches += 1
     return out.T
 
 
 big_nee.launches = 0
+
+
+def bind_big_nee(table, stage1, env, boxes):
+    """K5 for a loop whose live list stays on the card, bound once to K4's
+    rows ``stage1`` [16, B].  Returns (``k5(n, count)``, out): each call
+    writes Li of rays 0 .. *count - 1 into the first columns of out
+    [3, B], (n, count) as ``bind_big_stage1``'s.  Each call counts in
+    ``big_nee.launches``."""
+    out = torch.empty((3, stage1.shape[1]), dtype=torch.float32,
+                      device=table.device)
+    call = _build.bind("gvr_big_nee",
+                       *_nee_tail(table, stage1, env, boxes, out, None),
+                       device=table.device)
+
+    def k5(n: int, count: int) -> None:
+        call(n, count)
+        big_nee.launches += 1
+
+    return k5, out
 
 
 def bounce_step_big(table, o, d, xi, lights, env, solver_iters: int = 12,

@@ -2,8 +2,9 @@
 kernel K8 (two launches an iteration).
 
 It replaces no TPU kernel.  ``integrators/multiscatter._wavefront`` (the
-big-N, step and XLA engines' loop) runs one lane per pixel of a chunk;
-each iteration, around one bounce of the live lanes, it
+step and XLA engines' loop) and ``_big_wavefront`` (the big-N engine's)
+run one lane per pixel of a chunk; each iteration, around one bounce of
+the live lanes, they
 
 * before the bounce (``wave_pre``): starts the next sample of a lane
   whose path ended, draws the jitter pair and the bounce's 9 uniforms at
@@ -13,6 +14,11 @@ each iteration, around one bounce of the live lanes, it
   adds the escape and NEE terms, plays Russian roulette (``roulette``),
   moves a surviving path to its scatter point and turns it, and says which
   lanes have a path to trace next (the mask of the next live read).
+
+``bind_wave_pre`` and ``bind_wave_post`` bind the two launches once a
+chunk for the big-N loop, whose live list and its count stay on the card:
+the kernels read the count there, and post appends the next list
+(``csrc/wave.cuh``, list mode).
 
 The JAX package leaves this to XLA, which fuses it.  In eager PyTorch it
 was ~115 small launches an iteration, which the host took longer to
@@ -175,6 +181,24 @@ def _check_lanes(L: Lanes) -> None:
         _build.check(getattr(L, name), name, torch.bool, (b,), dev)
 
 
+def _pre_tail(L: Lanes, cfg, out, stride: int) -> tuple:
+    """``gvr_wave_pre``'s arguments after (live, n, count)."""
+    seed_mix, seed_raw = seed_words(cfg.seed)
+    return (stride, L.ids, L.cam, cfg.width, cfg.height, strat_n(cfg.spp),
+            int(isinstance(L.camera, PinholeCamera)), cfg.spp,
+            ctypes.c_uint32(seed_mix), ctypes.c_uint32(seed_raw), L.o, L.d,
+            L.thr, L.alive, L.sample, L.bounce, L.slot, *out)
+
+
+def _pre_out(n: int, dev) -> tuple:
+    """Empty (o [n, 3], d [n, 3], xi [n, XI_BOUNCE], the other draws
+    [4, n])."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    return (torch.empty((n, 3), **f32), torch.empty((n, 3), **f32),
+            torch.empty((n, XI_BOUNCE), **f32),
+            torch.empty((BOUNCE_DRAWS - XI_BOUNCE, n), **f32))
+
+
 def wave_pre(lanes: Lanes, live: torch.Tensor, cfg):
     """The live lanes' (o [n, 3], d [n, 3], xi [n, XI_BOUNCE], the other
     draws [4, n]) for the bounce, after regeneration; ``live`` the int64
@@ -188,24 +212,68 @@ def wave_pre(lanes: Lanes, live: torch.Tensor, cfg):
     n = live.shape[0]
     _check_lanes(L)
     _build.check(live, "live", torch.int64, (n,), dev)
-    f32 = dict(dtype=torch.float32, device=dev)
-    o, d = torch.empty((n, 3), **f32), torch.empty((n, 3), **f32)
-    xi = torch.empty((n, XI_BOUNCE), **f32)
-    xr = torch.empty((BOUNCE_DRAWS - XI_BOUNCE, n), **f32)
-    seed_mix, seed_raw = seed_words(cfg.seed)
-    _build.launch(
-        "gvr_wave_pre", _build.ptr(live), n, _build.ptr(L.ids),
-        _build.ptr(L.cam), cfg.width, cfg.height, strat_n(cfg.spp),
-        int(isinstance(L.camera, PinholeCamera)), cfg.spp,
-        ctypes.c_uint32(seed_mix), ctypes.c_uint32(seed_raw),
-        *(_build.ptr(t) for t in (L.o, L.d, L.thr, L.alive, L.sample,
-                                  L.bounce, L.slot, o, d, xi, xr)),
-        device=dev)
+    out = _pre_out(n, dev)
+    _build.launch("gvr_wave_pre", live, n, None, *_pre_tail(L, cfg, out, n),
+                  device=dev)
     wave_pre.launches += 1
-    return o, d, xi, xr
+    return out
 
 
 wave_pre.launches = 0
+
+
+def bind_wave_pre(lanes: Lanes, cfg):
+    """K8's first launch for a loop whose live list stays on the card,
+    bound once to the chunk's lanes (B of them).  Returns (``pre(live, n,
+    count)``, out): out = (o [B, 3], d [B, 3], xi [B, XI_BOUNCE], the
+    other draws [4, B]), the bounce's inputs, whose first rows each call
+    fills; live and count device pointers (ints) of a live list (int64
+    [B]) and of its count (int32), and n >= the count, which sizes the
+    grid.  Each call counts in ``wave_pre.launches``."""
+    L = lanes
+    dev, b = L.ids.device, L.ids.shape[0]
+    _check_lanes(L)
+    out = _pre_out(b, dev)
+    call = _build.bind("gvr_wave_pre", *_pre_tail(L, cfg, out, b),
+                       device=dev)
+
+    def pre(live: int, n: int, count: int) -> None:
+        call(live, n, count)
+        wave_pre.launches += 1
+
+    return pre, out
+
+
+def _post_tail(L: Lanes, xr, res, w_ne: float, env, cfg) -> tuple:
+    """``gvr_wave_post``'s arguments after (live, n, count, next,
+    next_count), checked: ``res`` (t_sc, scattered, albedo, li) of n_res
+    slots, ``xr`` [4, stride]."""
+    dev = L.ids.device
+    t_sc, scattered, albedo, li = res
+    n_res = t_sc.shape[0]
+    for name, t in (("t_sc", t_sc), ("albedo", albedo)):
+        _build.check(t, name, torch.float32, (n_res,), dev)
+    if scattered.dtype not in (torch.bool, torch.float32):
+        raise ValueError(f"scattered: dtype {scattered.dtype}, expected "
+                         f"torch.bool or torch.float32")
+    _build.check(scattered, "scattered", scattered.dtype, (n_res,), dev)
+    if li.dtype != torch.float32 or li.shape != (n_res, 3) \
+            or li.device != dev:
+        raise ValueError(f"li: {li.dtype} {tuple(li.shape)} on "
+                         f"{li.device}, expected float32 ({n_res}, 3) on "
+                         f"{dev}")
+    stride = xr.shape[-1]
+    _build.check(xr, "xr", torch.float32, (BOUNCE_DRAWS - XI_BOUNCE, stride),
+                 dev)
+    _build.check(env, "env", torch.float32, (3,), dev)
+    flag = scattered.dtype == torch.bool
+    return (L.o, L.d, L.thr, L.acc, L.alive, L.sample, L.bounce, L.slot,
+            t_sc, scattered if flag else None, None if flag else scattered,
+            albedo, li, li.stride(0), li.stride(1), xr, stride, env,
+            ctypes.c_float(INV_4PI), ctypes.c_float(w_ne), cfg.min_scatter,
+            ctypes.c_float(cfg.rr_cap), cfg.rr_tail_after,
+            ctypes.c_float(cfg.rr_cap_tail), cfg.max_bounces, cfg.spp,
+            L.want)
 
 
 def wave_post(lanes: Lanes, live: torch.Tensor, xr, res, w_ne: float,
@@ -221,28 +289,43 @@ def wave_post(lanes: Lanes, live: torch.Tensor, xr, res, w_ne: float,
         return wave_post_reference(L, live, xr, res, w_ne, env, cfg)
     dev, b, n = L.ids.device, L.ids.shape[0], live.shape[0]
     _check_lanes(L)
-    t_sc, scattered, albedo, li = res
-    for name, t, dtype in (("t_sc", t_sc, torch.float32),
-                           ("scattered", scattered, torch.bool),
-                           ("albedo", albedo, torch.float32)):
-        _build.check(t, name, dtype, (n,), dev)
-    if li.dtype != torch.float32 or li.shape != (n, 3) or li.device != dev:
-        raise ValueError(f"li: {li.dtype} {tuple(li.shape)} on "
-                         f"{li.device}, expected float32 ({n}, 3) on {dev}")
-    _build.check(xr, "xr", torch.float32, (BOUNCE_DRAWS - XI_BOUNCE, n), dev)
-    _build.check(env, "env", torch.float32, (3,), dev)
-    _build.launch(
-        "gvr_wave_post", b,
-        *(_build.ptr(t) for t in (L.o, L.d, L.thr, L.acc, L.alive, L.sample,
-                                  L.bounce, L.slot, t_sc, scattered, albedo,
-                                  li)),
-        li.stride(0), li.stride(1), _build.ptr(xr), n, _build.ptr(env),
-        ctypes.c_float(INV_4PI), ctypes.c_float(w_ne), cfg.min_scatter,
-        ctypes.c_float(cfg.rr_cap), cfg.rr_tail_after,
-        ctypes.c_float(cfg.rr_cap_tail), cfg.max_bounces, cfg.spp,
-        _build.ptr(L.want), device=dev)
+    if res[0].shape[0] != n or xr.shape[-1] != n:
+        raise ValueError(f"res and xr: {res[0].shape[0]} and "
+                         f"{xr.shape[-1]} lanes, expected {n}")
+    _build.launch("gvr_wave_post", None, b, None, None, None,
+                  *_post_tail(L, xr, res, w_ne, env, cfg), device=dev)
     wave_post.launches += 1
     return L.want
 
 
 wave_post.launches = 0
+
+
+def bind_wave_post(lanes: Lanes, xr, res, w_ne: float, env: torch.Tensor,
+                   cfg):
+    """K8's second launch for a loop whose live list stays on the card,
+    bound once to the chunk's lanes (B of them), the other draws ``xr``
+    [4, B] and the bounce's results ``res`` (t_sc [B], scattered [B] bool,
+    or float32 read as > 0.5, albedo [B], li [B, 3], any strides), each
+    live lane's at its entry in the live list.  Returns ``post(live, n,
+    count, nxt, nxt_count)``, device pointers (ints): it runs the lanes of
+    the live list (int64 [B]) of the count (int32; n >= it sizes the
+    grid) and appends each lane with a path to trace to the list nxt,
+    counted in nxt_count (0 before the call).  A lane outside the list
+    has no path left, and is left as it is.  Each call counts in
+    ``wave_post.launches``."""
+    L = lanes
+    dev, b = L.ids.device, L.ids.shape[0]
+    _check_lanes(L)
+    if res[0].shape[0] != b or xr.shape[-1] != b:
+        raise ValueError(f"res and xr: {res[0].shape[0]} and "
+                         f"{xr.shape[-1]} slots, expected {b}")
+    call = _build.bind("gvr_wave_post",
+                       *_post_tail(L, xr, res, w_ne, env, cfg), device=dev)
+
+    def post(live: int, n: int, count: int, nxt: int,
+             nxt_count: int) -> None:
+        call(live, n, count, nxt, nxt_count)
+        wave_post.launches += 1
+
+    return post

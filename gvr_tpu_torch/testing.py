@@ -559,6 +559,33 @@ def big_kernel_vs_plain(table, boxes, o, d, xi, lights, env,
     return res
 
 
+def big_loops(scene, camera, cfg, ids) -> list:
+    """The big-N loop (``wavefront_pixels_big``: the live lanes kept on the
+    device) and the loop with a host read an iteration
+    (``multiscatter._table_wavefront``) with K4 and K5
+    (``bounce_step_big``) over the pixel ids [B] of one chunk, each under
+    a RenderStats: [(radiance [B, 3], the stats dict, the counters)] of
+    the two."""
+    from gvr_tpu_torch.integrators import multiscatter
+    from gvr_tpu_torch.utils import profiling
+
+    pb = pathtrace_big
+    table, boxes = pb.pack_rows(scene.medium), pb.chunk_boxes(scene.medium)
+    bounce = lambda o, d, xi, lights, env: pb.bounce_step_big(
+        table, o, d, xi, lights, env, cfg.solver_iters, boxes)
+    runs = (lambda st: multiscatter.wavefront_pixels_big(
+                scene, camera, cfg, ids, st, (table, boxes)),
+            lambda st: multiscatter._table_wavefront(
+                scene, camera, cfg, ids, st, bounce))
+    out = []
+    for run in runs:
+        rec, st = profiling.RenderStats(), {}
+        with rec.span("chunk"):
+            img = run(st)
+        out.append((img, st, rec.counters))
+    return out
+
+
 def roulette_edges(cfg, thr, albedo, bounce, u) -> torch.Tensor:
     """Russian roulette's draws u [n] of lanes with throughput thr [n, 3],
     the bounce's albedo [n] and bounce [n], with every third lane's draw

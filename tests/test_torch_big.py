@@ -30,6 +30,7 @@ from gvr_tpu_torch import cli
 from gvr_tpu_torch.accel import grid as tgrid
 from gvr_tpu_torch.cameras import PinholeCamera
 from gvr_tpu_torch.config import RenderConfig
+from gvr_tpu_torch.integrators import multiscatter as tms
 from gvr_tpu_torch.integrators.multiscatter import (engine_for,
                                                     render_multiscatter,
                                                     wavefront_pixels_big)
@@ -38,7 +39,8 @@ from gvr_tpu_torch.kernels import pathtrace as tpt
 from gvr_tpu_torch.kernels import pathtrace_big as tpb
 from gvr_tpu_torch.scene.gaussians import GaussianMixture, morton_order
 from gvr_tpu_torch.scene.scene import MORTON_MIN_N, parse_gmm
-from gvr_tpu_torch.testing import BIG_DENSE_BARS, big_agreement, big_rays
+from gvr_tpu_torch.testing import (BIG_DENSE_BARS, big_agreement, big_loops,
+                                   big_rays)
 
 # test_pallas_kernels.test_big_kernel_matches_xla's scene, and one above
 # MEGA_MAX_GAUSSIANS that the dense engine sends to K4/K5
@@ -391,6 +393,55 @@ def test_big_wavefront_matches_jax():
     assert abs(got.mean() - want.mean()) < 5e-3 * want.mean()
     assert 4 <= stats["iterations"] <= 4 * 4 + 4
     assert int(stats["bounce_evals"]) >= 256 * 4
+
+
+# case: (RenderConfig's keys, how the chunk's loop ends)
+BIG_LOOP_ENDS = {
+    # a count of 0 read with spare iterations enqueued past it (at most
+    # spp * max_bounces iterations have lanes, so a lead up to
+    # max_bounces reads the 0 before cap)
+    "spare": dict(spp=2, max_bounces=8),
+    # max_bounces 1: a lane's every sample is one iteration, so the loop
+    # has lanes for spp iterations and reaches cap = spp + 1 before it
+    # reads the 0
+    "cap": dict(spp=3, max_bounces=1),
+}
+
+
+@pytest.mark.parametrize("lead", [2, 8])
+@pytest.mark.parametrize("case", sorted(BIG_LOOP_ENDS))
+def test_big_loop_matches_the_host_read_loop(monkeypatch, case, lead):
+    """The big-N loop, its live lanes and their count kept on the device,
+    against the loop that reads them on the host each iteration, both
+    over K4 and K5's plain versions at 2,100 Gaussians and 16 x 8 pixels
+    in one chunk: the same image bit for bit, the same iterations, bounce
+    evaluations, lanes_traced and lane_slots; the iterations it enqueued
+    past the end (spare) and its waits counted as the CPU's reader, which
+    reads a count only by waiting, makes them."""
+    monkeypatch.setattr(tms, "LIVE_READ_LEAD", lead)
+    sc = parse_gmm(_text(2100))
+    cam = PinholeCamera.create([0, 1, 6], [0, 1, 0], 0.25 * math.pi)
+    cfg = RenderConfig(width=16, height=8, **BIG_LOOP_ENDS[case])
+    ids = tms.tile_ids(16, 8, "cpu")
+    (img, st, rec), (want, st_w, rec_w) = big_loops(sc, cam, cfg, ids)
+    assert img.std() > 0 and torch.equal(img, want)
+    assert st["iterations"] == st_w["iterations"] > 0
+    assert int(st["bounce_evals"]) == st_w["bounce_evals"]
+    for k in ("lanes_traced", "lane_slots"):
+        assert rec[k] == rec_w[k], k
+    assert rec["lanes_traced"] == st_w["bounce_evals"]
+    assert rec["lane_slots"] == 128 * st["iterations"]
+    cap = cfg.spp * cfg.max_bounces + cfg.max_bounces
+    enqueued = st["iterations"] + st["spare_iterations"]
+    assert rec["wavefront_spare_iterations"] == st["spare_iterations"]
+    # the CPU's reader reads iteration t's count (counts[t + 1]) at its
+    # (t + 1)-th wait, once lead iterations are unread
+    if case == "cap":
+        assert st["iterations"] == cfg.spp and enqueued == cap
+        assert rec["wavefront_host_waits"] == max(0, cap - lead)
+    else:
+        assert st["spare_iterations"] == lead - 1 and enqueued < cap
+        assert rec["wavefront_host_waits"] == st["iterations"]
 
 
 def _render_stats(text, cfg):

@@ -59,7 +59,7 @@ from gvr_tpu_torch.scene.voxels import VoxelGrid
 from gvr_tpu_torch.testing import (BIG_DENSE_BARS, BOUNCE_BARS,
                                    PATH_BOUNCE_BARS, bake_agreement,
                                    bounce_agreement, random_lanes,
-                                   big_kernel_vs_plain, big_rays,
+                                   big_kernel_vs_plain, big_loops, big_rays,
                                    card_cpu_agreement, chunk_agreement,
                                    gif_structure, image_agreement,
                                    fit_agreement, mega_agreement,
@@ -853,7 +853,9 @@ def test_big_wavefront_kernel_matches_plain(cuda_device):
 
 def test_big_render_launches_the_kernels(cuda_device):
     """engine='dense' above 2,048 Gaussians renders through K4 and K5, one
-    launch each an iteration, and calls no plain version."""
+    launch each an iteration enqueued (those with live lanes and the spare
+    ones past the end, which the loop enqueues before it has read that
+    the chunk ended), and calls no plain version."""
     counters = (tpb.big_stage1, tpb.big_nee, tpb.big_stage1_reference,
                 tpb.big_nee_reference, tmt.mega_call)
     for fn in counters:
@@ -866,8 +868,29 @@ def test_big_render_launches_the_kernels(cuda_device):
         device=cuda_device, stats=stats)
     assert np.isfinite(img).all() and img.std() > 0
     assert stats["kernel"] == "big" and stats["iterations"] > 0
-    assert [fn.launches for fn in counters] == [stats["iterations"]] * 2 \
-        + [0, 0, 0]
+    enqueued = stats["iterations"] + stats["spare_iterations"]
+    assert [fn.launches for fn in counters] == [enqueued] * 2 + [0, 0, 0]
+
+
+def test_big_loop_on_card_matches_the_host_read_loop(cuda_device):
+    """The big-N loop on the card (K8 in list mode, K4 and K5 reading the
+    live count on the card) against the loop that reads the live lanes on
+    the host each iteration (K8 in host mode, K4 and K5 sized by that
+    read) at 2,100 Gaussians, 32^2 spp 4 in one chunk: the same image bit
+    for bit, the same iterations, bounce evaluations, lanes_traced and
+    lane_slots, and at most LIVE_READ_LEAD spare iterations."""
+    sc = parse_gmm(random_gaussian_scene(2100, seed=0), device=cuda_device)
+    cam = _cameras(cuda_device)[0]
+    cfg = RenderConfig(width=32, height=32, spp=4)
+    ids = tms.tile_ids(32, 32, cuda_device)
+    (img, st, rec), (want, st_w, rec_w) = big_loops(sc, cam, cfg, ids)
+    assert img.std() > 0 and torch.equal(img, want)
+    assert st["iterations"] == st_w["iterations"] > 0
+    assert int(st["bounce_evals"]) == st_w["bounce_evals"]
+    for k in ("lanes_traced", "lane_slots"):
+        assert rec[k] == rec_w[k], k
+    assert rec["wavefront_spare_iterations"] == st["spare_iterations"] \
+        <= tms.LIVE_READ_LEAD
 
 
 # ---- K8, the dense wavefront's glue ----------------------------------------
@@ -921,12 +944,69 @@ def test_wave_kernel_matches_plain(cuda_device, camera):
         assert _lanes_equal(k, p) == []
 
 
+def test_wave_kernel_list_mode_matches_plain(cuda_device):
+    """K8 in list mode (``bind_wave_pre``, ``bind_wave_post``: the live
+    list and its count on the card, the grid sized by the capacity)
+    against its plain version on 65,536 random lane states
+    (testing.random_lanes), bit for bit: the bounce's inputs in the
+    list's first rows, every lane's state (a lane outside the list keeps
+    its bounce, which the plain version counts on), and the next list, in
+    any order, with its count; then a launch of each with a count of 0,
+    which changes nothing."""
+    cam = _cameras(cuda_device)[0]
+    cfg = RenderConfig(width=320, height=205, spp=9, max_bounces=6,
+                       min_scatter=1, rr_tail_after=3, seed=2**31 + 7)
+    b = 65_536
+    lanes, live, res, edges = random_lanes(cfg, cam, b, cuda_device, seed=4)
+    n = live.shape[0]
+    plain, start = _clone_lanes(lanes), _clone_lanes(lanes)
+    lists = torch.zeros((2, b), dtype=torch.int64, device=cuda_device)
+    lists[0, :n] = live
+    counts = torch.tensor([n, 0, 0], dtype=torch.int32, device=cuda_device)
+    pre, out = twf.bind_wave_pre(lanes, cfg)
+    pre(lists[0].data_ptr(), b, counts.data_ptr())
+    want = twf.wave_pre_reference(plain, live, cfg)
+    for name, g, w in zip(("o", "d", "xi"), out, want):
+        assert torch.equal(g[:n], w), name
+    assert torch.equal(out[3][:, :n], want[3])
+    assert _lanes_equal(lanes, plain) == []
+    xr = out[3]
+    xr[0, :n] = edges(plain, xr[0, :n])
+    pad = lambda t: torch.cat([t, torch.zeros((b - n,) + t.shape[1:],
+                                              dtype=t.dtype,
+                                              device=cuda_device)])
+    res_b = (pad(res[0]), pad(res[1].float()), pad(res[2]), pad(res[3]))
+    env = torch.tensor([0.3, 0.5, 0.9], device=cuda_device)
+    post = twf.bind_wave_post(lanes, xr, res_b, 4.0, env, cfg)
+    post(lists[0].data_ptr(), b, counts.data_ptr(), lists[1].data_ptr(),
+         counts.data_ptr() + 4)
+    mask = twf.wave_post_reference(plain, live, xr[:, :n].contiguous(), res,
+                                   4.0, env, cfg)
+    bounce = plain.bounce.clone()
+    outside = torch.ones(b, dtype=torch.bool, device=cuda_device)
+    outside[live] = False
+    bounce[outside] = start.bounce[outside]
+    plain.bounce = bounce
+    assert _lanes_equal(lanes, plain) == []
+    m = int(counts[1])
+    assert m == int(mask.sum()) > 0
+    assert torch.equal(lists[1, :m].sort().values,
+                       torch.nonzero(mask).squeeze(1))
+    before = _clone_lanes(lanes)
+    zero = counts.data_ptr() + 8
+    pre(lists[1].data_ptr(), b, zero)
+    post(lists[1].data_ptr(), b, zero, lists[0].data_ptr(), zero)
+    assert _lanes_equal(lanes, before) == [] and int(counts[2]) == 0
+
+
 @pytest.mark.parametrize("engine", ["big", "step", "xla"])
 def test_wavefront_image_same_with_plain_glue(cuda_device, monkeypatch,
                                               engine):
     """render_multiscatter at 128^2 spp 16 through the big-N, step and
     XLA engines on the card: the same bytes with K8 as with its plain
-    version run eagerly on the card (the eager loop K8 replaced)."""
+    version run eagerly on the card (the eager loop K8 replaced); on the
+    big-N path, whose loop binds its launches once a chunk, its plain
+    step (K8's plain versions and K4/K5 sized by a host read)."""
     n, kw = {"big": (2100, dict(engine="dense")),
              "step": (250, dict(wavefront="step")),
              "xla": (250, dict(solver=Solver.BISECTION))}[engine]
@@ -938,6 +1018,7 @@ def test_wavefront_image_same_with_plain_glue(cuda_device, monkeypatch,
     assert stats["kernel"] == engine
     monkeypatch.setattr(tms, "wave_pre", twf.wave_pre_reference)
     monkeypatch.setattr(tms, "wave_post", twf.wave_post_reference)
+    monkeypatch.setattr(tms, "_big_kernel_step", tms._big_plain_step)
     before = twf.wave_pre.launches
     want = render_multiscatter(sc, cam, cfg, device=cuda_device)
     assert twf.wave_pre.launches == before
@@ -1354,7 +1435,7 @@ def test_cli_render_at_size(cuda_device, tmp_path, case):
             assert launches["wave_uniforms"] == stats["iterations"]
         if "wave_pre" in kernels:
             assert launches["wave_pre"] == launches["wave_post"] \
-                == stats["iterations"]
+                == stats["iterations"] + stats["spare_iterations"]
     img = read_ppm(str(out))
     assert img.shape == (size, size, 3) and img.std() > 0
     assert ppm[0] == ppm[1]
@@ -1500,7 +1581,8 @@ def test_dp_render_on_card_is_one_process(cuda_device, card_ranks, label):
         assert not any(v for k, v in launches.items()
                        if k.endswith("_reference")), launches
         for k in ("bounce_step", "wave_pre", "wave_post"):
-            assert launches[k] in (0, st["iterations"]), (k, launches)
+            assert launches[k] in (0, st["iterations"]
+                                   + st["spare_iterations"]), (k, launches)
 
 
 def test_tp_on_card_matches_one_device(cuda_device, card_ranks):

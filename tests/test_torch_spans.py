@@ -88,11 +88,15 @@ def test_a_render_records_nothing_by_default(monkeypatch):
 @pytest.mark.parametrize("path", sorted(PATHS))
 def test_a_traced_render_records_its_spans_and_counters(path):
     """Under torch.profiler().start(): the root span, render.prepare,
-    the chunks, one wavefront.iteration per iteration each with one
-    wavefront.live_read child, render.readback, and the wavefronts'
-    counters, lanes_traced equal to the render's bounce evaluations; and
-    no range in the profiler's trace, which the program did not
-    annotate."""
+    the chunks, one wavefront.iteration per iteration enqueued,
+    render.readback, and the wavefronts' counters, lanes_traced equal to
+    the render's bounce evaluations; and no range in the profiler's
+    trace, which the program did not annotate.  The step and grid loops
+    read the live lanes once an iteration, a wavefront.live_read child of
+    each, and once before each chunk's first; the big-N loop keeps them
+    on the device, enqueues spare iterations past the end and has a
+    wavefront.live_read child only where it waited for a count
+    (wavefront_host_waits)."""
     stats, rec, marks = _traced(path)
     assert not {s.name for s in rec.spans} & set(marks)
     assert stats["kernel"] == PATHS[path][2]
@@ -110,15 +114,25 @@ def test_a_traced_render_records_its_spans_and_counters(path):
     assert len(chunks) == stats["chunks"]
     assert all(c.parent == root.id for c in chunks)
     iters = named(ITERATION)
-    assert len(iters) == stats["iterations"]
+    assert len(iters) == stats["iterations"] + stats.get("spare_iterations",
+                                                          0)
     assert all(by_id[s.parent].name == "chunk" for s in iters)
     reads = {}
     for s in named(LIVE_READ):
         reads[s.parent] = reads.get(s.parent, 0) + 1
-    assert all(reads.get(s.id) == 1 for s in iters)
-    # and one before each chunk's first iteration
-    assert sum(reads.values()) == len(iters) + (len(chunks) if iters
-                                                else 0)
+    if path == "big":
+        counters = rec.counters[root.render]
+        assert stats["spare_iterations"] > 0
+        assert counters["wavefront_spare_iterations"] == \
+            stats["spare_iterations"]
+        assert set(reads) <= {s.id for s in iters}
+        assert set(reads.values()) == {1}
+        assert sum(reads.values()) == counters["wavefront_host_waits"] > 0
+    else:
+        assert all(reads.get(s.id) == 1 for s in iters)
+        # and one before each chunk's first iteration
+        assert sum(reads.values()) == len(iters) + (len(chunks) if iters
+                                                    else 0)
     for s in rec.spans:
         if s.parent is not None:
             p = by_id[s.parent]
